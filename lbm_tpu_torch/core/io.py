@@ -1,0 +1,78 @@
+"""Exact-format `.dat` output writers / readers.
+
+A copy of the numpy writers and readers of `lbm_tpu.core.io`; output files
+are byte-identical to it for the same arrays. Formats:
+  * av_vels.dat     — `<step>:\\t<%.12E>` per line
+                      (main/LastChance.cpp:627-630)
+  * final_state.dat — `x y u_x u_y u pressure obstacle` per cell, %.12E
+                      floats (main/LastChance.cpp:571-616)
+
+The obstacle column holds the correct flag (the original writer transposes
+its index, main/LastChance.cpp:614); the checker compares only columns 0, 1
+and 5. The native C++ writer of the JAX package is not ported.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+from .params import Params
+from .state import macroscopics
+
+
+def write_av_vels(path: str | Path, av_vels: np.ndarray) -> None:
+    with open(path, "w") as fh:
+        fh.writelines(f"{i}:\t{float(v):.12E}\n" for i, v in enumerate(np.asarray(av_vels)))
+
+
+def read_av_vels(path: str | Path) -> np.ndarray:
+    vals = []
+    for line in Path(path).read_text().splitlines():
+        if line:
+            vals.append(float(line.split(":\t")[1]))
+    return np.asarray(vals, dtype=np.float64)
+
+
+def final_state_fields(params: Params, obstacle_mask: np.ndarray, f: np.ndarray):
+    """Per-cell (u_x, u_y, u, pressure) with obstacle-cell conventions applied."""
+    dtype = f.dtype
+    _, u_x, u_y, u = macroscopics(f)
+    rho = f.sum(axis=0, dtype=dtype)
+    c_sq = np.asarray(1.0, dtype=dtype) / np.asarray(3.0, dtype=dtype)
+    pressure = rho * c_sq
+    obs_pressure = np.asarray(params.density, dtype=dtype) * c_sq
+    zero = np.asarray(0.0, dtype=dtype)
+    u_x = np.where(obstacle_mask, zero, u_x)
+    u_y = np.where(obstacle_mask, zero, u_y)
+    u = np.where(obstacle_mask, zero, u)
+    pressure = np.where(obstacle_mask, obs_pressure, pressure)
+    return u_x, u_y, u, pressure
+
+
+def write_final_state_arrays(path: str | Path, u_x, u_y, u, pressure,
+                             obstacle_mask) -> None:
+    """Write per-cell fields in the final_state.dat row format
+    (`x y u_x u_y u pressure obstacle`, %.12E)."""
+    ny, nx = obstacle_mask.shape
+    with open(path, "w") as fh:
+        for jj in range(ny):
+            ux_r, uy_r, u_r, p_r, o_r = u_x[jj], u_y[jj], u[jj], pressure[jj], obstacle_mask[jj]
+            fh.writelines(
+                f"{ii} {jj} {float(ux_r[ii]):.12E} {float(uy_r[ii]):.12E}"
+                f" {float(u_r[ii]):.12E} {float(p_r[ii]):.12E} {int(o_r[ii])}\n"
+                for ii in range(nx)
+            )
+
+
+def write_final_state(
+    path: str | Path, params: Params, obstacle_mask: np.ndarray, f: np.ndarray
+) -> None:
+    u_x, u_y, u, pressure = final_state_fields(params, obstacle_mask, f)
+    write_final_state_arrays(path, u_x, u_y, u, pressure, obstacle_mask)
+
+
+def read_final_state(path: str | Path) -> np.ndarray:
+    """Returns an (N, 7) float64 array of the final_state columns."""
+    return np.loadtxt(path, dtype=np.float64, ndmin=2)

@@ -1,0 +1,94 @@
+"""Lattice state: initialisation and macroscopic quantities (host/numpy side).
+
+A copy of the numpy helpers of `lbm_tpu.core.state`, plus `to_torch`, which
+hands a numpy state and mask to the port as tensors on a chosen device.
+
+The distribution state is one array `f` of shape (9, ny, nx): the nine D2Q9
+speed planes. Speed numbering follows the original serial kernel
+(main/LastChance.cpp:7-13):
+
+        6 2 5
+         \\|/
+        3-0-1
+         /|\\
+        7 4 8
+
+i.e. 0=rest, 1=E, 2=N, 3=W, 4=S, 5=NE, 6=NW, 7=SW, 8=SE, with row index jj
+increasing northwards and column index ii increasing eastwards.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .params import Params
+
+NUM_SPEEDS = 9
+
+# (drow, dcol) unit velocity of each speed, in (jj, ii) grid coordinates.
+SPEED_VECTORS = np.array(
+    [
+        (0, 0),  # 0 rest
+        (0, 1),  # 1 east
+        (1, 0),  # 2 north
+        (0, -1),  # 3 west
+        (-1, 0),  # 4 south
+        (1, 1),  # 5 north-east
+        (1, -1),  # 6 north-west
+        (-1, -1),  # 7 south-west
+        (-1, 1),  # 8 south-east
+    ],
+    dtype=np.int32,
+)
+
+# Index of the opposite speed (for bounce-back rebound),
+# matching main/LastChance.cpp:213-223.
+OPPOSITE = np.array([0, 3, 4, 1, 2, 7, 8, 5, 6], dtype=np.int32)
+
+
+def initial_distributions(params: Params, dtype=np.float32) -> np.ndarray:
+    """Uniform-density initial state (main/LastChance.cpp:428-450).
+
+    w0 = 4*rho/9 (rest), w1 = rho/9 (axis), w2 = rho/36 (diagonal).
+    """
+    dtype = np.dtype(dtype)
+    d = np.asarray(params.density, dtype=dtype)
+    w0 = d * np.asarray(4.0, dtype) / np.asarray(9.0, dtype)
+    w1 = d / np.asarray(9.0, dtype)
+    w2 = d / np.asarray(36.0, dtype)
+    f = np.empty((NUM_SPEEDS, params.ny, params.nx), dtype=dtype)
+    f[0] = w0
+    f[1:5] = w1
+    f[5:9] = w2
+    return f
+
+
+def macroscopics(f: np.ndarray):
+    """Per-cell density, u_x, u_y, |u| from a (9, ny, nx) state, in the
+    expression grouping of main/LastChance.cpp:227-231."""
+    rho = f[0] + f[1] + f[2] + f[3] + f[4] + f[5] + f[6] + f[7] + f[8]
+    u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7])) / rho
+    u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8])) / rho
+    u = np.sqrt(u_x * u_x + u_y * u_y)
+    return rho, u_x, u_y, u
+
+
+def total_density(f: np.ndarray) -> float:
+    """Conserved quantity check (main/LastChance.cpp:536-552)."""
+    return float(f.sum(dtype=np.float64))
+
+
+def to_torch(f_np: np.ndarray, mask_np: np.ndarray, *, device, dtype=None):
+    """(9, ny, nx) numpy state and (ny, nx) obstacle mask -> the port's
+    tensors on `device`: the state in `dtype` (default: its own dtype) and
+    the mask as bool. Both are contiguous copies."""
+    if f_np.ndim != 3 or f_np.shape[0] != NUM_SPEEDS:
+        raise ValueError(f"state must have shape (9, ny, nx), got {f_np.shape}")
+    if mask_np.shape != f_np.shape[1:]:
+        raise ValueError(f"mask shape {mask_np.shape} != grid {f_np.shape[1:]}")
+    f = torch.tensor(np.ascontiguousarray(f_np), device=device)
+    if dtype is not None:
+        f = f.to(dtype)
+    mask = torch.tensor(np.ascontiguousarray(mask_np, dtype=np.bool_), device=device)
+    return f, mask

@@ -1,0 +1,101 @@
+"""The port stands alone and runs on the card unless asked otherwise.
+
+* Importing every module of lbm_tpu_torch, in a fresh interpreter (this
+  process has JAX loaded by tests/conftest.py), loads neither `jax` nor any
+  `lbm_tpu` module.
+* The entry points default to CUDA: on a host without it, run_simulation()
+  and the CLI given no device raise instead of running on the CPU.
+* A kernel wrapper given a tensor that is not on the CPU launches its kernel
+  or raises; it never returns the plain result.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from lbm_tpu_torch.core import state
+from lbm_tpu_torch.core.params import Obstacles, Params
+from lbm_tpu_torch.models import lbm
+from lbm_tpu_torch.ops import d2q9_kstep, d2q9_kstep_inplace
+
+REPO = Path(__file__).resolve().parent.parent
+KW = dict(k_steps=2, omega=1.85, accel_w1=1e-4, accel_w2=2.5e-5, accel_row=6)
+
+IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import lbm_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(lbm_tpu_torch.__path__, "lbm_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "lbm_tpu.")) or m == "lbm_tpu")
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_lbm_tpu():
+    res = subprocess.run([sys.executable, "-c", IMPORT_ALL], capture_output=True, text=True,
+                         cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "lbm_tpu_torch.ops.d2q9_kstep_inplace" in out["modules"]
+    assert "lbm_tpu_torch.cli.lbm" in out["modules"]
+    assert out["bad"] == []
+
+
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the no-CUDA behaviour cannot be observed")
+
+
+def small_case():
+    p = Params(nx=32, ny=8, max_iters=4, reynolds_dim=10, density=0.1, accel=0.005,
+               omega=1.85)
+    return p, Obstacles.empty(p)
+
+
+def test_run_simulation_defaults_to_cuda_and_raises_without_it():
+    no_cuda()
+    p, obs = small_case()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lbm.run_simulation(p, obs)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lbm.run_simulation(p, obs, engine="torch", device="cuda")
+
+
+def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
+    no_cuda()
+    from lbm_tpu_torch.cli import lbm as cli
+
+    p, obs = small_case()
+    p.to_file(tmp_path / "p.params")
+    obs.to_file(tmp_path / "o.dat")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--params", str(tmp_path / "p.params"), "--obstacles", str(tmp_path / "o.dat"),
+                  "--out-dir", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("mod", [d2q9_kstep, d2q9_kstep_inplace])
+def test_wrapper_raises_on_a_non_cpu_tensor(mod):
+    f_np = np.full((9, 8, 32), 0.1 / 9)
+    mask_np = np.zeros((8, 32), bool)
+    # a CUDA tensor cannot even be made on a host without CUDA
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            state.to_torch(f_np, mask_np, device="cuda")
+    # a tensor on another device goes to the kernel's checks, which refuse
+    # it: the plain version is never the answer
+    f = torch.empty((9, 8, 32), device="meta")
+    mask = torch.empty((8, 32), dtype=torch.bool, device="meta")
+    before = mod.launches
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        mod.stepk(f, mask, **KW)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        mod.run(f, mask, num_steps=4, **KW)
+    assert mod.launches == before
+

@@ -14,7 +14,9 @@ Phases, each of which must pass or the script exits non-zero:
      valid rows and columns strictly inside, global_ny != ny): one stepk
      with the kernel and one with stepk_plain on the card, from a
      numpy-seeded state. B1 must be bit-equal to B2, also over three
-     passes of `run` (where B1 chains its boundary snapshot);
+     passes of `run` (where B1 chains its boundary snapshot); the same on
+     three grids whose width is not a multiple of 32 (narrower tiles), and
+     a width no tile divides must raise;
   3. the main path: the flagship run (1024x1024, 20,000 steps, float32)
      through `lbm_tpu_torch.cli.lbm --engine auto`, which must pick
      cuda-inplace (B1), launch it and never call the plain engine; then the
@@ -51,9 +53,11 @@ N = 1024
 # study: density 0.1, omega 1.85, accel 0.01 at 1024^2, reynolds_dim 10)
 FLAGSHIP = dict(nx=N, ny=N, max_iters=20000, reynolds_dim=10, density=0.1, accel=0.01,
                 omega=1.85)
-# kernel vs plain version: the kernels round every operation as the plain
-# version does (-fmad=false), so the state agrees to the bit; Sum|u| is
-# reduced in another order, ~1e-7 relative in float32 over 1M cells
+# kernel vs plain version: the kernels round every operation as
+# collide_fields does (-fmad=false), but the plain version on CUDA differs by
+# about 1e-6 relative in float32 on the state (PyTorch divides by a Python
+# scalar as a multiply by its reciprocal); Sum|u| is also reduced in another
+# order, ~1e-7 relative in float32 over 1M cells
 BARS = {"float64": 1e-12, "float32": 1e-5}
 AV_VELS_BAR = 4e-4  # the bench gate on the 100-step prefix (ROADMAP.md)
 CHECK_TOLERANCE_PCT = 1.0  # verify/check.py default
@@ -164,6 +168,52 @@ def phase_parity(torch, mods, k_main):
               f"B1 run is not bit-equal to B2 run ({dname}, 3 passes of K={k_main})")
         print(f"parity B1 run == B2 run bit for bit ({dname}, 3 passes of K={k_main})")
     return abs_err
+
+
+def phase_narrow_tiles(torch, mods, k_main):
+    """Grids whose width is not a multiple of 32 run on the narrower tiles of
+    TILE_CANDIDATES (checked as in phase 2); a width that no tile divides
+    and a tile side shorter than K raise."""
+    from lbm_tpu_torch.core import state
+    d2q9_kstep, d2q9_kstep_inplace = mods
+    rng = np.random.default_rng(11)
+    aw = dict(omega=1.85, accel_w1=0.1 * 0.01 / 9, accel_w2=0.1 * 0.01 / 36)
+    for ny, nx in ((1024, 1008), (1000, 1008), (1024, 1000)):
+        th, tw, _ = d2q9_kstep.choose_config(ny, nx)
+        check(d2q9_kstep.choose_engine(ny, nx) == "cuda-inplace",
+              f"choose_engine({ny}, {nx}) is not cuda-inplace")
+        f_np, mask_np = random_state(rng, ny, nx), random_mask(rng, ny, nx)
+        for dname, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+            f, mask = state.to_torch(f_np, mask_np, device="cuda", dtype=dtype)
+            kw = dict(k_steps=k_main, accel_row=ny - 2, **aw)
+            ref_f, ref_tot = d2q9_kstep.stepk_plain(f, mask, **kw)
+            b2_f, b2_tot = d2q9_kstep.stepk(f, mask, **kw)
+            b1_f, b1_tot = d2q9_kstep_inplace.stepk(f.clone(), mask, **kw)
+            run_kw = dict(num_steps=3 * k_main, k_steps=k_main, accel_row=ny - 2, **aw)
+            r2 = d2q9_kstep.run(f, mask, **run_kw)
+            r1 = d2q9_kstep_inplace.run(f.clone(), mask, **run_kw)
+            torch.cuda.synchronize()
+            ef, et = rel_err(b2_f, ref_f), rel_err(b2_tot, ref_tot)
+            print(f"parity {ny}x{nx} tile {th}x{tw} {dname} K={k_main}: state max rel err "
+                  f"{ef:.3e}, Sum|u| max rel err {et:.3e}")
+            check(np.isfinite(ef) and ef <= BARS[dname] and np.isfinite(et) and et <= BARS[dname],
+                  f"{ny}x{nx} {dname}: kernel B2 disagrees with the plain version")
+            check(torch.equal(b1_f, b2_f) and torch.equal(b1_tot, b2_tot)
+                  and torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1]),
+                  f"{ny}x{nx} {dname}: B1 is not bit-equal to B2")
+    f, mask = state.to_torch(random_state(rng, 64, 1001), random_mask(rng, 64, 1001),
+                             device="cuda", dtype=torch.float32)
+    for what, call in (
+            ("a 64x1001 grid", lambda: d2q9_kstep.stepk(f, mask, k_steps=4, accel_row=62, **aw)),
+            ("tile 4x8 at K=8", lambda: d2q9_kstep_inplace.stepk(
+                f[:, :, :1000].contiguous(), mask[:, :1000], k_steps=8, accel_row=62,
+                tile=(4, 8), **aw))):
+        try:
+            call()
+        except ValueError as err:
+            print(f"raises as it must on {what}: {err}")
+        else:
+            raise Failure(f"no error on {what}")
 
 
 def phase_timing(torch, mods, k_main):
@@ -323,6 +373,7 @@ def main() -> int:
         th, tw, k_main = d2q9_kstep.choose_config(N, N, torch.float32)
         print(f"choose_config(1024, 1024, float32) = tile {th}x{tw}, K={k_main}")
         abs_err = phase_parity(torch, mods, k_main)
+        phase_narrow_tiles(torch, mods, k_main)
         ms, plain_ms, bound = phase_timing(torch, mods, k_main)
         t0 = time.perf_counter()
         golden, mask = load_golden()

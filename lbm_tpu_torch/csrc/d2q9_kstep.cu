@@ -42,9 +42,11 @@
 //     lattice, written once and read once per pass.
 //   * both kernels share the load-compute-store code and the reduction
 //     order, so for the same tiles B1 is bit-identical to B2.
-// The library is compiled with -fmad=false: every product and sum rounds on
-// its own, as in the plain PyTorch version, so kernel and plain version agree
-// on the state to the bit and only the order of the Sum|u| reduction differs.
+// The library is compiled with -fmad=false: every product, sum and division
+// rounds on its own, as in collide_fields. The plain PyTorch version on CUDA
+// still differs by about 1e-6 relative in float32 (1e-15 in float64): PyTorch
+// divides by a Python scalar as a multiply by its reciprocal. The order of the
+// Sum|u| reduction differs too.
 //
 // Interface: plain C, one entry per (kernel, dtype), each launching on the
 // given stream and returning cudaGetLastError() after every launch. The

@@ -43,8 +43,10 @@ WARPS_PER_BLOCK = 8
 # pass. Measured at 1024^2 float32 on an H100 (experiments/cuda-kstep-tiles/
 # results.csv): 16x32 at K=4 is the fastest of 28 (tile, K) pairs for both
 # kernels (B1 0.120 ms per pass, B2 0.093); K=2 and K=8 lose at every tile.
-# 8x32 (B1 0.133 ms) serves grids whose height is a multiple of 8 only.
-TILE_CANDIDATES = ((16, 32), (8, 32))
+# 8x32 (B1 0.133 ms) serves grids whose height is a multiple of 8 only; the
+# narrower tiles, not timed, serve widths that are not a multiple of 32. The
+# kernels take any tile whose sides are at least K.
+TILE_CANDIDATES = ((16, 32), (8, 32), (16, 16), (8, 16), (8, 8))
 PREFERRED_K = 4
 
 
@@ -76,12 +78,14 @@ def choose_config(h: int, w: int, dtype=torch.float32) -> tuple[int, int, int] |
 def choose_engine(h: int, w: int) -> str:
     """The engine that run_simulation's 'auto' picks for an (h, w) grid.
 
-    'cuda-inplace' (kernel B1) wherever a tile divides the grid: on the card
-    it runs any such grid, with no minimum band count (unlike the TPU's
-    in-place pipeline), and keeps one lattice in memory instead of two.
-    Elsewhere the plain 'torch' engine."""
-    fits = any(h % th == 0 and w % tw == 0 for th, tw in TILE_CANDIDATES)
-    return "cuda-inplace" if fits else "torch"
+    As `lbm_tpu.ops.d2q9_pallas.choose_engine`, only the height decides:
+    the plain 'torch' engine when it is not a multiple of 8, else
+    'cuda-inplace' (kernel B1), which keeps one lattice in memory instead of
+    two and needs no minimum band count (unlike the TPU's in-place
+    pipeline). A width that no tile divides (not a multiple of 8) makes the
+    kernel raise; it is not sent to the plain engine."""
+    del w  # the width never decides the engine, as in the reference
+    return "torch" if h % 8 else "cuda-inplace"
 
 
 def obstacle_bool(mask: torch.Tensor) -> torch.Tensor:
@@ -156,6 +160,10 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int, tile,
     th, tw = tile
     if ny % th or nx % tw:
         raise ValueError(f"tile {tile} must divide the {ny}x{nx} grid")
+    if min(th, tw) < k_steps:
+        # B1 hands each pass the K-deep ring of every tile as the next
+        # pass's halo snapshot; both kernels keep one rule
+        raise ValueError(f"tile {tile} has a side shorter than k_steps={k_steps}")
     if smem_bytes(th, tw, k_steps, f.element_size()) > SMEM_PER_BLOCK:
         raise ValueError(f"tile {tile} at K={k_steps} needs more than {SMEM_PER_BLOCK} B "
                          "of shared memory")
@@ -261,28 +269,25 @@ def run(
     return f, tots
 
 
-def simulate_with(run_fn, params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor,
-                  k_steps: int | None = None, tile: tuple[int, int] | None = None):
+def simulate_with(run_fn, params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor):
     """First-accelerate, then max_iters steps through `run_fn` (the `run`
-    of either kernel's wrapper); K defaults to `choose_config`'s, falling
-    back to the deepest of 4/2/1 that divides max_iters. Returns (f_final,
-    av_vels) as `d2q9.simulate` does."""
+    of either kernel's wrapper), at the largest K of PREFERRED_K, PREFERRED_K/2,
+    ..., 1 that divides max_iters. Returns (f_final, av_vels) as
+    `d2q9.simulate` does."""
     aw = d2q9.AccelWeights.from_params(params)
     accel_row = params.ny - 2
     f = d2q9.first_accelerate(f, obstacle_mask, accel_row=accel_row,
                               accel_w1=aw.w1, accel_w2=aw.w2)
-    if k_steps is None:
-        config = choose_config(params.ny, params.nx, f.dtype)
-        preferred = config[2] if config else 1
-        k_steps = next((k for k in (preferred, 4, 2, 1) if params.max_iters % k == 0), 1)
+    k_steps = PREFERRED_K
+    while params.max_iters % k_steps:
+        k_steps //= 2
     f_final, tot_u = run_fn(f, obstacle_mask, num_steps=params.max_iters, omega=params.omega,
                             accel_w1=aw.w1, accel_w2=aw.w2, accel_row=accel_row,
-                            k_steps=k_steps, tile=tile)
+                            k_steps=k_steps)
     num_free = (~obstacle_bool(obstacle_mask)).sum().to(f.dtype)
     return f_final, tot_u / num_free
 
 
-def simulate(params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor,
-             k_steps: int | None = None, tile: tuple[int, int] | None = None):
+def simulate(params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor):
     """Full simulation on kernel B2. Same contract as `d2q9.simulate`."""
-    return simulate_with(run, params, f, obstacle_mask, k_steps=k_steps, tile=tile)
+    return simulate_with(run, params, f, obstacle_mask)

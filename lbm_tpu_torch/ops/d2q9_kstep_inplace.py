@@ -106,8 +106,7 @@ def run(
 ):
     """`num_steps` timesteps, `k_steps` per in-place pass. Overwrites f;
     returns (f, tot_u (num_steps,)). The first pass snapshots f's tile
-    boundaries; each pass then hands the next one its snapshot, unless a
-    tile side is shorter than K (then every pass snapshots f)."""
+    boundaries; each pass then hands the next one its snapshot."""
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
@@ -120,19 +119,16 @@ def run(
         return f, tots
     mask_u8 = d2q9_kstep.obstacle_u8(mask)
     tile, nblocks, scalars = d2q9_kstep.kernel_args(f, mask_u8, k_steps=k_steps, tile=tile, **kw)
-    chained = min(tile) >= k_steps
-    snaps = (_snapshot(f, tile, k_steps), _snapshot(f, tile, k_steps) if chained else None)
+    snaps = (_snapshot(f, tile, k_steps), _snapshot(f, tile, k_steps))
     partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
     for i in range(num_steps // k_steps):
-        snap, next_snap = (snaps[i % 2], snaps[(i + 1) % 2]) if chained else (snaps[0], None)
-        _launch(f, mask_u8, snap, i == 0 or not chained, next_snap, partials,
+        _launch(f, mask_u8, snaps[i % 2], i == 0, snaps[(i + 1) % 2], partials,
                 tots[i * k_steps:(i + 1) * k_steps], scalars)
     return f, tots
 
 
-def simulate(params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor,
-             k_steps: int | None = None, tile: tuple[int, int] | None = None):
+def simulate(params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor):
     """Full simulation on kernel B1. Same contract as `d2q9.simulate`; the
     caller's f is left as it was (first_accelerate makes the copy that the
     passes then advance in place)."""
-    return d2q9_kstep.simulate_with(run, params, f, obstacle_mask, k_steps=k_steps, tile=tile)
+    return d2q9_kstep.simulate_with(run, params, f, obstacle_mask)

@@ -119,6 +119,22 @@ def test_run_and_simulate_equal_the_plain_engine(mod):
         mod.run(f, tm, num_steps=6, k_steps=4, accel_row=NY - 2, **KW)
 
 
+@pytest.mark.parametrize("max_iters, k", [(20000, 4), (8, 4), (6, 2), (7, 1)])
+def test_simulate_takes_the_largest_k_dividing_max_iters(max_iters, k):
+    p = Params(nx=NX, ny=NY, max_iters=max_iters, reynolds_dim=10, density=0.1, accel=0.005,
+               omega=1.85)
+    _, mask = make_case(np.float64)
+    f0, tm = state.to_torch(state.initial_distributions(p, np.float64), mask, device="cpu")
+    seen = {}
+
+    def fake_run(f, mask, *, num_steps, k_steps, **kw):
+        seen.update(num_steps=num_steps, k_steps=k_steps)
+        return f, torch.ones(num_steps, dtype=f.dtype)
+
+    d2q9_kstep.simulate_with(fake_run, p, f0, tm)
+    assert seen == dict(num_steps=max_iters, k_steps=k)
+
+
 def test_choose_config_and_engine():
     # the flagship grid: the measured 16x32 tile at K=4, in both dtypes
     assert d2q9_kstep.choose_config(1024, 1024, torch.float32) == (16, 32, 4)
@@ -131,8 +147,27 @@ def test_choose_config_and_engine():
     assert d2q9_kstep.choose_engine(1024, 1024) == "cuda-inplace"
     assert d2q9_kstep.choose_engine(8, 128) == "cuda-inplace"  # no 2-band minimum
     assert d2q9_kstep.choose_engine(12, 128) == "torch"
-    assert d2q9_kstep.choose_engine(32, 48) == "torch"
+    # as in lbm_tpu.ops.d2q9_pallas.choose_engine, the width never decides
+    assert d2q9_kstep.choose_engine(32, 48) == "cuda-inplace"
+    assert d2q9_kstep.choose_engine(1024, 1001) == "cuda-inplace"
     assert d2q9_kstep.choose_config(12, 128) is None
+
+
+@pytest.mark.parametrize("shape, tile", [
+    ((32, 48), (16, 16)),
+    ((1000, 1008), (8, 16)),
+    ((1024, 1000), (8, 8)),
+    ((1024, 1001), None),  # no tile: the kernels raise on such a grid
+])
+def test_choose_config_narrow_widths(shape, tile):
+    """Widths that are not a multiple of 32 take a narrower tile, whose
+    sides are still at least K; a width that is not a multiple of 8 has none."""
+    config = d2q9_kstep.choose_config(*shape, torch.float32)
+    if tile is None:
+        assert config is None
+    else:
+        assert config == (*tile, d2q9_kstep.PREFERRED_K)
+        assert min(tile) >= d2q9_kstep.MAX_STEPS_PER_PASS
 
 
 def test_smem_bytes_formula():

@@ -1,7 +1,8 @@
 """Lattice state: initialisation and macroscopic quantities (host/numpy side).
 
-A copy of the numpy helpers of `lbm_tpu.core.state`, plus `to_torch`, which
-hands a numpy state and mask to the port as tensors on a chosen device.
+A copy of the numpy helpers of `lbm_tpu.core.state`, plus `to_torch` and its
+3-D counterpart `to_torch3d`, which hand a numpy state and mask to the port
+as tensors on a chosen device.
 
 The distribution state is one array `f` of shape (9, ny, nx): the nine D2Q9
 speed planes. Speed numbering follows the original serial kernel
@@ -79,12 +80,9 @@ def total_density(f: np.ndarray) -> float:
     return float(f.sum(dtype=np.float64))
 
 
-def to_torch(f_np: np.ndarray, mask_np: np.ndarray, *, device, dtype=None):
-    """(9, ny, nx) numpy state and (ny, nx) obstacle mask -> the port's
-    tensors on `device`: the state in `dtype` (default: its own dtype) and
-    the mask as bool. Both are contiguous copies."""
-    if f_np.ndim != 3 or f_np.shape[0] != NUM_SPEEDS:
-        raise ValueError(f"state must have shape (9, ny, nx), got {f_np.shape}")
+def _to_tensors(f_np, mask_np, speeds: int, axes: str, *, device, dtype):
+    if f_np.ndim != axes.count(",") + 2 or f_np.shape[0] != speeds:
+        raise ValueError(f"state must have shape ({speeds}, {axes}), got {f_np.shape}")
     if mask_np.shape != f_np.shape[1:]:
         raise ValueError(f"mask shape {mask_np.shape} != grid {f_np.shape[1:]}")
     f = torch.tensor(np.ascontiguousarray(f_np), device=device)
@@ -92,3 +90,16 @@ def to_torch(f_np: np.ndarray, mask_np: np.ndarray, *, device, dtype=None):
         f = f.to(dtype)
     mask = torch.tensor(np.ascontiguousarray(mask_np, dtype=np.bool_), device=device)
     return f, mask
+
+
+def to_torch(f_np: np.ndarray, mask_np: np.ndarray, *, device, dtype=None):
+    """(9, ny, nx) numpy state and (ny, nx) obstacle mask -> the port's
+    tensors on `device`: the state in `dtype` (default: its own dtype) and
+    the mask as bool. Both are contiguous copies."""
+    return _to_tensors(f_np, mask_np, NUM_SPEEDS, "ny, nx", device=device, dtype=dtype)
+
+
+def to_torch3d(f_np: np.ndarray, mask_np: np.ndarray, *, device, dtype=None):
+    """The D3Q19 counterpart of `to_torch`: (19, nz, ny, nx) numpy state and
+    (nz, ny, nx) obstacle mask."""
+    return _to_tensors(f_np, mask_np, 19, "nz, ny, nx", device=device, dtype=dtype)

@@ -1,6 +1,7 @@
 """End-to-end D2Q9 lattice-Boltzmann simulation driver.
 
-The counterpart of `lbm_tpu.models.lbm` (`run_simulation`, `write_outputs`,
+The counterpart of `lbm_tpu.models.lbm` (`run_simulation`,
+`run_simulation_with_checkpoints` on one device, `write_outputs`,
 `print_summary`): load params and obstacles, initialise, run the timestep
 loop on the device, write av_vels.dat / final_state.dat and print the
 `==done==` summary block (main/LastChance.cpp:279-284).
@@ -30,6 +31,12 @@ class LbmResult:
     reynolds: float
     total_density: float
     engine: str
+    # steps executed in the timed window (differs from av_vels.size on a
+    # checkpoint resume); None = all of av_vels
+    steps_run: int | None = None
+
+
+NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -40,6 +47,13 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("CUDA is not available on this host; pass device='cpu' "
                            "(--device cpu) to run on the CPU")
     return device
+
+
+def numpy_dtype(dtype):
+    np_dtype = NP_DTYPES.get(dtype)
+    if np_dtype is None:
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
+    return np_dtype
 
 
 def run_simulation(
@@ -66,11 +80,8 @@ def run_simulation(
     if simulate is None:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
 
-    np_dtype = {torch.float32: np.float32, torch.float64: np.float64}.get(dtype)
-    if np_dtype is None:
-        raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
-    f0, mask = state.to_torch(state.initial_distributions(p, np_dtype), obstacles.mask,
-                              device=device)
+    f0, mask = state.to_torch(state.initial_distributions(p, numpy_dtype(dtype)),
+                              obstacles.mask, device=device)
 
     # warm-up run (kernel build and load) outside the timed one, as
     # lbm_tpu.models.lbm.run_simulation does
@@ -101,6 +112,114 @@ def run_simulation(
     )
 
 
+def run_simulation_with_checkpoints(
+    params: Params,
+    obstacles: Obstacles,
+    *,
+    checkpoint_path: str | Path,
+    checkpoint_every: int,
+    dtype=torch.float32,
+    engine: str = "auto",
+    resume: bool = False,
+    num_steps: int | None = None,
+    k_steps: int | None = None,
+    device=None,
+) -> LbmResult:
+    """Run in chunks of `checkpoint_every` steps, writing an atomic .npz
+    checkpoint after each chunk; `resume=True` continues from an existing
+    checkpoint. Chunking is bit-identical to one uninterrupted run of the
+    same engine at the same K: every chunk of a kernel engine starts from a
+    fresh boundary snapshot and Sum|u| is reduced in a fixed order. For the
+    kernel engines the total and checkpoint_every must be multiples of
+    k_steps. k_steps=None continues at the K a checkpoint records, else takes
+    the largest of d2q9_kstep.PREFERRED_K, 4, 2, 1 dividing both. The
+    checkpoint holds the state on the host, so one written on the card
+    resumes on the CPU and the other way round (not bit for bit: the kernels
+    and their plain version differ in the last digits)."""
+    from ..core import checkpoint
+
+    device = resolve_device(device)
+    np_dtype = numpy_dtype(dtype)
+    p = params if num_steps is None else dataclasses.replace(params, max_iters=num_steps)
+    if engine == "auto":
+        engine = d2q9_kstep.choose_engine(p.ny, p.nx)
+    run_fn = {"cuda": d2q9_kstep.run, "cuda-inplace": d2q9_kstep_inplace.run}.get(engine)
+    if run_fn is None and engine != "torch":
+        raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
+    total = p.max_iters
+    kernel_engine = run_fn is not None
+
+    ck_path = Path(checkpoint_path)
+    ck = checkpoint.load(ck_path, expect=p) if resume and ck_path.exists() else None
+
+    # K after loading any checkpoint: a resume continues exactly as written
+    recorded_k = (ck.k_steps or 0) if ck is not None else 0
+    if kernel_engine:
+        if k_steps is None:
+            k_steps = recorded_k or next(
+                k for k in (d2q9_kstep.PREFERRED_K, 4, 2, 1)
+                if total % k == 0 and checkpoint_every % k == 0)
+        if recorded_k and k_steps != recorded_k:
+            raise ValueError(
+                f"checkpoint was written at k_steps={recorded_k} but this run uses "
+                f"k_steps={k_steps}; pass the writer's k_steps (or k_steps=None to adopt it)")
+        if total % k_steps or checkpoint_every % k_steps:
+            raise ValueError(
+                f"kernel checkpointing needs num_steps ({total}) and checkpoint_every "
+                f"({checkpoint_every}) divisible by k_steps ({k_steps}) for bit-exact chunking")
+
+    if ck is not None:
+        f_host = np.asarray(ck.f, np_dtype)
+        start = ck.step
+        if start > total:
+            raise ValueError(f"checkpoint is at step {start}, beyond the requested {total} "
+                             "steps: nothing to resume")
+        if kernel_engine and start % k_steps:
+            raise ValueError(f"checkpoint step {start} is not a multiple of k_steps "
+                             f"({k_steps}); resume with the engine that wrote it")
+        av_parts = [np.asarray(ck.av_vels, np.float64)]
+    else:
+        f_host = state.initial_distributions(p, np_dtype)
+        start = 0
+        av_parts = []
+
+    aw = d2q9.AccelWeights.from_params(p)
+    accel_row = p.ny - 2
+    f, mask = state.to_torch(f_host, obstacles.mask, device=device)
+    if start == 0:
+        f = d2q9.first_accelerate(f, mask, accel_row=accel_row, accel_w1=aw.w1, accel_w2=aw.w2)
+    amask = d2q9.accel_row_mask(p.ny, p.nx, accel_row, dtype=f.dtype, device=device)
+    num_free = (~mask).sum().to(f.dtype)
+    kw = dict(omega=p.omega, accel_w1=aw.w1, accel_w2=aw.w2)
+
+    steps_run = total - start
+    t0 = time.perf_counter()
+    while start < total:
+        n = min(checkpoint_every, total - start)
+        if kernel_engine:
+            f, tot = run_fn(f, mask, num_steps=n, accel_row=accel_row, k_steps=k_steps, **kw)
+        else:
+            f, tot = d2q9.run(f, mask, amask, num_steps=n, **kw)
+        # divide in f's dtype on the device, as each engine's simulate does
+        av_parts.append((tot / num_free).cpu().numpy().astype(np.float64))
+        start += n
+        checkpoint.save(ck_path, f.cpu().numpy(), np.concatenate(av_parts), start, p,
+                        k_steps=k_steps if kernel_engine else None)
+    compute_seconds = time.perf_counter() - t0
+
+    av_np = np.concatenate(av_parts) if av_parts else np.zeros(0)
+    f_np = f.cpu().numpy()
+    return LbmResult(
+        f_final=f_np,
+        av_vels=av_np,
+        compute_seconds=compute_seconds,
+        reynolds=reynolds_number(p, float(av_np[-1])),
+        total_density=state.total_density(f_np),
+        engine=engine,
+        steps_run=steps_run,
+    )
+
+
 def write_outputs(
     result: LbmResult,
     params: Params,
@@ -121,7 +240,7 @@ def print_summary(result: LbmResult) -> None:
     print(f"Reynolds number:\t\t{result.reynolds:.12E}")
     print(f"Total compute time:\t\t{result.compute_seconds:.6f} (s)")
     print(f"Total density:\t\t\t{result.total_density:.6E}")
-    steps = result.av_vels.size
+    steps = result.av_vels.size if result.steps_run is None else result.steps_run
     if steps:
         mlups = (
             steps

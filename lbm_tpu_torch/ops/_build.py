@@ -1,11 +1,11 @@
 """Builds and loads the port's CUDA kernels.
 
-The sources under `lbm_tpu_torch/csrc/` are compiled at first use with nvcc
-into a shared library with a plain C interface (route (b): no PyTorch
-headers, so a build takes seconds), under `build/lbm_tpu_torch/` beside the
-package, and loaded with ctypes. The library's name carries a hash of the
-source and the flags, so an edited source is rebuilt. Nothing here runs at
-import time.
+Each source under `lbm_tpu_torch/csrc/` is compiled at first use with nvcc
+into a shared library of its own with a plain C interface (no PyTorch
+headers, so a build takes seconds), under `build/lbm_tpu_torch/`
+beside the package, and loaded with ctypes. A library's name carries a hash
+of its source and the flags, so an edited source is rebuilt and the others
+are not. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -31,16 +31,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_SCALARS = [_I] * 12 + [_D, _D, _D, _P]  # ny .. accel_row, omega, w1, w2, stream
+# d2q9_kstep.cu: ny .. accel_row, omega, w1, w2, stream
+_D2Q9_SCALARS = [_I] * 12 + [_D, _D, _D, _P]
+# d3q19_kstep.cu: nz .. accel_plane, six collision coefficients, stream
+_D3Q19_SCALARS = [_I] * 14 + [_D] * 6 + [_P]
+# argument types of every C entry point, by source (the file's stem)
 SIGNATURES = {
-    "d2q9_kstep_f32": [_P] * 5 + _SCALARS,
-    "d2q9_kstep_f64": [_P] * 5 + _SCALARS,
-    "d2q9_kstep_inplace_f32": [_P] * 4 + [_I] + [_P] * 4 + _SCALARS,
-    "d2q9_kstep_inplace_f64": [_P] * 4 + [_I] + [_P] * 4 + _SCALARS,
+    "d2q9_kstep": {
+        "d2q9_kstep_f32": [_P] * 5 + _D2Q9_SCALARS,
+        "d2q9_kstep_f64": [_P] * 5 + _D2Q9_SCALARS,
+        "d2q9_kstep_inplace_f32": [_P] * 4 + [_I] + [_P] * 4 + _D2Q9_SCALARS,
+        "d2q9_kstep_inplace_f64": [_P] * 4 + [_I] + [_P] * 4 + _D2Q9_SCALARS,
+    },
+    "d3q19_kstep": {
+        "d3q19_kstep_f32": [_P] * 6 + _D3Q19_SCALARS,
+        "d3q19_kstep_f64": [_P] * 6 + _D3Q19_SCALARS,
+        "d3q19_kstep_inplace_f32": [_P] * 4 + _D3Q19_SCALARS,
+        "d3q19_kstep_inplace_f64": [_P] * 4 + _D3Q19_SCALARS,
+    },
 }
 
-SOURCE = CSRC_DIR / "d2q9_kstep.cu"
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -55,26 +66,44 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{SOURCE.stem}_{digest}.so"
+def source_path(name: str) -> Path:
+    if name not in SIGNATURES:
+        raise ValueError(f"unknown kernel source {name!r}; choose from {sorted(SIGNATURES)}")
+    return CSRC_DIR / f"{name}.cu"
 
 
-def build() -> Path:
-    """Compile csrc/d2q9_kstep.cu unless its current library exists;
-    returns the library's path."""
-    out = library_path()
+def library_path(name: str) -> Path:
+    source = source_path(name)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc on csrc/<name>.cu unless its current library exists.
+    Returns (library path, temporary output, running process or None)."""
+    out = library_path(name)
     if out.exists():
-        return out
+        return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source_path(name))]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                               f"{res.stdout}{res.stderr}")
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+    return out, tmp, proc
+
+
+def _finish_build(out: Path, tmp: str | None, proc) -> Path:
+    if proc is None:
+        return out
+    try:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}\n"
+                               f"{stdout}{stderr}")
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     finally:
         if os.path.exists(tmp):
@@ -82,13 +111,34 @@ def build() -> Path:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn, argtypes in SIGNATURES.items():
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless its current library exists; returns the
+    library's path."""
+    return _finish_build(*_start_build(name))
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source that needs it, one nvcc each, all started
+    together. Returns {source name: library path}."""
+    started = {name: _start_build(name) for name in SIGNATURES}
+    paths, errors = {}, []
+    for name, job in started.items():  # wait for every process before raising
+        try:
+            paths[name] = _finish_build(*job)
+        except RuntimeError as err:
+            errors.append(str(err))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = lib
+    return lib

@@ -186,7 +186,7 @@ def _entry(f: torch.Tensor, name: str):
     from . import _build
 
     suffix = "f32" if f.dtype == torch.float32 else "f64"
-    return getattr(_build.load(), f"{name}_{suffix}")
+    return getattr(_build.load("d2q9_kstep"), f"{name}_{suffix}")
 
 
 def _launch(f, mask_u8, out, partials, tot, scalars):

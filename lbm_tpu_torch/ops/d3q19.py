@@ -1,0 +1,274 @@
+"""D3Q19 BGK lattice-Boltzmann in plain PyTorch: the port's 3-D reference
+engine and the entry point `simulate` of all three 3-D engines.
+
+The counterpart of `lbm_tpu.ops.d3q19`. One `step` fuses periodic pull
+streaming (`torch.roll`), obstacle bounce-back, BGK collision and the
+accelerated-plane body force, and returns the per-step Sum|u|.
+
+State: (19, nz, ny, nx), axis order (z, y, x); see `d3q19_lattice`. The
+accelerated-plane force generalises the 2-D accelerated row: speed k on the
+target z-plane gains sign(e_x[k]) * density * accel * W[k].
+
+`collide_fields` carries the reference's default 'paired' grouping operation
+for operation (the serial C++ oracle and the committed golden traces carry it
+too), and every operation rounds on its own, so the CUDA kernels
+(csrc/d3q19_kstep.cu, compiled without FMA contraction) reproduce it; only
+the order of the Sum|u| reduction differs.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .d3q19_lattice import (  # noqa: F401  (re-exported for callers)
+    E, NUM_SPEEDS, OPPOSITE, W, initial_distributions,
+)
+
+ENGINES = ("torch", "cuda", "cuda-inplace")
+
+
+def _e_dot_u(k: int, u_x, u_y, u_z):
+    """e_k . u, added in the order x, y, z from 0.0 as the reference does."""
+    eu = 0.0
+    if E[k, 2]:
+        eu = eu + int(E[k, 2]) * u_x
+    if E[k, 1]:
+        eu = eu + int(E[k, 1]) * u_y
+    if E[k, 0]:
+        eu = eu + int(E[k, 0]) * u_z
+    return eu
+
+
+def equilibrium(rho, u_x, u_y, u_z) -> torch.Tensor:
+    """Maxwell-Boltzmann equilibrium at (rho, u) on the D3Q19 lattice, in the
+    per-speed `(4.5 eu)(2/3 + eu) + c_sq` grouping; `collide_fields`' paired
+    grouping computes the algebraically identical value, so an equilibrium
+    state is a fixed point of the collision up to rounding. Inputs broadcast
+    to the grid; returns (19, nz, ny, nx)."""
+    u_sq = u_x * u_x + u_y * u_y + u_z * u_z
+    c_sq = 1.0 - u_sq * 1.5
+    outs = []
+    for k in range(NUM_SPEEDS):
+        wk = float(W[k])
+        if not E[k].any():
+            outs.append(wk * rho * c_sq)
+            continue
+        eu = _e_dot_u(k, u_x, u_y, u_z)
+        outs.append(wk * rho * ((4.5 * eu) * (2.0 / 3.0 + eu) + c_sq))
+    return torch.stack(outs)
+
+
+def stream_pull(f: torch.Tensor) -> list[torch.Tensor]:
+    """Periodic pull: speed k at x comes from x - e_k."""
+    return [
+        torch.roll(f[k], tuple(int(d) for d in E[k]), dims=(-3, -2, -1))
+        if E[k].any() else f[k]
+        for k in range(NUM_SPEEDS)
+    ]
+
+
+def collide_fields(
+    s: list[torch.Tensor],
+    obstacle_mask: torch.Tensor,
+    accel_mask: torch.Tensor,
+    *,
+    omega: float,
+    density: float,
+    accel: float,
+):
+    """BGK collide + bounce-back + accelerated-plane force on streamed planes.
+    `obstacle_mask` is bool; `accel_mask` is a {0,1} float array (1 on the
+    accelerated plane, broadcastable). Returns (f_new (19, ...), u_plane |u|
+    with obstacles zeroed).
+
+    Opposite speed pairs share eu (eu_opp = -eu), the quadratic equilibrium
+    term, the per-weight-class (w * omega) * rho product and the force
+    product: the 'paired' grouping of `lbm_tpu.ops.d3q19.collide_fields`."""
+    rho = functools.reduce(torch.add, s)
+    u_x = functools.reduce(
+        torch.add, (int(E[k, 2]) * s[k] for k in range(NUM_SPEEDS) if E[k, 2])
+    ) / rho
+    u_y = functools.reduce(
+        torch.add, (int(E[k, 1]) * s[k] for k in range(NUM_SPEEDS) if E[k, 1])
+    ) / rho
+    u_z = functools.reduce(
+        torch.add, (int(E[k, 0]) * s[k] for k in range(NUM_SPEEDS) if E[k, 0])
+    ) / rho
+    u_sq = u_x * u_x + u_y * u_y + u_z * u_z
+    c_sq = 1.0 - u_sq * 1.5
+    one_minus_omega = 1.0 - omega
+
+    outs = [None] * NUM_SPEEDS
+    wro = {w: (float(w) * omega) * rho for w in (W[0], W[1], W[7])}
+    outs[0] = s[0] * one_minus_omega + wro[W[0]] * c_sq
+    for k in range(1, NUM_SPEEDS):
+        kb = int(OPPOSITE[k])
+        if kb < k:
+            continue
+        eu = _e_dot_u(k, u_x, u_y, u_z)
+        quad = (4.5 * eu) * eu + c_sq
+        lin = 3.0 * eu
+        w = wro[W[k]]
+        out_k = s[k] * one_minus_omega + w * (quad + lin)
+        out_kb = s[kb] * one_minus_omega + w * (quad - lin)
+        if E[k, 2]:  # accelerated-plane force on x-moving speeds
+            t = accel_mask * (int(E[k, 2]) * (density * accel * float(W[k])))
+            out_k = out_k + t
+            out_kb = out_kb - t
+        outs[k] = out_k
+        outs[kb] = out_kb
+
+    f_new = torch.stack(
+        [torch.where(obstacle_mask, s[int(OPPOSITE[k])], outs[k])
+         for k in range(NUM_SPEEDS)]
+    )
+    zero = torch.zeros((), dtype=u_sq.dtype, device=u_sq.device)
+    u_plane = torch.where(obstacle_mask, zero, torch.sqrt(u_sq))
+    return f_new, u_plane
+
+
+def step(
+    f: torch.Tensor,
+    obstacle_mask: torch.Tensor,
+    accel_mask: torch.Tensor,
+    *,
+    omega: float,
+    density: float,
+    accel: float,
+):
+    """One fused timestep on the full periodic grid. Returns (f', tot_u)."""
+    f_new, u = collide_fields(
+        stream_pull(f), obstacle_mask, accel_mask,
+        omega=omega, density=density, accel=accel,
+    )
+    return f_new, u.sum()
+
+
+def accel_plane_mask(nz: int, ny: int, nx: int, plane_z: int,
+                     dtype=torch.float32, device=None) -> torch.Tensor:
+    """{0,1} mask selecting the accelerated z-plane (broadcasts over y, x)."""
+    zs = torch.arange(nz, dtype=torch.int32, device=device)
+    return (zs == plane_z).to(dtype)[:, None, None]
+
+
+def run(
+    f: torch.Tensor,
+    obstacle_mask: torch.Tensor,
+    accel_mask: torch.Tensor,
+    *,
+    num_steps: int,
+    omega: float,
+    density: float,
+    accel: float,
+):
+    """`num_steps` fused timesteps in a Python loop. Returns (f_final,
+    tot_u per step of shape (num_steps,)), both on f's device."""
+    tots = []
+    for _ in range(num_steps):
+        f, tot = step(f, obstacle_mask, accel_mask,
+                      omega=omega, density=density, accel=accel)
+        tots.append(tot)
+    if not tots:
+        return f, torch.zeros(0, dtype=f.dtype, device=f.device)
+    return f, torch.stack(tots)
+
+
+def default_obstacle_mask(nz: int, ny: int, nx: int) -> np.ndarray:
+    """Wall planes at z = 0 and z = nz-1, the default geometry of `simulate`."""
+    mask = np.zeros((nz, ny, nx), bool)
+    mask[0] = True
+    mask[-1] = True
+    return mask
+
+
+def engine_run(engine: str):
+    """The `run` of a kernel engine's wrapper ('cuda' -> B6, 'cuda-inplace'
+    -> B4)."""
+    if engine == "cuda":
+        from . import d3q19_kstep
+
+        return d3q19_kstep.run
+    if engine == "cuda-inplace":
+        from . import d3q19_kstep_inplace
+
+        return d3q19_kstep_inplace.run
+    raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
+
+
+def initial_state(nz: int, ny: int, nx: int, *, density: float = 0.1, obstacle_mask=None,
+                  dtype=torch.float32, device=None):
+    """The uniform state at rest and the obstacle mask (default: wall planes
+    at z = 0 and z = nz-1; else a numpy (nz, ny, nx) array) as tensors on
+    `device` (default: CUDA)."""
+    from ..core import state
+    from ..models.lbm import numpy_dtype, resolve_device
+
+    device = resolve_device(device)
+    if obstacle_mask is None:
+        obstacle_mask = default_obstacle_mask(nz, ny, nx)
+    return state.to_torch3d(initial_distributions(nz, ny, nx, density, numpy_dtype(dtype)),
+                            np.asarray(obstacle_mask, bool), device=device)
+
+
+def advance(
+    f: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    num_steps: int,
+    omega: float = 1.85,
+    density: float = 0.1,
+    accel: float = 0.005,
+    engine: str = "torch",
+    k_steps: int | None = None,
+):
+    """`num_steps` steps from state f with the accelerated plane at
+    z = nz-2, on f's device. engine='torch' is the plain engine above, 'cuda'
+    the two-stream kernel B6 (d3q19_kstep) and 'cuda-inplace' the in-place
+    kernel B4 (d3q19_kstep_inplace), which overwrites f. k_steps=None picks
+    the kernels' measured-best steps per pass (d3q19_kstep.choose_k); an
+    explicit k_steps is honoured exactly or raises. Returns (f_final,
+    av_vels): Sum|u| of each step over the free cells."""
+    _, nz, ny, nx = f.shape
+    if engine == "torch":
+        amask = accel_plane_mask(nz, ny, nx, nz - 2, dtype=f.dtype, device=f.device)
+        f_final, tot = run(f, mask, amask, num_steps=num_steps, omega=omega,
+                           density=density, accel=accel)
+    else:
+        from . import d3q19_kstep
+
+        run_fn = engine_run(engine)
+        if k_steps is None:
+            k_steps = d3q19_kstep.choose_k(num_steps)
+        elif not 1 <= k_steps <= d3q19_kstep.MAX_K or num_steps % k_steps:
+            raise ValueError(
+                f"k_steps={k_steps} has no feasible kernel configuration for "
+                f"{num_steps} steps (it must lie in 1..{d3q19_kstep.MAX_K} and divide "
+                "them); pass k_steps=None to pick one")
+        f_final, tot = run_fn(f, mask, num_steps=num_steps, k_steps=k_steps,
+                              omega=omega, density=density, accel=accel,
+                              accel_plane=nz - 2)
+    num_free = (~mask).sum().to(f.dtype)
+    return f_final, tot / num_free
+
+
+def simulate(
+    nz: int, ny: int, nx: int, *,
+    num_steps: int,
+    omega: float = 1.85,
+    density: float = 0.1,
+    accel: float = 0.005,
+    obstacle_mask=None,
+    dtype=torch.float32,
+    engine: str = "torch",
+    k_steps: int | None = None,
+    device=None,
+):
+    """Lid-driven-style 3-D run on `device` (default: CUDA): `advance` from
+    `initial_state`. Returns (f_final, av_vels) as tensors on the device."""
+    f, mask = initial_state(nz, ny, nx, density=density, obstacle_mask=obstacle_mask,
+                            dtype=dtype, device=device)
+    return advance(f, mask, num_steps=num_steps, omega=omega, density=density, accel=accel,
+                   engine=engine, k_steps=k_steps)

@@ -1,0 +1,101 @@
+"""K D3Q19 steps per pass, written back in place: the wrapper of CUDA kernel
+B4, the production 3-D engine.
+
+The counterpart of `lbm_tpu.ops.d3q19_pallas_inplace` (kernel `_kernel`,
+`stepk`, `run`) and of the slab half of
+`d3q19_pallas_inplace_blocked.pick_engine`/`choose_k`, with the contract of
+`d3q19_kstep` except that the state is advanced IN PLACE: `stepk` and `run`
+overwrite `f` and return it, and no second lattice is allocated.
+
+The TPU kernel is safe in place because its slabs run in order (delayed
+write-back, wraparound snapshot). On the card blocks run in no order, so the
+kernel alternates two kinds of step that each read and write the same 19
+slots per cell, and restores the natural layout with a swap after an odd
+number of steps (csrc/d3q19_kstep.cu). An even K therefore moves the bytes of
+K steps and an odd K one more lattice: `choose_k` prefers an even K. B4's
+state and Sum|u| are bit-identical to B6's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import d3q19_kstep
+from .d2q9_kstep import check_rc, obstacle_u8
+from .d3q19_kstep import choose_k  # noqa: F401  (the in-place engine's own K)
+
+# Launches of kernel B4 (one per K-step pass); callers may reset it.
+launches = 0
+
+
+def _launch(f, mask_u8, partials, tot, scalars):
+    global launches
+    launches += 1
+    rc = d3q19_kstep.entry(f, "d3q19_kstep_inplace")(
+        f.data_ptr(), mask_u8.data_ptr(), partials.data_ptr(), tot.data_ptr(), *scalars)
+    check_rc(rc, "d3q19_kstep_inplace")
+
+
+def stepk(
+    f: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    k_steps: int,
+    omega: float,
+    density: float,
+    accel: float,
+    accel_plane: int,
+    plane_offset: int = 0,
+    valid_planes: tuple | None = None,
+    valid_rows: tuple | None = None,
+    global_nz: int | None = None,
+    block: tuple[int, int, int] | None = None,
+):
+    """K timesteps in one in-place pass (kernel B4 on CUDA,
+    `d3q19_kstep.stepk_plain` on the CPU). Overwrites f with the state after
+    K steps; returns (f, tot_u per step (K,))."""
+    kw = dict(k_steps=k_steps, omega=omega, density=density, accel=accel,
+              accel_plane=accel_plane, plane_offset=plane_offset, valid_planes=valid_planes,
+              valid_rows=valid_rows, global_nz=global_nz)
+    if f.device.type == "cpu":
+        f_new, tot = d3q19_kstep.stepk_plain(f, mask, **kw)
+        f.copy_(f_new)
+        return f, tot
+    mask_u8 = obstacle_u8(mask)
+    nblocks, scalars = d3q19_kstep.kernel_args(f, mask_u8, block=block, **kw)
+    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
+    _launch(f, mask_u8, partials, tot, scalars)
+    return f, tot
+
+
+def run(
+    f: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    num_steps: int,
+    omega: float,
+    density: float,
+    accel: float,
+    accel_plane: int,
+    k_steps: int = 1,
+    block: tuple[int, int, int] | None = None,
+):
+    """`num_steps` timesteps, `k_steps` per in-place pass. Overwrites f;
+    returns (f, tot_u (num_steps,))."""
+    if num_steps % k_steps:
+        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
+    kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
+    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    if f.device.type == "cpu":
+        for i in range(num_steps // k_steps):
+            f_new, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
+                f, mask, k_steps=k_steps, **kw)
+            f.copy_(f_new)
+        return f, tots
+    mask_u8 = obstacle_u8(mask)
+    nblocks, scalars = d3q19_kstep.kernel_args(f, mask_u8, k_steps=k_steps, block=block, **kw)
+    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    for i in range(num_steps // k_steps):
+        _launch(f, mask_u8, partials, tots[i * k_steps:(i + 1) * k_steps], scalars)
+    return f, tots

@@ -2,13 +2,15 @@
 
 * Importing every module of lbm_tpu_torch, in a fresh interpreter (this
   process has JAX loaded by tests/conftest.py), loads neither `jax` nor any
-  `lbm_tpu` module.
+  `lbm_tpu` module; chip_smoke.py imports neither, and without a card it
+  exits non-zero and prints no result.
 * The entry points default to CUDA: on a host without it, run_simulation()
   and the CLI given no device raise instead of running on the CPU.
 * A kernel wrapper given a tensor that is not on the CPU launches its kernel
   or raises; it never returns the plain result.
 """
 
+import ast
 import json
 import subprocess
 import sys
@@ -42,9 +44,42 @@ def test_port_imports_no_jax_and_no_lbm_tpu():
                          cwd=REPO, timeout=120)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert "lbm_tpu_torch.ops.d2q9_kstep_inplace" in out["modules"]
-    assert "lbm_tpu_torch.cli.lbm" in out["modules"]
+    for name in ("ops.d2q9_kstep_inplace", "ops.d3q19", "ops.d3q19_lattice", "ops.d3q19_kstep",
+                 "ops.d3q19_kstep_inplace", "ops._build", "core.checkpoint", "models.lbm3d",
+                 "cli.lbm", "cli.lbm3d"):
+        assert f"lbm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
+
+
+def imported_modules(path):
+    """Every module a Python source imports, at any depth of its code."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_chip_smoke_imports_no_jax_and_no_lbm_tpu():
+    names = imported_modules(REPO / "chip_smoke.py")
+    assert any(n.startswith("lbm_tpu_torch") for n in names)
+    bad = sorted(n for n in names
+                 if n.split(".")[0] in ("jax", "jaxlib", "lbm_tpu"))
+    assert bad == []
+    # every source of the port, read the same way
+    for path in (REPO / "lbm_tpu_torch").rglob("*.py"):
+        assert not [n for n in imported_modules(path)
+                    if n.split(".")[0] in ("jax", "jaxlib", "lbm_tpu")], path
+
+
+def test_chip_smoke_fails_without_a_card():
+    no_cuda()
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], capture_output=True,
+                         text=True, cwd=REPO, timeout=120)
+    assert res.returncode != 0
+    assert res.stdout == "" and "CUDA is not available" in res.stderr
 
 
 def no_cuda():

@@ -43,9 +43,30 @@ Phases, each of which must pass or the script exits non-zero:
   7. checkpoint/resume on the card, 2-D (1024^2, B1) and 3-D (64x128x256,
      B4): N steps with --checkpoint-every N/2, then 2N with --resume; av_vels
      and the final state must equal an uninterrupted 2N run bit for bit;
-  8. one JSON line `{"kernels": [...]}` with each kernel's launches on its
-     path, parity, time per launch, its bound and the plain version's time;
-  9. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+  8. blur kernels vs plain version, from numpy-seeded images: B10
+     (stencil.blur_step) one pass, B9 (blur_k) at k = 1, 2, 4, 8 and two tile
+     heights, B8 (blur_resident) at 8 and 200 passes; float32 (bit-equal) and
+     bfloat16 (one unit in the last place); at the bricks shape 4x304x512,
+     the leaf shape 4x1032x896 (beyond what B8 holds on an H100: there it
+     must raise and name the 'cuda' engine), an image whose ring is not zero,
+     and B9/B10 at 4096x4096 (padded 4x4128x4224). The pad ring of every
+     output is exactly zero. Eight passes of each engine are held to a
+     float64 9-point blur with numpy on the host, at 1e-4 absolute;
+  9. the blur main path: a seeded 4096x4096 RGBA image through
+     `lbm_tpu_torch.cli.blur -n 100`: `--engine auto` must choose cuda with
+     k_passes 4 and launch B9 50 times per run, `--engine cuda` B10 200
+     times per run, `--data-type half` through auto B9 again; then a 302x499
+     image through `--engine auto`, which must choose resident and launch B8
+     once per run; never a plain version. Each float32 output is held to the
+     conv engine on the card within one grey level, and the state before
+     `to_char_image` to a float64 plain blur on the card (1e-5; bfloat16
+     2e-2, and its output within one level of the plain bfloat16 chain). The
+     PNG leg runs if PIL imports; if not, the arrays go through
+     `models.blur.run_blur` and a line says so;
+ 10. one JSON line `{"kernels": [...]}` with each of the seven kernels'
+     launches on its path, parity, time per launch, its bound, the plain
+     version's time and, for the blur kernels, the library's convolution;
+ 11. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero, printing no result, when CUDA is absent or the package is not
 beside this file. Imports nothing of JAX or of lbm_tpu.
@@ -108,6 +129,29 @@ GOLDEN_3D = REPO / "experiments" / "d3q19-drift" / "d3q19_16x64x128_6000.av_vels
 GOLDEN_3D_SHAPE = (16, 64, 128)
 GOLDEN_3D_BAR_F32 = 1.5e-3  # the floor of experiments/d3q19-drift/description.md
 GOLDEN_3D_BAR_F64 = 1e-10   # first 200 steps
+
+# the blur kernels and the TPU kernels they replace
+KERNELS_BLUR = {
+    "blur_resident": "lbm_tpu/ops/stencil.py:247",
+    "blur_k": "lbm_tpu/ops/stencil.py:154",
+    "blur_step": "lbm_tpu/ops/stencil.py:65",
+}
+# padded shapes (C, Hp, Wp) and the interior they hold
+BRICKS = ((4, 304, 512), (302, 499))
+LEAF = ((4, 1032, 896), (1024, 768))
+BIG = ((4, 4128, 4224), (4096, 4096))  # a 4096x4096 image after pad_to_tile
+BLUR_ITERS = 100  # the CLI's default: 200 passes
+HOST_ORACLE_BAR = 1e-4  # eight passes against float64 numpy on the host
+# kernel vs plain version: every factor of the blur is a power of two and
+# the kernels add in their plain versions' order, so float32 is bit-equal;
+# bfloat16 rounds the same float32 values, one unit in the last place allowed
+# main path vs a float64 blur on the card. bfloat16 rounds the state 50 times
+# in 200 passes (once per k = 4), each time by up to half a unit (2^-9 below 1)
+STATE_BAR = {"float32": 1e-5, "bfloat16": 2e-2}
+# operations per value and pass: the direct sum of B10 (4 products, 8 sums)
+# and the separable pass of B9 and B8 (rows 3, columns 3, scale and mask 2)
+FLOP_PER_VALUE_STEP = 12
+FLOP_PER_VALUE_SEPARABLE = 8
 
 
 class Failure(Exception):
@@ -655,6 +699,359 @@ def phase_checkpoint(torch, mods, mods3, mask):
     return launches
 
 
+def blur_case(rng, shape, inner, ring=False):
+    """A padded image as bench.py makes it: uniform noise inside the
+    interior box, zero outside. With `ring`, noise everywhere and a mask with
+    holes, so that only a periodic kernel gives the periodic answer."""
+    (c, h, w), (h0, w0) = shape, inner
+    img = rng.random((c, h, w)).astype(np.float32)
+    if ring:
+        return img, (rng.random((h, w)) < 0.9).astype(np.float32)
+    interior = np.zeros((h, w), np.float32)
+    interior[1:1 + h0, 1:1 + w0] = 1
+    return img * interior, interior
+
+
+def host_blur8(img, interior):
+    """Eight passes of the 9-point blur in float64 with numpy, zero outside
+    (the oracle of the reference's blur benchmark)."""
+    weights = np.array([[1.0, 2.0, 1.0], [2.0, 4.0, 2.0], [1.0, 2.0, 1.0]]) / 16.0
+    x, inter = img.astype(np.float64), interior.astype(np.float64)
+    for _ in range(8):
+        ext = np.pad(x, ((0, 0), (1, 1), (1, 1)))
+        x = sum(weights[i, j] * ext[:, i:i + x.shape[1], j:j + x.shape[2]]
+                for i in range(3) for j in range(3)) * inter
+    return x
+
+
+def ulps_bf16(torch, a, b) -> int:
+    """Largest distance of two bfloat16 tensors in units in the last place."""
+    bits = [t.view(torch.int16).to(torch.int32) for t in (a, b)]
+    return int((bits[0] - bits[1]).abs().max())
+
+
+def hold_to_plain(torch, what, out, ref):
+    """Kernel result against its plain version's: float32 bit-equal,
+    bfloat16 within one unit in the last place. Returns the max abs error."""
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    if out.dtype == torch.float32:
+        check(torch.equal(out, ref), f"{what}: not bit-equal to the plain version "
+                                     f"(max abs err {err:.3e})")
+    else:
+        ulps = ulps_bf16(torch, out, ref)
+        check(ulps <= 1, f"{what}: {ulps} bfloat16 units from the plain version")
+    return err
+
+
+def phase_blur_parity(torch, stencil):
+    """Phase 8. Returns {kernel: max_abs_err} over the float32 cases."""
+    rng = np.random.default_rng(20261018)
+    cases = {"bricks": blur_case(rng, *BRICKS), "leaf": blur_case(rng, *LEAF),
+             "ringed": blur_case(rng, (4, 320, 512), (0, 0), ring=True),
+             "4096": blur_case(rng, *BIG)}
+    abs_err = dict.fromkeys(KERNELS_BLUR, 0.0)
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for label, (img_np, int_np) in cases.items():
+            x = torch.from_numpy(img_np).to("cuda", dtype)
+            m = torch.from_numpy(int_np).to("cuda", dtype)
+            outs = {"blur_step": [("", stencil.blur_step(x, m), stencil.blur_step_plain(x, m))],
+                    "blur_k": [], "blur_resident": []}
+            for k in (1, 2, 4, 8):
+                ref = stencil.blur_k_plain(x, m, k_passes=k)
+                for band in (16, 32):
+                    outs["blur_k"].append((f" k={k} band={band}",
+                                           stencil.blur_k(x, m, k_passes=k, band=band), ref))
+            if stencil.resident_fits(x):
+                for n in (8, 200):
+                    outs["blur_resident"].append(
+                        (f" passes={n}", stencil.blur_resident(x, m, num_passes=n),
+                         stencil.blur_resident_plain(x, m, num_passes=n)))
+            else:
+                check(label in ("leaf", "4096"), f"resident_fits refuses the {label} shape")
+                try:
+                    stencil.blur_resident(x, m, num_passes=8)
+                except ValueError as err:
+                    check("engine='cuda'" in str(err), f"B8's refusal names no engine: {err}")
+                    print(f"blur parity {label} {dname}: B8 raises as it must: {err}")
+                else:
+                    raise Failure(f"B8 took the {label} shape that resident_fits refuses")
+            for name, results in outs.items():
+                worst = 0.0
+                for tag, out, ref in results:
+                    worst = max(worst, hold_to_plain(torch, f"{name}{tag} {label} {dname}",
+                                                     out, ref))
+                    if label != "ringed":
+                        check(bool((out * (1 - m) == 0).all()),
+                              f"{name}{tag} {label} {dname}: the pad ring is not zero")
+                if results:
+                    print(f"blur parity {name:13s} {label:6s} {dname}: {len(results)} cases, "
+                          f"max abs err vs plain {worst:.3e}"
+                          + (" (bit-equal)" if dtype == torch.float32 else " (<= 1 ulp)"))
+                if dtype == torch.float32:
+                    abs_err[name] = max(abs_err[name], worst)
+            del outs, x, m
+    # eight passes of every engine against float64 on the host
+    for label in ("bricks", "leaf"):
+        img_np, int_np = cases[label]
+        oracle = host_blur8(img_np, int_np)
+        x, m = torch.from_numpy(img_np).cuda(), torch.from_numpy(int_np).cuda()
+        engines = {"conv": dict(engine="conv"), "cuda (B10)": dict(engine="cuda"),
+                   "cuda k=4 (B9)": dict(engine="cuda", k_passes=4),
+                   "cuda k=8 (B9)": dict(engine="cuda", k_passes=8)}
+        if stencil.resident_fits(x):
+            engines["resident (B8)"] = dict(engine="resident")
+        for name, kw in engines.items():
+            out = stencil.blur_many(x, m, num_iters=4, **kw).cpu().numpy().astype(np.float64)
+            err = float(np.abs(out - oracle).max())
+            print(f"blur host oracle {label:6s} 8 passes, engine {name:13s}: max abs err "
+                  f"{err:.3e} (bar {HOST_ORACLE_BAR})")
+            check(np.isfinite(err) and err <= HOST_ORACLE_BAR,
+                  f"engine {name} at the {label} shape: {err} > {HOST_ORACLE_BAR}")
+    return abs_err
+
+
+def seeded_rgba(seed, h, w):
+    """An RGBA image of low frequencies plus noise, so that 200 passes leave
+    structure in every channel."""
+    rng = np.random.default_rng(seed)
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    rgba = np.empty((h, w, 4), np.uint8)
+    for c in range(4):
+        fx, fy, gx, gy = rng.uniform(1.0, 4.0, 4).astype(np.float32)
+        p, q = rng.uniform(0.0, 2 * np.pi, 2).astype(np.float32)
+        v = (np.sin(2 * np.pi * (fx * x + fy * y) + p) + np.sin(2 * np.pi * (gx * x - gy * y) + q)
+             + 0.5 * rng.standard_normal((h, w), dtype=np.float32))
+        rgba[..., c] = np.round(255 * (v - v.min()) / (v.max() - v.min()))
+    return rgba
+
+
+class Capture:
+    """Keeps what module.name returns while active."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.results = module, name, []
+        self.original = getattr(module, name)
+
+    def __enter__(self):
+        def keeping(*args, **kwargs):
+            self.results.append(self.original(*args, **kwargs))
+            return self.results[-1]
+
+        setattr(self.module, self.name, keeping)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.original)
+
+
+def plain_float64_state(torch, img_lib, rgba, passes):
+    """The padded state after `passes` separable blur passes in float64 on
+    the card, and the shape of the interior."""
+    fimg = img_lib.to_float_image(rgba)
+    padded, interior, _ = img_lib.pad_to_tile(fimg.intensities, row_mult=32)
+    x = torch.from_numpy(padded).to("cuda", torch.float64)
+    mask = torch.from_numpy(interior).to("cuda", torch.float64)[None]
+    for _ in range(passes):
+        rows = torch.roll(x, 1, 1) + 2.0 * x + torch.roll(x, -1, 1)
+        x = (torch.roll(rows, -1, 2) + 2.0 * rows + torch.roll(rows, 1, 2)) * (1.0 / 16.0) * mask
+    return x.cpu().numpy()
+
+
+def phase_blur_main_path(torch, stencil):
+    """Phase 9. Returns {kernel: (launches of warm-up and timed run, timed
+    seconds)} of the float32 run that goes through it."""
+    from lbm_tpu_torch.cli import blur as cli
+    from lbm_tpu_torch.models import blur as blur_model
+    from lbm_tpu_torch.utils import image as img_lib
+
+    try:
+        import PIL  # noqa: F401
+        png = True
+    except ImportError:
+        png = False
+        print("blur main path: PIL does not import here, so the PNG leg of the CLI did NOT "
+              "run; the arrays go through models.blur.run_blur instead")
+    passes = 2 * BLUR_ITERS
+    big, small = seeded_rgba(20261019, *BIG[1]), seeded_rgba(20261020, *BRICKS[1])
+    # (image, flags, kernel, launches per run, engine line)
+    runs = [
+        ("big", ["--engine", "auto"], "blur_k", passes // 4, "cuda (k_passes 4)"),
+        ("big", ["--engine", "cuda"], "blur_step", passes, "cuda"),
+        ("big", ["--engine", "auto", "--data-type", "half"], "blur_k", passes // 4,
+         "cuda (k_passes 4)"),
+        ("small", ["--engine", "auto"], "blur_resident", 1, "resident"),
+    ]
+    images = {"big": big, "small": small}
+    plains = ("blur_step_plain", "blur_k_plain", "blur_resident_plain", "blur_step_conv")
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if png:
+            t0 = time.perf_counter()
+            for name, rgba in images.items():
+                img_lib.save_png(tmp / f"{name}.png", rgba)
+            print(f"blur main path: wrote the {big.shape[1]}x{big.shape[0]} and "
+                  f"{small.shape[1]}x{small.shape[0]} PNGs in {time.perf_counter() - t0:.1f} s")
+        refs = {}
+        for name, rgba in images.items():
+            conv = blur_model.run_blur(rgba, num_iters=BLUR_ITERS, engine="conv", device="cuda")
+            refs[name] = (conv.rgba, plain_float64_state(torch, img_lib, rgba, passes))
+            print(f"blur main path: conv engine on the card, {name} image: "
+                  f"{conv.compute_seconds:.6f} s for {passes} passes")
+        for name, flags, kernel, per_run, engine_line in runs:
+            half = "half" in flags
+            label = f"{name} {' '.join(flags)}"
+            for key in stencil.launches:
+                stencil.launches[key] = 0
+            counters = [CountCalls(stencil, plain) for plain in plains]
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                for counter in counters:
+                    stack.enter_context(counter)
+                captured = stack.enter_context(Capture(blur_model, "run_blur"))
+                if png:
+                    rc, text = run_cli(cli.main, ["-i", str(tmp / f"{name}.png"), "-o",
+                                                  str(tmp / "out.png"), "-n", str(BLUR_ITERS),
+                                                  *flags])
+                    wall = time.perf_counter() - t0
+                    check(rc == 0, f"blur cli returned {rc}")
+                    out_rgba = img_lib.load_png(tmp / "out.png")
+                    run = captured.results[0]
+                    check(np.array_equal(out_rgba, run.rgba), f"{label}: the PNG differs from "
+                                                              "the blurred array")
+                else:
+                    run = blur_model.run_blur(
+                        images[name], num_iters=BLUR_ITERS, engine=flags[1],
+                        dtype=torch.bfloat16 if half else torch.float32)
+                    wall = time.perf_counter() - t0
+                    out_rgba = run.rgba
+                    fused = f" (k_passes {run.k_passes})" if run.k_passes else ""
+                    text = (f"engine:\t{run.engine}{fused}\n{BLUR_ITERS}(x2) iterations took "
+                            f"{run.compute_seconds:.6f}s")
+            launched = dict(stencil.launches)
+            print(f"blur main path {label}:\n{text.rstrip()}")
+            check(re.search(rf"^engine:\t{re.escape(engine_line)}$", text, re.M) is not None,
+                  f"{label}: the engine is not {engine_line}")
+            check(f"{BLUR_ITERS}(x2) iterations took" in text, f"{label}: no timing line")
+            # warm-up run and timed run, which are equal
+            check(launched[kernel] == 2 * per_run,
+                  f"{label}: {kernel} was launched {launched[kernel]} times, not 2 x {per_run}")
+            check(sum(launched.values()) == launched[kernel],
+                  f"{label}: another kernel was launched: {launched}")
+            for counter in counters:
+                check(counter.calls == 0, f"{label}: {counter.name} ran {counter.calls} times")
+            seconds = run.compute_seconds
+            print(f"blur main path {label}: {kernel} {launched[kernel]} launches, "
+                  f"{seconds:.6f} s timed for {passes} passes, "
+                  f"{seconds / passes * 1e3:.4f} ms per pass, "
+                  f"{seconds / per_run * 1e3:.4f} ms per launch; the whole call took "
+                  f"{wall:.2f} s on the host's clock (PNG in and out, normalisation, "
+                  "warm-up run, copy back)")
+
+            conv_rgba, state64 = refs[name]
+            check(out_rgba.shape == images[name].shape and out_rgba.dtype == np.uint8,
+                  f"{label}: output has shape {out_rgba.shape}")
+            check(np.array_equal(out_rgba[..., 3], images[name][..., 3]),
+                  f"{label}: the alpha channel was not restored")
+            state_err = float(np.abs(run.state.astype(np.float64) - state64).max())
+            check(np.isfinite(run.state).all(), f"{label}: the state is not finite")
+            bar = STATE_BAR["bfloat16" if half else "float32"]
+            levels = int(np.abs(out_rgba.astype(int) - conv_rgba.astype(int)).max())
+            print(f"blur main path {label}: state vs float64 plain on the card max abs err "
+                  f"{state_err:.3e} (bar {bar}); output vs the float32 conv engine: "
+                  f"{levels} grey levels" + ("" if half else " (bar 1)"))
+            check(state_err <= bar, f"{label}: state err {state_err} > {bar}")
+            if half:
+                # the same rounding points as B9's: bfloat16 once per 4 passes
+                fimg = img_lib.to_float_image(images[name])
+                padded, interior, (h, w) = img_lib.pad_to_tile(fimg.intensities, row_mult=32)
+                x = torch.from_numpy(padded).to("cuda", torch.bfloat16)
+                m = torch.from_numpy(interior).to("cuda", torch.bfloat16)
+                for _ in range(passes // 4):
+                    x = stencil.blur_k_plain(x, m, k_passes=4)
+                chain = x.float().cpu().numpy()
+                chain_err = float(np.abs(run.state - chain).max())
+                print(f"blur main path {label}: state vs the plain bfloat16 chain max abs err "
+                      f"{chain_err:.3e} (bar: one bfloat16 unit, 2^-8 below 1)")
+                check(chain_err <= 2.0 ** -8, f"{label}: {chain_err} from the plain chain")
+            else:
+                check(levels <= 1, f"{label}: {levels} grey levels from the conv engine")
+                results[kernel] = (launched[kernel], seconds)
+    return results
+
+
+def blur_bound(shape, itemsize, flop_per_value):
+    """(ms, what binds) of a blur call on a (C, Hp, Wp) image: the bytes of
+    one trip (image in, image out, mask: (2C + 1) Hp Wp values) at the memory
+    rate against its operations at the float32 rate."""
+    c, h, w = shape
+    t_bytes = (2 * c + 1) * h * w * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = flop_per_value * c * h * w / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_blur_timing(torch, stencil):
+    """Time per launch of each blur kernel at the main path's shapes, float32:
+    B10 and B9 (k=4) at the padded 4096x4096 image, B8 at the padded bricks
+    image for the main path's 200 passes, and per pass from two run lengths.
+    Beside each: its plain version, and the library's convolution for the same
+    passes (`blur_step_conv`: once for B10, k times for B9, 200 times for
+    B8). Returns {kernel: dict of the numbers}."""
+    rng = np.random.default_rng(9)
+    passes = 2 * BLUR_ITERS
+    out = {}
+    img_np, int_np = blur_case(rng, *BIG)
+    x, m = torch.from_numpy(img_np).cuda(), torch.from_numpy(int_np).cuda()
+    conv_ms = time_ms(torch, lambda: stencil.blur_step_conv(x, m), 20)
+    copy_ms = time_ms(torch, lambda: x.clone(), 20)
+    print(f"timing at {BIG[0]}: one blur_step_conv {conv_ms:.4f} ms; a copy of the image "
+          f"{copy_ms:.4f} ms ({2 * x.numel() * 4 / copy_ms / 1e6:.0f} GB/s)")
+    bound = blur_bound(BIG[0], 4, FLOP_PER_VALUE_STEP)
+    out["blur_step"] = dict(
+        ms=time_ms(torch, lambda: stencil.blur_step(x, m), 50),
+        plain_ms=time_ms(torch, lambda: stencil.blur_step_plain(x, m), 5),
+        library_ms=conv_ms, bound=bound, shape=list(BIG[0]))
+    k = 4
+    bound = blur_bound(BIG[0], 4, k * FLOP_PER_VALUE_SEPARABLE)
+    out["blur_k"] = dict(
+        ms=time_ms(torch, lambda: stencil.blur_k(x, m, k_passes=k), 50),
+        plain_ms=time_ms(torch, lambda: stencil.blur_k_plain(x, m, k_passes=k), 5),
+        library_ms=k * conv_ms, bound=bound, shape=list(BIG[0]), k_passes=k,
+        tile=list(stencil.DEFAULT_TILE))
+    del x, m
+
+    # B8 at what pad_to_tile(row_mult=32) makes of the 302x499 image
+    shape = (4, 320, 512)
+    img_np, int_np = blur_case(rng, shape, BRICKS[1])
+    x, m = torch.from_numpy(img_np).cuda(), torch.from_numpy(int_np).cuda()
+    long_run = passes + 2000
+    t_short = time_ms(torch, lambda: stencil.blur_resident(x, m, num_passes=passes), 20)
+    t_long = time_ms(torch, lambda: stencil.blur_resident(x, m, num_passes=long_run), 5)
+
+    def conv_run():
+        y = x
+        for _ in range(passes):
+            y = stencil.blur_step_conv(y, m)
+
+    bound = blur_bound(shape, 4, passes * FLOP_PER_VALUE_SEPARABLE)
+    out["blur_resident"] = dict(
+        ms=t_short,
+        plain_ms=time_ms(torch, lambda: stencil.blur_resident_plain(x, m, num_passes=passes), 3),
+        library_ms=time_ms(torch, conv_run, 3), bound=bound, shape=list(shape), passes=passes,
+        us_per_pass=(t_long - t_short) / (long_run - passes) * 1e3,
+        tile=list(stencil.resident_tiling(*shape, *stencil.device_limits(x.device))))
+    for name, t in out.items():
+        extra = (f", {t['us_per_pass']:.3f} us per pass from runs of {passes} and {long_run}"
+                 if name == "blur_resident" else "")
+        print(f"timing {name:13s} at {tuple(t['shape'])}: {t['ms']:.4f} ms per launch{extra}, "
+              f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}), plain version "
+              f"{t['plain_ms']:.4f} ms, library (blur_step_conv for the same passes) "
+              f"{t['library_ms']:.4f} ms")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -666,7 +1063,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from lbm_tpu_torch.ops import (_build, d2q9_kstep, d2q9_kstep_inplace, d3q19_kstep,
-                                   d3q19_kstep_inplace)
+                                   d3q19_kstep_inplace, stencil)
     mods = (d2q9_kstep, d2q9_kstep_inplace)
     mods3 = (d3q19_kstep, d3q19_kstep_inplace)
 
@@ -697,6 +1094,10 @@ def main() -> int:
         paths3 = phase_main_path_3d(torch, mods3)
         phase_golden_3d(torch)
         ck_launches = phase_checkpoint(torch, mods, mods3, mask)
+
+        abs_err_blur = phase_blur_parity(torch, stencil)
+        times_blur = phase_blur_timing(torch, stencil)
+        paths_blur = phase_blur_main_path(torch, stencil)
     except Failure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -719,6 +1120,14 @@ def main() -> int:
         "main_path_mlups": paths3[name][2],
         "checkpoint_launches": ck_launches.get(name, 0),
     } for name, replaces in KERNELS_3D.items()]
+    for name, replaces in KERNELS_BLUR.items():
+        t = dict(times_blur[name])
+        bound_ms, bound_by = t.pop("bound")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/stencil.cu",
+            "replaces": replaces, "launches": paths_blur[name][0], "parity": "ok",
+            "max_abs_err": abs_err_blur[name], "bound_ms": bound_ms, "bound_by": bound_by,
+            "main_path_seconds": paths_blur[name][1], **t})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,82 @@
+"""CLI: iterated 3x3 Gaussian blur over a PNG with the PyTorch/CUDA port.
+
+Usage:
+    python -m lbm_tpu_torch.cli.blur -i in.png -o out.png [-n 100]
+        [--engine conv|cuda|resident|auto] [--data-type float|half]
+        [--band ROWS] [--k-passes K] [--device cuda|cpu] [--blur-alpha]
+
+The counterpart of `python -m lbm_tpu.cli.blur` on one device, with the same
+flags; the engine 'cuda' takes the place of 'pallas'. Runs on the CUDA
+device unless `--device cpu` is given, where the kernel engines run their
+kernels' plain PyTorch version. `--data-type half` is bfloat16 storage with
+float32 arithmetic. Not ported yet, and rejected: `--engine conv-sharded` /
+`--num-devices` (ROADMAP.md A7) and `--compile-only` / `--export`
+(ROADMAP.md A8).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Gaussian blur on PyTorch/CUDA")
+    parser.add_argument("-i", "--image", required=True)
+    parser.add_argument("-o", "--output", default=None)
+    parser.add_argument("-n", "--num-iters", type=int, default=100,
+                        help="number of iteration pairs (each = 2 blur passes)")
+    parser.add_argument("--engine", default="conv",
+                        choices=["conv", "cuda", "resident", "conv-sharded", "auto"],
+                        help="'conv' (depthwise conv2d), 'cuda' (kernel B10; B9 with "
+                             "--k-passes), 'resident' (kernel B8: one launch, the image "
+                             "in the SMs' shared memory); auto = resident when the "
+                             "image fits there, else cuda with k-passes 4 or 2")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="not ported yet (ROADMAP.md A7)")
+    parser.add_argument("--data-type", default="float",
+                        choices=["float", "half", "float32", "bfloat16"])
+    parser.add_argument("--band", type=int, default=None,
+                        help="--engine cuda with --k-passes: the row extent of a "
+                             "thread block's tile (the reference's row-band height; "
+                             "the result does not depend on it)")
+    parser.add_argument("--k-passes", type=int, default=None,
+                        help="--engine cuda: fuse this many blur passes per trip "
+                             "through device memory (temporal blocking, <=8; must "
+                             "divide 2*num_iters), for images too large for the "
+                             "resident engine")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--blur-alpha", action="store_true")
+    parser.add_argument("--compile-only", action="store_true",
+                        help="not ported yet (ROADMAP.md A8)")
+    parser.add_argument("--export", default=None, metavar="FILE",
+                        help="not ported yet (ROADMAP.md A8)")
+    args = parser.parse_args(argv)
+
+    if args.engine == "conv-sharded" or args.num_devices is not None:
+        parser.error("--engine conv-sharded and --num-devices (the multi-device blur) "
+                     "are not ported yet: ROADMAP.md A7")
+    if args.compile_only or args.export:
+        parser.error("--compile-only and --export (ahead-of-time compilation) are not "
+                     "ported yet: ROADMAP.md A8")
+    if not args.output:
+        parser.error("-o/--output is required")
+
+    import torch
+
+    from ..models import blur
+
+    dtype = torch.bfloat16 if args.data_type in ("half", "bfloat16") else torch.float32
+    run = blur.blur_file(
+        args.image, args.output, num_iters=args.num_iters, engine=args.engine,
+        dtype=dtype, blur_alpha=args.blur_alpha, band=args.band,
+        k_passes=args.k_passes, device=args.device)
+    fused = f" (k_passes {run.k_passes})" if run.engine == "cuda" and run.k_passes else ""
+    print(f"engine:\t{run.engine}{fused}")
+    seconds = run.compute_seconds
+    print(f"{args.num_iters}(x2) iterations took {seconds:.6f}s "
+          f"({seconds * 1e6:.0f} us)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -35,6 +35,9 @@ _D = ctypes.c_double
 _D2Q9_SCALARS = [_I] * 12 + [_D, _D, _D, _P]
 # d3q19_kstep.cu: nz .. accel_plane, six collision coefficients, stream
 _D3Q19_SCALARS = [_I] * 14 + [_D] * 6 + [_P]
+# stencil.cu: image, interior, out, then c, h, w and each kernel's own ints
+_STENCIL_K = [_P] * 3 + [_I] * 7 + [_P]
+_STENCIL_RESIDENT = [_P] * 5 + [_I] * 7 + [_P]
 # argument types of every C entry point, by source (the file's stem)
 SIGNATURES = {
     "d2q9_kstep": {
@@ -48,6 +51,14 @@ SIGNATURES = {
         "d3q19_kstep_f64": [_P] * 6 + _D3Q19_SCALARS,
         "d3q19_kstep_inplace_f32": [_P] * 4 + _D3Q19_SCALARS,
         "d3q19_kstep_inplace_f64": [_P] * 4 + _D3Q19_SCALARS,
+    },
+    "stencil": {
+        "stencil_step_f32": [_P] * 3 + [_I] * 3 + [_P],
+        "stencil_step_bf16": [_P] * 3 + [_I] * 3 + [_P],
+        "stencil_k_f32": _STENCIL_K,
+        "stencil_k_bf16": _STENCIL_K,
+        "stencil_resident_f32": _STENCIL_RESIDENT,
+        "stencil_resident_bf16": _STENCIL_RESIDENT,
     },
 }
 

@@ -22,8 +22,8 @@ import torch
 
 from lbm_tpu_torch.core import state
 from lbm_tpu_torch.core.params import Obstacles, Params
-from lbm_tpu_torch.models import lbm
-from lbm_tpu_torch.ops import d2q9_kstep, d2q9_kstep_inplace
+from lbm_tpu_torch.models import blur, lbm
+from lbm_tpu_torch.ops import d2q9_kstep, d2q9_kstep_inplace, stencil
 
 REPO = Path(__file__).resolve().parent.parent
 KW = dict(k_steps=2, omega=1.85, accel_w1=1e-4, accel_w2=2.5e-5, accel_row=6)
@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_no_lbm_tpu():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     for name in ("ops.d2q9_kstep_inplace", "ops.d3q19", "ops.d3q19_lattice", "ops.d3q19_kstep",
                  "ops.d3q19_kstep_inplace", "ops._build", "core.checkpoint", "models.lbm3d",
-                 "cli.lbm", "cli.lbm3d"):
+                 "cli.lbm", "cli.lbm3d", "utils.image", "ops.stencil", "models.blur",
+                 "cli.blur"):
         assert f"lbm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -134,3 +135,49 @@ def test_wrapper_raises_on_a_non_cpu_tensor(mod):
         mod.run(f, mask, num_steps=4, **KW)
     assert mod.launches == before
 
+
+
+def test_blur_defaults_to_cuda_and_raises_without_it(tmp_path):
+    no_cuda()
+    from lbm_tpu_torch.cli import blur as blur_cli
+    from lbm_tpu_torch.utils import image as img_lib
+
+    rgba = np.random.default_rng(0).integers(0, 256, size=(8, 12, 4), dtype=np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        blur.blur_image(rgba, num_iters=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        blur.blur_image(rgba, num_iters=1, engine="conv", device="cuda")
+    img_lib.save_png(tmp_path / "in.png", rgba)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        blur_cli.main(["-i", str(tmp_path / "in.png"), "-o", str(tmp_path / "out.png")])
+    assert not (tmp_path / "out.png").exists()
+
+
+BLUR_WRAPPERS = {
+    "blur_step": lambda x, m: stencil.blur_step(x, m),
+    "blur_k": lambda x, m: stencil.blur_k(x, m, k_passes=2),
+    "blur_resident": lambda x, m: stencil.blur_resident(x, m, num_passes=2),
+    "blur_many-cuda": lambda x, m: stencil.blur_many(x, m, num_iters=1, engine="cuda"),
+    "blur_many-cuda-k2": lambda x, m: stencil.blur_many(x, m, num_iters=1, engine="cuda",
+                                                       k_passes=2),
+    "blur_many-resident": lambda x, m: stencil.blur_many(x, m, num_iters=1, engine="resident"),
+}
+
+
+@pytest.mark.parametrize("name", list(BLUR_WRAPPERS))
+def test_blur_wrapper_raises_on_a_non_cpu_tensor(name, monkeypatch):
+    # a tensor that is not on the CPU goes to the kernel's checks, which
+    # refuse it: neither a plain version nor the library's convolution is
+    # ever the answer
+    def never(*args, **kwargs):
+        raise AssertionError("a kernel wrapper left its kernel's path")
+
+    for plain in ("blur_step_plain", "blur_k_plain", "blur_resident_plain", "blur_step_conv"):
+        monkeypatch.setattr(stencil, plain, never)
+    monkeypatch.setattr(torch.nn.functional, "conv2d", never)
+    x = torch.empty((4, 32, 128), device="meta")
+    m = torch.empty((32, 128), device="meta")
+    before = dict(stencil.launches)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        BLUR_WRAPPERS[name](x, m)
+    assert stencil.launches == before

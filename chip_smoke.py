@@ -43,6 +43,23 @@ Phases, each of which must pass or the script exits non-zero:
   7. checkpoint/resume on the card, 2-D (1024^2, B1) and 3-D (64x128x256,
      B4): N steps with --checkpoint-every N/2, then 2N with --resume; av_vels
      and the final state must equal an uninterrupted 2N run bit for bit;
+  7b. the blocked 3-D pair at 32x256x256 (the reference's
+     `d3q19_blocked_only` shape), all of it in the phases named *_blocked:
+     kernels B7 (d3q19_kstep_blocked) and B5 (d3q19_kstep_inplace_blocked) vs
+     `stepk_plain` at K = 1..4, float64 and float32, plus a ghost window and
+     a shape no tile divides (13x50x70); B5 bit-equal to B7 (same tile), also
+     over three passes of `run`; B7's state against B6's (gated at 0.0); B5's
+     result in its input's storage and its `run` under 1.5 x (lattice +
+     mask); one launch of the blocked kernel per K steps and none of a
+     one-step kernel. Time per pass of B5 and B7 at K = 1..3 beside B4 and
+     B6. The main path `cli.lbm3d --nz 32 --ny 256 --nx 256 -n 1200` with
+     `--engine cuda-inplace-blocked` (B5 alone), `--engine cuda-blocked` (B7
+     alone) and no --engine (the kind `pick_engine` names), av_vels[1:24]
+     against the plain engine (4e-4). Golden 8x256x256 x 6000 against
+     experiments/d3q19-drift/d3q19_8x256x256_6000.av_vels.dat (float32 both
+     blocked engines <= 1.5e-3; float64 `cuda-blocked`, 200 steps, <= 1e-10).
+     Checkpoint/resume through `cuda-inplace-blocked`, bit-equal to an
+     uninterrupted run;
   8. blur kernels vs plain version, from numpy-seeded images: B10
      (stencil.blur_step) one pass, B9 (blur_k) at k = 1, 2, 4, 8 and two tile
      heights, B8 (blur_resident) at 8 and 200 passes; float32 (bit-equal) and
@@ -63,7 +80,7 @@ Phases, each of which must pass or the script exits non-zero:
      2e-2, and its output within one level of the plain bfloat16 chain). The
      PNG leg runs if PIL imports; if not, the arrays go through
      `models.blur.run_blur` and a line says so;
- 10. one JSON line `{"kernels": [...]}` with each of the seven kernels'
+ 10. one JSON line `{"kernels": [...]}` with each of the nine kernels'
      launches on its path, parity, time per launch, its bound, the plain
      version's time and, for the blur kernels, the library's convolution;
  11. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -121,6 +138,17 @@ SHAPE_3D = (64, 128, 256)
 STEPS_3D = 1200
 PHYSICS_3D = dict(omega=1.85, density=0.1, accel=0.005)
 AV_VELS_PREFIX_3D = 24
+# the blocked pair: the shape of bench.py's d3q19_blocked_only, a shape no tile
+# divides, and the 256x256-plane oracle trace
+KERNELS_3D_BLOCKED = {
+    "d3q19_kstep_inplace_blocked": "lbm_tpu/ops/d3q19_pallas_inplace_blocked.py:148",
+    "d3q19_kstep_blocked": "lbm_tpu/ops/d3q19_pallas.py:495",
+}
+SHAPE_BLOCKED = (32, 256, 256)
+EDGE_SHAPE_BLOCKED = (13, 50, 70)
+GOLDEN_BLOCKED = REPO / "experiments" / "d3q19-drift" / "d3q19_8x256x256_6000.av_vels.dat"
+GOLDEN_BLOCKED_SHAPE = (8, 256, 256)
+CHECKPOINT_STEPS_BLOCKED = 300
 # operations of one cell-step of d3q19.collide_fields' paired grouping: 18
 # adds for rho, 3 x (9 adds + a division), 5 for u^2, 2 for c_sq, 3 weight
 # products, 3 for the rest speed, 9 pairs x 12 plus 9 for their eu, the root
@@ -699,6 +727,266 @@ def phase_checkpoint(torch, mods, mods3, mask):
     return launches
 
 
+def hold_blocked(what, dname, got, ref):
+    """State and Sum|u| of a blocked kernel against the plain version's."""
+    ef, et = rel_err(got[0], ref[0]), rel_err(got[1], ref[1])
+    check(np.isfinite(ef) and ef <= BARS[dname], f"{what}: state rel err {ef} > {BARS[dname]}")
+    check(np.isfinite(et) and et <= BARS[dname], f"{what}: Sum|u| rel err {et} > {BARS[dname]}")
+    return ef, et
+
+
+def phase_parity_blocked(torch, mods3, modsb):
+    """Kernels B7 and B5 vs the plain version. Returns {kernel: max_abs_err}
+    of the float32 case at the main path's K."""
+    from lbm_tpu_torch.core import state
+    d3q19_kstep, d3q19_kstep_inplace = mods3
+    b7, b5 = modsb
+    counters = (d3q19_kstep, d3q19_kstep_inplace, b7, b5)
+    rng = np.random.default_rng(20261021)
+    abs_err = {}
+    for shape in (SHAPE_BLOCKED, EDGE_SHAPE_BLOCKED):
+        nz, ny, nx = shape
+        f_np, mask_np = random_state_3d(rng, *shape), random_mask_3d(rng, *shape)
+        # a ghost-extended block: local plane p is global plane p + 10 of a
+        # grid of nz + 20 planes, the accelerated plane in its middle
+        window = dict(plane_offset=10, valid_planes=(3, nz - 4), valid_rows=(5, ny - 8),
+                      global_nz=nz + 20, accel_plane=nz // 2 + 10)
+        for dname, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+            f, mask = state.to_torch3d(f_np, mask_np, device="cuda", dtype=dtype)
+            cases = [(k, "full", dict(accel_plane=nz - 2)) for k in (1, 2, 3, 4)]
+            cases.append((b7.PREFERRED_K, "window", window))
+            for k, label, extra in cases:
+                kw = dict(k_steps=k, **PHYSICS_3D, **extra)
+                tile = b5.choose_config(nz, ny, nx, k, dtype, f.device)
+                ref = d3q19_kstep.stepk_plain(f, mask, **kw)
+                b6_f, _ = d3q19_kstep.stepk(f, mask, **kw)
+                torch.cuda.synchronize()
+                before = [m.launches for m in counters]
+                b7_out = b7.stepk(f, mask, tile=tile, **kw)
+                own_f, _ = b7.stepk(f, mask, **kw)  # B7 at its own tile
+                g = f.clone()
+                b5_out = b5.stepk(g, mask, tile=tile, **kw)
+                torch.cuda.synchronize()
+                counted = [m.launches - n for m, n in zip(counters, before)]
+                check(counted == [0, 0, 2, 1],
+                      f"one pass of K={k} steps took launches {counted} of (B6, B4, B7, B5), "
+                      "not one of the blocked kernel each")
+                check(b5_out[0].data_ptr() == g.data_ptr(),
+                      "B5 did not write into its input's storage")
+                what = f"{nz}x{ny}x{nx} {dname} K={k} {label}"
+                hold_blocked(f"d3q19_kstep_inplace_blocked {what}", dname, b5_out, ref)
+                ef, et = hold_blocked(f"d3q19_kstep_blocked {what}", dname, b7_out, ref)
+                ea = float((b7_out[0] - ref[0]).abs().max())
+                if (shape == SHAPE_BLOCKED and dname == "float32" and label == "full"
+                        and k == b7.PREFERRED_K):
+                    # B5 is held bit-equal to B7 below, so the error is B5's too
+                    abs_err = dict.fromkeys(KERNELS_3D_BLOCKED, ea)
+                diff6 = float((b7_out[0] - b6_f).abs().max())
+                print(f"parity blocked {what:38s} tile {tile}: B7 vs plain state {ef:.3e} "
+                      f"(max abs {ea:.3e}), Sum|u| {et:.3e}; B7 - B6 max abs {diff6:.3e}")
+                check(diff6 == 0.0, f"{what}: B7's state differs from B6's by {diff6}")
+                check(torch.equal(own_f, b7_out[0]),
+                      f"{what}: B7's state depends on the tile")
+                check(torch.equal(b5_out[0], b7_out[0]) and torch.equal(b5_out[1], b7_out[1]),
+                      f"B5 is not bit-equal to B7 ({what})")
+                del ref, b6_f, b7_out, own_f, b5_out, g
+            print(f"parity B5 == B7 bit for bit, B7 == B6 on the state, one launch per pass "
+                  f"({nz}x{ny}x{nx} {dname}, K = 1..4 and a ghost window)")
+            # three passes of run; B5 at its own tile, B7 at the same one
+            k = b7.PREFERRED_K
+            tile = b5.choose_config(nz, ny, nx, k, dtype, f.device)
+            run_kw = dict(num_steps=3 * k, k_steps=k, accel_plane=nz - 2, **PHYSICS_3D)
+            b7_f, b7_tot = b7.run(f, mask, tile=tile, **run_kw)
+            g = f.clone()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            b5_f, b5_tot = b5.run(g, mask, **run_kw)
+            torch.cuda.synchronize()
+            extra_bytes = torch.cuda.max_memory_allocated() - before
+            check(torch.equal(b5_f, b7_f) and torch.equal(b5_tot, b7_tot),
+                  f"B5 run is not bit-equal to B7 run ({nz}x{ny}x{nx} {dname}, 3 passes of K={k})")
+            check(b5_f.data_ptr() == g.data_ptr(), "B5 run did not stay in its input's storage")
+            held = g.numel() * g.element_size() + mask.numel()
+            print(f"parity B5 run == B7 run bit for bit ({nz}x{ny}x{nx} {dname}, 3 passes of "
+                  f"K={k}, tile {tile}); memory B5 run: lattice + mask {held} B, allocated on "
+                  f"top {extra_bytes} B, peak {(held + extra_bytes) / held:.4f} x"
+                  + (" (bar 1.5 x)" if shape == SHAPE_BLOCKED else ""))
+            if shape == SHAPE_BLOCKED:
+                check(held + extra_bytes < 1.5 * held, f"B5 run allocated {extra_bytes} B on top")
+            del b7_f, b5_f, g, f
+    return abs_err
+
+
+def phase_timing_blocked(torch, mods3, modsb):
+    """Time per pass of B7 and B5 at K = 1..3 beside B6 and B4 at the same
+    shape and K, 32x256x256 float32, inside `run`; the plain version and the
+    bound at the main path's K. Returns ({kernel: ms}, plain_ms, bound)."""
+    from lbm_tpu_torch.core import state
+    d3q19_kstep, d3q19_kstep_inplace = mods3
+    b7, b5 = modsb
+    nz, ny, nx = SHAPE_BLOCKED
+    rng = np.random.default_rng(10)
+    f, mask = state.to_torch3d(random_state_3d(rng, nz, ny, nx), random_mask_3d(rng, nz, ny, nx),
+                               device="cuda", dtype=torch.float32)
+    kw = dict(accel_plane=nz - 2, **PHYSICS_3D)
+    passes = 100
+    cells = nz * ny * nx
+    # a pass reads the lattice and the mask once and writes the lattice and K
+    # sums once, whatever K is
+    k_main = b7.PREFERRED_K
+    bytes_moved = (2 * 19 * 4 + 1) * cells + k_main * 4
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = FLOP_PER_CELL_STEP_3D * k_main * cells / F32_FLOP_PER_S * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    ms = {}
+    for k in (1, 2, 3):
+        row = {}
+        for name, mod in (("B7", b7), ("B5", b5), ("B6", d3q19_kstep), ("B4", d3q19_kstep_inplace)):
+            g = f.clone()
+            row[name] = time_ms(torch, lambda: mod.run(g, mask, num_steps=k * passes, k_steps=k,
+                                                       **kw), 1) / passes
+        print(f"timing blocked {nz}x{ny}x{nx} float32 K={k}: B7 {row['B7']:.4f} ms per pass "
+              f"(tile {b7.choose_config(nz, ny, nx, k)}), B5 {row['B5']:.4f} "
+              f"(tile {b5.choose_config(nz, ny, nx, k)}), B6 {row['B6']:.4f}, B4 {row['B4']:.4f} "
+              f"(K launches of a one-step kernel); bytes of a pass {bytes_moved / 1e6:.0f} MB, "
+              f"{t_bytes:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s whatever K")
+        if k == k_main:
+            ms = {"d3q19_kstep_blocked": row["B7"], "d3q19_kstep_inplace_blocked": row["B5"]}
+    plain_ms = time_ms(torch, lambda: d3q19_kstep.stepk_plain(f, mask, k_steps=k_main, **kw), 5)
+    for name, t in ms.items():
+        print(f"timing {name:27s}: {t:.4f} ms per K={k_main} launch "
+              f"({cells * k_main / t / 1e3:.0f} MLUPS), bound {bound[0]:.4f} ms ({bound[1]}), "
+              f"plain version {plain_ms:.4f} ms")
+    return ms, plain_ms, bound
+
+
+def phase_main_path_blocked(torch, mods3, modsb):
+    """The slice's main path. Returns {kernel: (launches, seconds, mlups)}."""
+    from lbm_tpu_torch.cli import lbm3d as cli3
+    from lbm_tpu_torch.core import io as lbm_io
+    from lbm_tpu_torch.ops import d3q19
+    d3q19_kstep, d3q19_kstep_inplace = mods3
+    b7, b5 = modsb
+    names = {d3q19_kstep: "d3q19_kstep", d3q19_kstep_inplace: "d3q19_kstep_inplace",
+             b7: "d3q19_kstep_blocked", b5: "d3q19_kstep_inplace_blocked"}
+    nz, ny, nx = SHAPE_BLOCKED
+    results, avs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for engine_args, mod in ((["--engine", "cuda-inplace-blocked"], b5),
+                                 (["--engine", "cuda-blocked"], b7), ([], None)):
+            label = " ".join(engine_args) or "(default engine)"
+            out = Path(tmp) / (engine_args[-1] if engine_args else "default")
+            argv = ["--nz", str(nz), "--ny", str(ny), "--nx", str(nx), "-n", str(STEPS_3D),
+                    "--dtype", "float32", "--out-dir", str(out), *engine_args]
+            for m in names:
+                m.launches = 0
+            with CountCalls(d3q19, "collide_fields") as plain:
+                rc, text = run_cli(cli3.main, argv)
+            launched = {name: m.launches for m, name in names.items() if m.launches}
+            print(f"blocked main path {label}:\n{text.rstrip()}")
+            check(rc == 0, f"cli returned {rc}")
+            check(plain.calls == 0, f"{label}: the plain engine ran {plain.calls} collisions")
+            kind = re.search(r"^kernel:\s+(slab|blocked), (\d+) steps? per pass$", text, re.M)
+            check(kind is not None, f"{label}: the CLI does not print the kind of kernel")
+            if mod is None:
+                # the kind pick_engine names for the in-place family
+                picked = b5.pick_engine(nz, ny, nx, int(kind.group(2)), torch.float32, "cuda")[0]
+                check(kind.group(1) == picked, f"{label}: ran {kind.group(1)}, not {picked}")
+                mod = b5 if picked == "blocked" else d3q19_kstep_inplace
+                print(f"blocked main path {label}: pick_engine chose the {picked} kind, kernel "
+                      f"{names[mod]}")
+            else:
+                check(kind.group(1) == "blocked", f"{label}: the kind is {kind.group(1)}")
+            kernel = names[mod]
+            check(list(launched) == [kernel],
+                  f"{label}: launched {launched}, not {kernel} alone")
+            # warm-up run and timed run, one launch per K steps each
+            check(launched[kernel] == 2 * STEPS_3D // int(kind.group(2)),
+                  f"{label}: {launched[kernel]} launches for 2 x {STEPS_3D} steps at "
+                  f"K={kind.group(2)}")
+            seconds = float(re.search(r"Total compute time:\s+([0-9.eE+-]+)", text).group(1))
+            mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
+            print(f"blocked main path {kernel}: {launched[kernel]} launches, {seconds:.6f} s "
+                  f"timed, {seconds / (launched[kernel] / 2) * 1e3:.4f} ms per launch in the "
+                  "timed run")
+            print(f"blocked main path {label}: {mlups} MLUPS")
+            if engine_args:
+                results[kernel] = (launched[kernel], seconds, mlups)
+            av = lbm_io.read_av_vels(out / "av_vels_3d.dat")
+            check(av.shape == (STEPS_3D,) and np.isfinite(av).all(),
+                  f"{label}: av_vels_3d.dat is malformed")
+            avs[label] = av
+    _, plain_av = d3q19.simulate(nz, ny, nx, num_steps=AV_VELS_PREFIX_3D, engine="torch",
+                                 dtype=torch.float32, device="cuda", **PHYSICS_3D)
+    plain_av = plain_av.cpu().numpy().astype(np.float64)
+    for label, av in avs.items():
+        err = float(np.max(np.abs(av[1:AV_VELS_PREFIX_3D] - plain_av[1:]) / np.abs(plain_av[1:])))
+        print(f"av_vels[1:{AV_VELS_PREFIX_3D}] of {label} vs the plain engine on the card: "
+              f"max rel err {err:.3e} (bar {AV_VELS_BAR})")
+        check(err <= AV_VELS_BAR, f"{label}: av_vels prefix rel err {err} > {AV_VELS_BAR}")
+    return results
+
+
+def phase_golden_blocked(torch):
+    """The 6000-step float64 oracle trace at 256x256 planes."""
+    from lbm_tpu_torch.core import io as lbm_io
+    from lbm_tpu_torch.ops import d3q19
+    nz, ny, nx = GOLDEN_BLOCKED_SHAPE
+    golden = lbm_io.read_av_vels(GOLDEN_BLOCKED)
+    check(golden.shape == (6000,), f"golden trace has shape {golden.shape}")
+    for engine in ("cuda-inplace-blocked", "cuda-blocked"):
+        _, av = d3q19.simulate(nz, ny, nx, num_steps=6000, engine=engine, dtype=torch.float32,
+                               device="cuda", **PHYSICS_3D)
+        av = av.cpu().numpy().astype(np.float64)
+        rel = np.abs(av[1:] - golden[1:]) / golden[1:]
+        print(f"golden 8x256x256 x 6000 float32 --engine {engine}: max rel err {rel.max():.3e}, "
+              f"final {rel[-1]:.3e} (bar {GOLDEN_3D_BAR_F32})")
+        check(np.isfinite(rel).all() and rel.max() <= GOLDEN_3D_BAR_F32,
+              f"{engine}: golden trace max rel err {rel.max()} > {GOLDEN_3D_BAR_F32}")
+    _, av = d3q19.simulate(nz, ny, nx, num_steps=200, engine="cuda-blocked", dtype=torch.float64,
+                           device="cuda", **PHYSICS_3D)
+    av = av.cpu().numpy()
+    rel = np.abs(av[1:] - golden[1:200]) / golden[1:200]
+    print(f"golden 8x256x256 float64 --engine cuda-blocked, first 200 steps: max rel err "
+          f"{rel.max():.3e} (bar {GOLDEN_3D_BAR_F64})")
+    check(np.isfinite(rel).all() and rel.max() <= GOLDEN_3D_BAR_F64,
+          f"float64 golden prefix max rel err {rel.max()} > {GOLDEN_3D_BAR_F64}")
+
+
+def phase_checkpoint_blocked(torch, mods3, modsb):
+    """A chunked and resumed run through B5 equals an uninterrupted one bit
+    for bit. Returns B5's launches in the chunked and resumed runs."""
+    from lbm_tpu_torch.cli import lbm3d as cli3
+    from lbm_tpu_torch.ops import d3q19
+    b7, b5 = modsb
+    nz, ny, nx = SHAPE_BLOCKED
+    n = CHECKPOINT_STEPS_BLOCKED
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--nz", str(nz), "--ny", str(ny), "--nx", str(nx), "--out-dir", str(tmp),
+                "--engine", "cuda-inplace-blocked", "--checkpoint-every", str(n // 2)]
+        for m in (*mods3, *modsb):
+            m.launches = 0
+        for argv in (base + ["-n", str(n)], base + ["-n", str(2 * n), "--resume"]):
+            rc, text = run_cli(cli3.main, argv)
+            check(rc == 0, f"blocked checkpointed cli returned {rc}")
+        launches = b5.launches
+        check(launches > 0 and not any(m.launches for m in (*mods3, b7)),
+              "the blocked checkpointed run did not go through B5 alone")
+        ref_f, ref_av = d3q19.simulate(nz, ny, nx, num_steps=2 * n, engine="cuda-inplace-blocked",
+                                       dtype=torch.float32, device="cuda", **PHYSICS_3D)
+        with np.load(Path(tmp) / "checkpoint_3d.npz") as ck:
+            check(int(ck["step"]) == 2 * n, "the blocked checkpoint does not record its step")
+            check(np.array_equal(ck["av_vels"], ref_av.cpu().numpy().astype(np.float64)),
+                  "blocked: resumed av_vels differ from the uninterrupted run")
+            check(np.array_equal(ck["f"], ref_f.cpu().numpy()),
+                  "blocked: resumed final state differs from the uninterrupted run")
+    print(f"checkpoint 3-D 32x256x256 (B5, {launches} launches): {n} steps in chunks of "
+          f"{n // 2}, resumed to {2 * n}: av_vels and final state equal the uninterrupted run "
+          "bit for bit")
+    return launches
+
+
 def blur_case(rng, shape, inner, ring=False):
     """A padded image as bench.py makes it: uniform noise inside the
     interior box, zero outside. With `ring`, noise everywhere and a mask with
@@ -1058,14 +1346,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if not (REPO / "lbm_tpu_torch").is_dir() or not GOLDEN.exists() or not GOLDEN_3D.exists():
+    if not (REPO / "lbm_tpu_torch").is_dir() or not all(
+            p.exists() for p in (GOLDEN, GOLDEN_3D, GOLDEN_BLOCKED)):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
     from lbm_tpu_torch.ops import (_build, d2q9_kstep, d2q9_kstep_inplace, d3q19_kstep,
-                                   d3q19_kstep_inplace, stencil)
+                                   d3q19_kstep_blocked, d3q19_kstep_inplace,
+                                   d3q19_kstep_inplace_blocked, stencil)
     mods = (d2q9_kstep, d2q9_kstep_inplace)
     mods3 = (d3q19_kstep, d3q19_kstep_inplace)
+    modsb = (d3q19_kstep_blocked, d3q19_kstep_inplace_blocked)
 
     try:
         card = card_line()
@@ -1095,6 +1386,12 @@ def main() -> int:
         phase_golden_3d(torch)
         ck_launches = phase_checkpoint(torch, mods, mods3, mask)
 
+        abs_err_b = phase_parity_blocked(torch, mods3, modsb)
+        ms_b, plain_ms_b, bound_b = phase_timing_blocked(torch, mods3, modsb)
+        paths_b = phase_main_path_blocked(torch, mods3, modsb)
+        phase_golden_blocked(torch)
+        ck_launches["d3q19_kstep_inplace_blocked"] = phase_checkpoint_blocked(torch, mods3, modsb)
+
         abs_err_blur = phase_blur_parity(torch, stencil)
         times_blur = phase_blur_timing(torch, stencil)
         paths_blur = phase_blur_main_path(torch, stencil)
@@ -1120,6 +1417,17 @@ def main() -> int:
         "main_path_mlups": paths3[name][2],
         "checkpoint_launches": ck_launches.get(name, 0),
     } for name, replaces in KERNELS_3D.items()]
+    kernels += [{
+        "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/d3q19_blocked.cu",
+        "replaces": replaces, "launches": paths_b[name][0], "parity": "ok",
+        "max_abs_err": abs_err_b[name], "ms": ms_b[name], "plain_ms": plain_ms_b,
+        "bound_ms": bound_b[0], "bound_by": bound_b[1], "library_ms": None,
+        "k_steps": d3q19_kstep_blocked.PREFERRED_K,
+        "tile": list(sys.modules[f"lbm_tpu_torch.ops.{name}"].choose_config(
+            *SHAPE_BLOCKED, d3q19_kstep_blocked.PREFERRED_K)),
+        "main_path_seconds": paths_b[name][1], "main_path_mlups": paths_b[name][2],
+        "checkpoint_launches": ck_launches.get(name, 0),
+    } for name, replaces in KERNELS_3D_BLOCKED.items()]
     for name, replaces in KERNELS_BLUR.items():
         t = dict(times_blur[name])
         bound_ms, bound_by = t.pop("bound")

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Device time by CUDA kernel of the port's D3Q19 K-step engines, from
-torch.profiler, at the 3-D bench shape (64x128x256 float32).
+torch.profiler, at the 3-D bench shape (64x128x256 float32) or, with
+`--blocked`, at 32x256x256 for the blocked pair as well.
 
-For each engine (B6 d3q19_kstep, B4 d3q19_kstep_inplace) and each requested
+For each engine (B6 d3q19_kstep, B4 d3q19_kstep_inplace; with `--blocked`
+also B7 d3q19_kstep_blocked and B5 d3q19_kstep_inplace_blocked, whose pass is
+a snapshot, one launch and one flush per z-row of tiles) and each requested
 K, runs `passes` launches inside `run` under the profiler and prints each
 kernel's device time per pass, the device's busy share of the window and the
 wall time per pass. Last, it times a plain copy of the lattice
@@ -12,6 +15,7 @@ read and 19 written per cell): the rate the card reaches on that traffic.
 Run on a machine with the card, from the repository root:
 
     python3 experiments/cuda-kstep-tiles/profile3d.py [--k 1 2 3] [--passes 200]
+        [--blocked] [--shape NZ NY NX]
 """
 
 from __future__ import annotations
@@ -29,16 +33,25 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from lbm_tpu_torch.core import state  # noqa: E402
-from lbm_tpu_torch.ops import d3q19_kstep, d3q19_kstep_inplace, d3q19_lattice  # noqa: E402
+from lbm_tpu_torch.ops import (d3q19_kstep, d3q19_kstep_blocked, d3q19_kstep_inplace,  # noqa: E402
+                               d3q19_kstep_inplace_blocked, d3q19_lattice)
 
-NZ, NY, NX = 64, 128, 256
+ENGINES = (("B6 d3q19_kstep", d3q19_kstep), ("B4 d3q19_kstep_inplace", d3q19_kstep_inplace))
+BLOCKED_ENGINES = (("B7 d3q19_kstep_blocked", d3q19_kstep_blocked),
+                   ("B5 d3q19_kstep_inplace_blocked", d3q19_kstep_inplace_blocked))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k", type=int, nargs="+", default=[1, 2, 3])
     ap.add_argument("--passes", type=int, default=200)
+    ap.add_argument("--blocked", action="store_true")
+    ap.add_argument("--shape", type=int, nargs=3, metavar=("NZ", "NY", "NX"),
+                    help="another grid, e.g. 16 64 128, whose lattices stay in the 50 MB L2: "
+                         "what a step costs when device memory is out of the way")
     args = ap.parse_args()
+    NZ, NY, NX = args.shape or ((32, 256, 256) if args.blocked else (64, 128, 256))
+    engines = ENGINES + BLOCKED_ENGINES if args.blocked else ENGINES
     if not torch.cuda.is_available():
         print("profile3d: CUDA is not available", file=sys.stderr)
         return 1
@@ -52,8 +65,7 @@ def main() -> int:
     f, mask = state.to_torch3d(f_np, mask_np, device="cuda", dtype=torch.float32)
     kw = dict(omega=1.85, density=0.1, accel=0.005, accel_plane=NZ - 2)
     for k in args.k:
-        for name, mod in (("B6 d3q19_kstep", d3q19_kstep),
-                          ("B4 d3q19_kstep_inplace", d3q19_kstep_inplace)):
+        for name, mod in engines:
             g = f.clone()
             run = lambda: mod.run(g, mask, num_steps=k * args.passes, k_steps=k, **kw)  # noqa: E731
             run()

@@ -7,16 +7,22 @@ at z = 0 and z = nz-1.
 Usage:
     python -m lbm_tpu_torch.cli.lbm3d --nz 64 --ny 128 --nx 256 -n 1200
         [--omega 1.85] [--density 0.1] [--accel 0.005]
-        [--engine cuda-inplace|cuda|torch] [--dtype float32|float64]
+        [--engine cuda-inplace|cuda|cuda-inplace-blocked|cuda-blocked|torch]
+        [--dtype float32|float64]
         [--device cuda|cpu] [--out-dir .]
         [--checkpoint-every N] [--checkpoint FILE] [--resume]
         [--final-state-slice Z|mid]
 
 The counterpart of `python -m lbm_tpu.cli.lbm3d` on one device. Runs on the
 CUDA device unless `--device cpu` is given. The default engine is
-'cuda-inplace' (kernel B4), the counterpart of the reference's fastest
-single-chip engine; 'cuda' is the two-stream kernel B6 and 'torch' the plain
-PyTorch engine. Writes av_vels_3d.dat and prints the `==done==` block.
+'cuda-inplace', the counterpart of the reference's fastest single-chip engine
+('pallas-inplace'): one lattice in memory, through kernel B4 (one launch per
+step, the 'slab' kind) or B5 (K steps of every tile per trip, the 'blocked'
+kind), whichever `pick_engine` names for the shape. 'cuda' is the two-stream
+pair B6 / B7 chosen the same way; 'cuda-inplace-blocked' and 'cuda-blocked'
+run B5 and B7 whatever the rule says, as passing `by=` does in the
+reference; 'torch' is the plain PyTorch engine. Writes av_vels_3d.dat and
+prints the engine, the kind of kernel and its K, then the `==done==` block.
 """
 
 from __future__ import annotations
@@ -34,10 +40,12 @@ def main(argv=None) -> int:
     parser.add_argument("--density", type=float, default=0.1)
     parser.add_argument("--accel", type=float, default=0.005)
     parser.add_argument("--engine", default="cuda-inplace",
-                        choices=["torch", "cuda", "cuda-inplace"],
-                        help="compute path: 'cuda-inplace' (kernel B4, one lattice in "
-                             "memory), 'cuda' (kernel B6, two-stream) or 'torch' "
-                             "(plain PyTorch)")
+                        choices=["torch", "cuda", "cuda-inplace", "cuda-blocked",
+                                 "cuda-inplace-blocked"],
+                        help="compute path: 'cuda-inplace' (one lattice in memory: kernel "
+                             "B4 or B5 as pick_engine names), 'cuda' (two-stream: B6 or "
+                             "B7), 'cuda-inplace-blocked' (B5), 'cuda-blocked' (B7) or "
+                             "'torch' (plain PyTorch)")
     parser.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--out-dir", default=".")
@@ -68,12 +76,19 @@ def main(argv=None) -> int:
     dtype = {"float32": torch.float32, "float64": torch.float64}[args.dtype]
     cells = args.nz * args.ny * args.nx
     out = Path(args.out_dir)
+    chunk = args.checkpoint_every or args.num_steps
+    kernel_line = None
+    if args.engine != "torch":
+        _, kind, k_steps, _ = d3q19.resolve_engine(
+            args.engine, args.nz, args.ny, args.nx, (args.num_steps, chunk), dtype=dtype,
+            device=device)
+        kernel_line = f"{kind}, {k_steps} step{'s' if k_steps > 1 else ''} per pass"
     if args.checkpoint_every or args.resume:
         ck = Path(args.checkpoint or out / "checkpoint_3d.npz")
         ck.parent.mkdir(parents=True, exist_ok=True)
         f_final, av_np, dt, steps_run = lbm3d_model.run_simulation_with_checkpoints(
             args.nz, args.ny, args.nx, num_steps=args.num_steps, checkpoint_path=ck,
-            checkpoint_every=args.checkpoint_every or args.num_steps,
+            checkpoint_every=chunk,
             omega=args.omega, density=args.density, accel=args.accel, dtype=dtype,
             engine=args.engine, resume=args.resume, device=device)
         # dt covers the steps executed by this invocation, the checkpoint
@@ -109,6 +124,8 @@ def main(argv=None) -> int:
         mlups = args.num_steps * cells / dt / 1e6
 
     print(f"engine:\t\t\t{args.engine}")
+    if kernel_line:
+        print(f"kernel:\t\t\t{kernel_line}")
     print("==done==")
     print(f"Final mean |u|:\t\t{av_np[-1]:.12E}")
     print(f"{time_label}:\t{dt:.6f} (s)")

@@ -4,8 +4,17 @@ The counterpart of `lbm_tpu.models.lbm3d`, and the 3-D counterpart of
 `models.lbm.run_simulation_with_checkpoints` (the 2-D docstring's contract
 applies: chunking is bit-identical to one uninterrupted run of the same
 engine at the same K; atomic .npz checkpoints; resume validates the grid and
-physics signature). Engines: 'torch' (plain), 'cuda' (kernel B6),
-'cuda-inplace' (kernel B4).
+physics signature). Engines: 'torch' (plain) and the kernel engines of
+`ops.d3q19.resolve_engine`: 'cuda' (kernel B6 or B7), 'cuda-inplace' (B4 or
+B5), 'cuda-blocked' (B7) and 'cuda-inplace-blocked' (B5).
+
+The 3-D checkpoint records no K. The state a kernel engine leaves does not
+depend on K, on the tile or on which of the four kernels ran (they are
+bit-identical on the state); Sum|u| may differ in its last bits between
+kernels, tiles and K, by the order of its sum. So a run resumed with another
+engine or K continues from the same state, and equals an uninterrupted run
+bit for bit in av_vels too when engine, K and tile are the same, which
+`select_k_steps` ensures for the same total and chunk.
 """
 
 from __future__ import annotations
@@ -21,15 +30,20 @@ from ..ops import d3q19, d3q19_kstep, d3q19_lattice
 from .lbm import numpy_dtype, resolve_device
 
 
-def select_k_steps(engine: str, num_steps: int, checkpoint_every: int) -> int:
+def select_k_steps(engine: str, num_steps: int, checkpoint_every: int, shape=None) -> int:
     """Deepest K compatible with bit-exact chunking for this engine: the
-    kernels' preferred K (d3q19_kstep.choose_k) when it divides both the
-    total and the chunk, else the largest smaller K that does. The kernels
-    take any grid shape, so the shape sets no limit (unlike the TPU's
-    K-plane-aligned halo blocks). 1 for the plain engine, which has no K."""
+    preferred K of the kernel it runs when that divides both the total and
+    the chunk, else the largest smaller K that does. The kernels take any grid
+    shape, so the shape sets no limit (unlike the TPU's K-plane-aligned halo
+    blocks); given `shape` (nz, ny, nx), 'cuda' and 'cuda-inplace' take the K
+    of the kind their `pick_engine` names there, else that of the one-step
+    kernels. 1 for the plain engine, which has no K."""
     if engine == "torch":
         return 1
-    return d3q19_kstep.choose_k(num_steps, checkpoint_every)
+    if shape is None and not engine.endswith("-blocked"):
+        return d3q19_kstep.choose_k(num_steps, checkpoint_every)
+    return d3q19.resolve_engine(engine, *(shape or (0, 0, 0)),
+                                (num_steps, checkpoint_every))[2]
 
 
 def run_simulation_with_checkpoints(
@@ -59,16 +73,16 @@ def run_simulation_with_checkpoints(
     accel_plane = nz - 2
 
     kernel_engine = engine != "torch"
-    run_fn = d3q19.engine_run(engine) if kernel_engine else None
     if kernel_engine:
-        if k_steps is None:
-            k_steps = select_k_steps(engine, num_steps, checkpoint_every)
-        if not 1 <= k_steps <= d3q19_kstep.MAX_K:
+        if k_steps is not None and not 1 <= k_steps <= d3q19_kstep.MAX_K:
             raise ValueError(f"k_steps must be in 1..{d3q19_kstep.MAX_K}, got {k_steps}")
-        if num_steps % k_steps or checkpoint_every % k_steps:
+        if k_steps is not None and (num_steps % k_steps or checkpoint_every % k_steps):
             raise ValueError(
                 f"kernel checkpointing needs num_steps ({num_steps}) and checkpoint_every "
                 f"({checkpoint_every}) divisible by k_steps ({k_steps}) for bit-exact chunking")
+        run_fn, _, k_steps, extra = d3q19.resolve_engine(
+            engine, nz, ny, nx, (num_steps, checkpoint_every), k_steps=k_steps, dtype=dtype,
+            device=device)
 
     ck_path = Path(checkpoint_path)
     if resume and ck_path.exists():
@@ -98,7 +112,8 @@ def run_simulation_with_checkpoints(
     while start < num_steps:
         n = min(checkpoint_every, num_steps - start)
         if kernel_engine:
-            f, tot = run_fn(f, mask, num_steps=n, k_steps=k_steps, accel_plane=accel_plane, **kw)
+            f, tot = run_fn(f, mask, num_steps=n, k_steps=k_steps, accel_plane=accel_plane,
+                            **kw, **extra)
         else:
             f, tot = d3q19.run(f, mask, amask, num_steps=n, **kw)
         # divide in f's dtype on the device, as d3q19.simulate does

@@ -4,8 +4,8 @@ Each source under `lbm_tpu_torch/csrc/` is compiled at first use with nvcc
 into a shared library of its own with a plain C interface (no PyTorch
 headers, so a build takes seconds), under `build/lbm_tpu_torch/`
 beside the package, and loaded with ctypes. A library's name carries a hash
-of its source and the flags, so an edited source is rebuilt and the others
-are not. Nothing here runs at import time.
+of its source, the headers of `csrc/` and the flags, so an edited source is
+rebuilt and the others are not. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ _D = ctypes.c_double
 _D2Q9_SCALARS = [_I] * 12 + [_D, _D, _D, _P]
 # d3q19_kstep.cu: nz .. accel_plane, six collision coefficients, stream
 _D3Q19_SCALARS = [_I] * 14 + [_D] * 6 + [_P]
+# d3q19_blocked.cu: nz .. tile, threads, k .. accel_plane, six coefficients, stream
+_D3Q19_BLOCKED_SCALARS = [_I] * 15 + [_D] * 6 + [_P]
 # stencil.cu: image, interior, out, then c, h, w and each kernel's own ints
 _STENCIL_K = [_P] * 3 + [_I] * 7 + [_P]
 _STENCIL_RESIDENT = [_P] * 5 + [_I] * 7 + [_P]
@@ -51,6 +53,12 @@ SIGNATURES = {
         "d3q19_kstep_f64": [_P] * 6 + _D3Q19_SCALARS,
         "d3q19_kstep_inplace_f32": [_P] * 4 + _D3Q19_SCALARS,
         "d3q19_kstep_inplace_f64": [_P] * 4 + _D3Q19_SCALARS,
+    },
+    "d3q19_blocked": {
+        "d3q19_blocked_f32": [_P] * 5 + _D3Q19_BLOCKED_SCALARS,
+        "d3q19_blocked_f64": [_P] * 5 + _D3Q19_BLOCKED_SCALARS,
+        "d3q19_blocked_inplace_f32": [_P] * 6 + _D3Q19_BLOCKED_SCALARS,
+        "d3q19_blocked_inplace_f64": [_P] * 6 + _D3Q19_BLOCKED_SCALARS,
     },
     "stencil": {
         "stencil_step_f32": [_P] * 3 + [_I] * 3 + [_P],
@@ -85,7 +93,9 @@ def source_path(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     source = source_path(name)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

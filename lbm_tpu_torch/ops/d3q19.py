@@ -1,5 +1,5 @@
 """D3Q19 BGK lattice-Boltzmann in plain PyTorch: the port's 3-D reference
-engine and the entry point `simulate` of all three 3-D engines.
+engine and the entry point `simulate` of all the 3-D engines.
 
 The counterpart of `lbm_tpu.ops.d3q19`. One `step` fuses periodic pull
 streaming (`torch.roll`), obstacle bounce-back, BGK collision and the
@@ -27,7 +27,7 @@ from .d3q19_lattice import (  # noqa: F401  (re-exported for callers)
     E, NUM_SPEEDS, OPPOSITE, W, initial_distributions,
 )
 
-ENGINES = ("torch", "cuda", "cuda-inplace")
+ENGINES = ("torch", "cuda", "cuda-inplace", "cuda-blocked", "cuda-inplace-blocked")
 
 
 def _e_dot_u(k: int, u_x, u_y, u_z):
@@ -184,18 +184,46 @@ def default_obstacle_mask(nz: int, ny: int, nx: int) -> np.ndarray:
     return mask
 
 
-def engine_run(engine: str):
-    """The `run` of a kernel engine's wrapper ('cuda' -> B6, 'cuda-inplace'
-    -> B4)."""
-    if engine == "cuda":
-        from . import d3q19_kstep
+def resolve_engine(engine: str, nz: int, ny: int, nx: int, step_counts, *,
+                   k_steps: int | None = None, dtype=torch.float32, device=None):
+    """The kernel, its K and its tile for a run of a kernel engine. Returns
+    (run function, kind, k_steps, keyword arguments of run):
+      'cuda'                  two-stream: kernel B6 (kind 'slab', one launch per
+                              step) or B7 (kind 'blocked', K steps per trip), as
+                              `d3q19_kstep_blocked.pick_engine` names it;
+      'cuda-inplace'          in place: B4 ('slab') or B5 ('blocked'), as
+                              `d3q19_kstep_inplace_blocked.pick_engine` does;
+      'cuda-blocked', 'cuda-inplace-blocked'   B7 and B5 whatever the rule says.
+    `step_counts` are the counts K must divide (the total, and the chunk of a
+    checkpointed run). k_steps=None picks the kind's preferred K among those;
+    an explicit k_steps is honoured exactly or raises."""
+    from . import (d3q19_kstep, d3q19_kstep_blocked, d3q19_kstep_inplace,
+                   d3q19_kstep_inplace_blocked)
 
-        return d3q19_kstep.run
-    if engine == "cuda-inplace":
-        from . import d3q19_kstep_inplace
-
-        return d3q19_kstep_inplace.run
-    raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
+    families = {"cuda": (d3q19_kstep, d3q19_kstep_blocked),
+                "cuda-inplace": (d3q19_kstep_inplace, d3q19_kstep_inplace_blocked)}
+    forced = engine.endswith("-blocked")
+    family = engine[:-len("-blocked")] if forced else engine
+    if family not in families:
+        raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
+    slab, blocked = families[family]
+    if k_steps is not None and (not 1 <= k_steps <= d3q19_kstep.MAX_K
+                                or any(n % k_steps for n in step_counts)):
+        raise ValueError(
+            f"k_steps={k_steps} has no feasible kernel configuration for step counts "
+            f"{tuple(step_counts)} (it must lie in 1..{d3q19_kstep.MAX_K} and divide "
+            "them); pass k_steps=None to pick one")
+    if forced:
+        kind, tile = "blocked", None
+        k_steps = k_steps or d3q19_kstep_blocked.choose_k(*step_counts)
+    elif k_steps is None:
+        kind, tile, k_steps = d3q19_kstep_blocked.kind_and_k(
+            blocked.pick_engine, nz, ny, nx, step_counts, dtype, device)
+    else:
+        kind, tile = blocked.pick_engine(nz, ny, nx, k_steps, dtype, device)
+    if kind == "blocked":
+        return blocked.run, kind, k_steps, dict(tile=tile)
+    return slab.run, kind, k_steps, {}
 
 
 def initial_state(nz: int, ny: int, nx: int, *, density: float = 0.1, obstacle_mask=None,
@@ -225,10 +253,9 @@ def advance(
     k_steps: int | None = None,
 ):
     """`num_steps` steps from state f with the accelerated plane at
-    z = nz-2, on f's device. engine='torch' is the plain engine above, 'cuda'
-    the two-stream kernel B6 (d3q19_kstep) and 'cuda-inplace' the in-place
-    kernel B4 (d3q19_kstep_inplace), which overwrites f. k_steps=None picks
-    the kernels' measured-best steps per pass (d3q19_kstep.choose_k); an
+    z = nz-2, on f's device. engine='torch' is the plain engine above; the
+    kernel engines are those of `resolve_engine` (the in-place ones overwrite
+    f). k_steps=None picks the kernels' measured-best steps per pass; an
     explicit k_steps is honoured exactly or raises. Returns (f_final,
     av_vels): Sum|u| of each step over the free cells."""
     _, nz, ny, nx = f.shape
@@ -237,19 +264,11 @@ def advance(
         f_final, tot = run(f, mask, amask, num_steps=num_steps, omega=omega,
                            density=density, accel=accel)
     else:
-        from . import d3q19_kstep
-
-        run_fn = engine_run(engine)
-        if k_steps is None:
-            k_steps = d3q19_kstep.choose_k(num_steps)
-        elif not 1 <= k_steps <= d3q19_kstep.MAX_K or num_steps % k_steps:
-            raise ValueError(
-                f"k_steps={k_steps} has no feasible kernel configuration for "
-                f"{num_steps} steps (it must lie in 1..{d3q19_kstep.MAX_K} and divide "
-                "them); pass k_steps=None to pick one")
+        run_fn, _, k_steps, extra = resolve_engine(
+            engine, nz, ny, nx, (num_steps,), k_steps=k_steps, dtype=f.dtype, device=f.device)
         f_final, tot = run_fn(f, mask, num_steps=num_steps, k_steps=k_steps,
                               omega=omega, density=density, accel=accel,
-                              accel_plane=nz - 2)
+                              accel_plane=nz - 2, **extra)
     num_free = (~mask).sum().to(f.dtype)
     return f_final, tot / num_free
 

@@ -116,12 +116,8 @@ def stepk_plain(
     return f, torch.stack(tots)
 
 
-def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int, omega: float,
-                density: float, accel: float, accel_plane: int, plane_offset: int = 0,
-                valid_planes: tuple | None = None, valid_rows: tuple | None = None,
-                global_nz: int | None = None, block: tuple | None = None):
-    """Checks a CUDA call of either K-step kernel and returns (nblocks, the
-    trailing scalar arguments of its C entry point)."""
+def check_state(f: torch.Tensor, mask_u8: torch.Tensor, k_steps: int) -> None:
+    """Raises on a state, mask or K that the 3-D CUDA kernels do not take."""
     if f.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got one on {f.device}")
     if f.dim() != 4 or f.shape[0] != 19:
@@ -135,20 +131,35 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int, omega: 
         raise ValueError(f"mask must be ({nz}, {ny}, {nx}) uint8 on {f.device}")
     if not 1 <= k_steps <= MAX_K:
         raise ValueError(f"k_steps must be in 1..{MAX_K}, got {k_steps}")
+
+
+def window_scalars(f: torch.Tensor, *, omega: float, density: float, accel: float,
+                   accel_plane: int, plane_offset: int = 0, valid_planes: tuple | None = None,
+                   valid_rows: tuple | None = None, global_nz: int | None = None) -> list:
+    """The trailing arguments of every 3-D C entry point: the window, the
+    accelerated plane, the six collision coefficients and the stream."""
+    _, nz, ny, _ = f.shape
+    valid_planes = valid_planes or (0, nz)
+    valid_rows = valid_rows or (0, ny)
+    return [int(plane_offset), int(valid_planes[0]), int(valid_planes[1]),
+            int(global_nz or nz), int(valid_rows[0]), int(valid_rows[1]), int(accel_plane),
+            *coefficients(omega, density, accel),
+            torch.cuda.current_stream(f.device).cuda_stream]
+
+
+def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int,
+                block: tuple | None = None, **window):
+    """Checks a CUDA call of either one-step kernel and returns (nblocks, the
+    trailing scalar arguments of its C entry point)."""
+    check_state(f, mask_u8, k_steps)
+    _, nz, ny, nx = f.shape
     bx, by, bz = block or choose_block(nx)
     threads = bx * by * bz
     if min(bx, by, bz) < 1 or threads > MAX_THREADS_PER_BLOCK or threads % 32:
         raise ValueError(f"block {(bx, by, bz)} must hold a multiple of 32 threads, at most "
                          f"{MAX_THREADS_PER_BLOCK}")
     nblocks = -(-nx // bx) * -(-ny // by) * -(-nz // bz)
-    valid_planes = valid_planes or (0, nz)
-    valid_rows = valid_rows or (0, ny)
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    scalars = [nz, ny, nx, bx, by, bz, int(k_steps), int(plane_offset), int(valid_planes[0]),
-               int(valid_planes[1]), int(global_nz or nz), int(valid_rows[0]),
-               int(valid_rows[1]), int(accel_plane), *coefficients(omega, density, accel),
-               stream]
-    return nblocks, scalars
+    return nblocks, [nz, ny, nx, bx, by, bz, int(k_steps), *window_scalars(f, **window)]
 
 
 def entry(f: torch.Tensor, name: str):

@@ -1,0 +1,324 @@
+"""K D3Q19 steps of every tile in one trip: the wrapper of CUDA kernel B7
+(blocked, two-stream).
+
+The counterpart of the `by=` half of `lbm_tpu.ops.d3q19_pallas` (kernel
+`_blocked_kernel`, `choose_config`, `stepk(by=...)`, `run(by=...)`). One launch
+of `blocked_kernel` in `csrc/d3q19_blocked.cu` advances the whole lattice K
+steps: a thread block loads its (tz, ty, tx) tile with a K-cell halo on six
+sides into shared memory, steps K times there and writes its tile once. See
+the note at the top of the source for the design and its bound on the card.
+
+The contract of `stepk` is that of `d3q19_kstep.stepk`, with `tile` and
+`threads` in place of `block`. The force is tested on a halo plane at its
+wrapped index, ((p mod nz) + plane_offset) mod global_nz, so
+`d3q19_kstep.stepk_plain` is the plain version of this kernel too, for every
+window; the TPU kernel tests the unwrapped index and agrees whenever
+global_nz == nz or the accelerated plane lies more than K planes from the
+array's first and last plane.
+
+On a CUDA tensor the kernel is launched, or the call raises (a tile that does
+not fit the device's shared memory raises and names the engine that takes the
+shape); on a CPU tensor `stepk_plain` runs. There is no other route.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import d3q19_kstep
+from .d2q9_kstep import check_rc, obstacle_u8
+from .d3q19_kstep import MAX_K
+
+# Launches of kernel B7 (one per K-step pass); callers may reset it.
+launches = 0
+
+# Shared memory a block may opt in to on an H100 (232,448 bytes), assumed for
+# a tensor that is not on a CUDA device, and what the kernel declares
+# statically beside the tile (the reduction's scratch).
+H100_SMEM_PER_BLOCK = 227 * 1024
+STATIC_SMEM = 128
+# Threads of a block: the kernel's launch bounds (128 registers a thread at
+# float32, 255 at float64). With the bounds doubled, 1024 threads were no
+# faster in float32, and 512 in float64 (98 registers each) left an SM one
+# block where two of 256 fit: 0.47 against 0.33 ms at K=1.
+MAX_THREADS = {torch.float32: 512, torch.float64: 256}
+# Tile extents that `choose_config` tries where no measured tile applies.
+TILE_X = (8, 16, 32, 64)
+TILE_YZ_MAX = 16
+# Measured on an NVIDIA H100 80GB HBM3 (700 W) at 32x256x256 over 967 (tile,
+# threads, K, type) cases (experiments/cuda-kstep-tiles/results3d_blocked.csv),
+# ms per pass of K steps at the best tile, K = 1..4:
+#   float32  B6 0.1275 0.2434 0.3603 0.4788   B7 0.1754 0.3395 0.6821 1.5731
+#            B4 0.3115 0.2413 0.5395 0.4799   B5 0.3762 0.5769 1.0413 1.8742
+#   float64  B6 0.2354 0.4559 0.6799 0.9031   B7 0.3256 0.7574 2.1450 16.8595
+#            B4 0.5001 0.4560 0.9409 0.9067   B5 0.6179 1.1120 2.5122 17.7119
+# (B5 among the tiles whose ring and snapshot take at most 14 of the 32
+# planes). One trip of K steps is slower than K one-step launches at every K:
+# a tile with its halo computes 2 to 15 cell-steps per cell-step kept, in
+# shared memory and with one or two blocks an SM, and that costs more than
+# the trips through device memory it saves.
+MS_PER_PASS = {
+    torch.float32: {"b6": (0.1275, 0.2434, 0.3603, 0.4788), "b7": (0.1754, 0.3395, 0.6821, 1.5731),
+                    "b4": (0.3115, 0.2413, 0.5395, 0.4799), "b5": (0.3762, 0.5769, 1.0413, 1.8742)},
+    torch.float64: {"b6": (0.2354, 0.4559, 0.6799, 0.9031), "b7": (0.3256, 0.7574, 2.1450, 16.8595),
+                    "b4": (0.5001, 0.4560, 0.9409, 0.9067), "b5": (0.6179, 1.1120, 2.5122, 17.7119)},
+}
+# The fastest tiles of that sweep by (type, K) at the default thread count,
+# B7's first, then B5's under its scratch limit. Many others lie within 10%:
+# tiles small enough for two blocks an SM and tiles that fill it come out
+# alike.
+MEASURED_TILES = {
+    (torch.float32, 1): ((8, 5, 16), (6, 16, 16)), (torch.float32, 2): ((8, 6, 16), (6, 8, 16)),
+    (torch.float32, 3): ((8, 8, 8), (5, 10, 8)), (torch.float32, 4): ((5, 6, 8),),
+    (torch.float64, 1): ((4, 4, 16),), (torch.float64, 2): ((8, 5, 8), (5, 8, 8)),
+    (torch.float64, 3): ((4, 4, 8),), (torch.float64, 4): ((1, 2, 8),),
+}
+# Steps per pass that `choose_k` prefers: B7 takes 0.175, 0.170, 0.227 and
+# 0.393 ms per step at K = 1..4 in float32, B5 0.376, 0.288, 0.347 and 0.469.
+PREFERRED_K = 2
+
+
+def smem_per_block(device) -> int:
+    """Shared memory a block may opt in to on `device`; an H100's for a
+    device that is not CUDA."""
+    device = torch.device(device) if device is not None else torch.device("cpu")
+    if device.type != "cuda":
+        return H100_SMEM_PER_BLOCK
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_block_optin", H100_SMEM_PER_BLOCK))
+
+
+def extended_cells(tile: tuple[int, int, int], k_steps: int) -> int:
+    tz, ty, tx = tile
+    return (tz + 2 * k_steps) * (ty + 2 * k_steps) * (tx + 2 * k_steps)
+
+
+def shared_bytes(tile: tuple[int, int, int], k_steps: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of a block: 19 values and a mask byte per cell of
+    the tile extended by K cells per side."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return extended_cells(tile, k_steps) * (19 * itemsize + 1)
+
+
+def loaded_per_kept(tile: tuple[int, int, int], k_steps: int) -> float:
+    """Cells a block loads for every cell it keeps."""
+    tz, ty, tx = tile
+    return extended_cells(tile, k_steps) / (tz * ty * tx)
+
+
+def _load_cost(tile, k_steps, itemsize) -> float:
+    """32-byte sectors a block loads per sector it stores: each row of the
+    extended tile starts K cells before a sector boundary."""
+    tz, ty, tx = tile
+    rows = (tz + 2 * k_steps) * (ty + 2 * k_steps)
+    per_row = -(-(tx + 2 * k_steps) * itemsize // 32) + 1
+    return rows * per_row / (tz * ty * tx * itemsize / 32)
+
+
+def scratch_planes(tile: tuple[int, int, int], k_steps: int, nz: int) -> tuple[int, int]:
+    """(planes of the ring, planes of the snapshot) that the in-place kernel
+    B5 keeps beside the lattice: ceil(K / tz) + 1 rows of tz planes, and the
+    first min(K, nz) planes."""
+    tz = tile[0]
+    return (-(-k_steps // tz) + 1) * tz, min(k_steps, nz)
+
+
+def choose_config(nz: int, ny: int, nx: int, k_steps: int = PREFERRED_K,
+                  dtype=torch.float32, device=None, *,
+                  max_scratch_planes: int | None = None) -> tuple[int, int, int]:
+    """The tile (tz, ty, tx) of a K-step pass on `device` (its opt-in shared
+    memory; an H100's for the CPU): the first of MEASURED_TILES that fits the
+    shared memory and the grid; else, among the tiles that fit, the one that
+    loads the fewest sectors per sector kept, then the widest. With
+    `max_scratch_planes` (the in-place kernel), only tiles whose ring and
+    snapshot hold at most that many planes. Raises when nothing fits."""
+    if not 1 <= k_steps <= MAX_K:
+        raise ValueError(f"k_steps must be in 1..{MAX_K}, got {k_steps}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    budget = smem_per_block(device) - STATIC_SMEM
+
+    def allowed(tile):
+        return (shared_bytes(tile, k_steps, dtype) <= budget
+                and (max_scratch_planes is None
+                     or sum(scratch_planes(tile, k_steps, nz)) <= max_scratch_planes))
+
+    for tile in MEASURED_TILES.get((dtype, k_steps), ()):
+        if tile[0] <= nz and tile[1] <= ny and tile[2] <= nx and allowed(tile):
+            return tile
+    best = None
+    for tx in TILE_X:
+        if tx > max(nx, TILE_X[0]):
+            continue
+        for tz in range(1, min(nz, TILE_YZ_MAX) + 1):
+            for ty in range(1, min(ny, TILE_YZ_MAX) + 1):
+                tile = (tz, ty, tx)
+                if shared_bytes(tile, k_steps, dtype) > budget:
+                    break
+                if not allowed(tile):
+                    continue
+                key = (_load_cost(tile, k_steps, itemsize), -tx, tz)
+                if best is None or key < best[0]:
+                    best = (key, tile)
+    if best is None:
+        raise ValueError(
+            f"no tile of the blocked kernel fits {budget} bytes of shared memory for "
+            f"{nz}x{ny}x{nx} {dtype} at k_steps={k_steps}; use engine='cuda' or 'cuda-inplace' "
+            "(the one-step kernels take any shape)")
+    return best[1]
+
+
+def choose_k(*step_counts: int) -> int:
+    """Steps per pass of the blocked kernels for a run: PREFERRED_K when it
+    divides every one of `step_counts`, else the largest smaller K that does."""
+    return next(k for k in range(PREFERRED_K, 0, -1) if all(n % k == 0 for n in step_counts))
+
+
+def faster_kind(dtype, slab: str, blocked: str, k_steps: int) -> str:
+    """'slab' or 'blocked': the kernel with the lower MS_PER_PASS at this K."""
+    ms = MS_PER_PASS[dtype]
+    return "blocked" if ms[blocked][k_steps - 1] < ms[slab][k_steps - 1] else "slab"
+
+
+def pick_engine(nz: int, ny: int, nx: int, k_steps: int = PREFERRED_K,
+                dtype=torch.float32, device=None):
+    """('slab', None) or ('blocked', tile) for the two-stream engine 'cuda':
+    kernel B6 (one launch per step) or B7 (K steps per trip), whichever was
+    the faster on the card at this K and type (MS_PER_PASS). Both were
+    measured at 32x256x256 and both take time in proportion to the cells, so
+    the shape does not enter: as measured, B6 at every K."""
+    if faster_kind(dtype, "b6", "b7", k_steps) == "slab":
+        return "slab", None
+    return "blocked", choose_config(nz, ny, nx, k_steps, dtype, device)
+
+
+def kind_and_k(pick, nz: int, ny: int, nx: int, step_counts, dtype=torch.float32, device=None):
+    """('slab' | 'blocked', tile or None, k) for a run of an engine whose
+    `pick_engine` is `pick`: the one-step kernels' preferred K
+    (`d3q19_kstep.choose_k`) and the kind picked there; where that is the
+    blocked kind, the blocked kernels' preferred K and the kind picked at it.
+    Each K is the deepest up to the preferred one that divides every one of
+    `step_counts` (the total, and the chunk of a checkpointed run)."""
+    k = d3q19_kstep.choose_k(*step_counts)
+    kind, tile = pick(nz, ny, nx, k, dtype, device)
+    if kind == "blocked":
+        k = choose_k(*step_counts)
+        kind, tile = pick(nz, ny, nx, k, dtype, device)
+    return kind, tile, k
+
+
+def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int,
+                tile: tuple | None = None, threads: int | None = None,
+                max_scratch_planes: int | None = None, **window):
+    """Checks a CUDA call of either blocked kernel and returns (tile, number
+    of tiles, the trailing scalar arguments of its C entry point)."""
+    d3q19_kstep.check_state(f, mask_u8, k_steps)
+    _, nz, ny, nx = f.shape
+    if tile is None:
+        tile = choose_config(nz, ny, nx, k_steps, f.dtype, f.device,
+                             max_scratch_planes=max_scratch_planes)
+    tz, ty, tx = (int(t) for t in tile)
+    if min(tz, ty, tx) < 1:
+        raise ValueError(f"tile {tile} must have positive extents")
+    limit = MAX_THREADS[f.dtype]
+    threads = limit if threads is None else int(threads)
+    if threads < 32 or threads % 32 or threads > limit:
+        raise ValueError(f"threads must be a multiple of 32 in 32..{limit} for {f.dtype}, "
+                         f"got {threads}")
+    need = shared_bytes((tz, ty, tx), k_steps, f.dtype) + STATIC_SMEM
+    have = smem_per_block(f.device)
+    if need > have:
+        raise ValueError(
+            f"tile {(tz, ty, tx)} at k_steps={k_steps} needs {need} bytes of shared memory, the "
+            f"device gives a block {have}; use a smaller tile, or engine='cuda' or "
+            "'cuda-inplace' (the one-step kernels take any shape)")
+    gz, gy, gx = -(-nz // tz), -(-ny // ty), -(-nx // tx)
+    if gz > 65535 or gy > 65535:
+        raise ValueError(f"tile {(tz, ty, tx)} gives a grid of {gz} x {gy} x {gx} tiles, beyond "
+                         "65535 along z or y")
+    scalars = [nz, ny, nx, tz, ty, tx, threads, int(k_steps),
+               *d3q19_kstep.window_scalars(f, **window)]
+    return (tz, ty, tx), gz * gy * gx, scalars
+
+
+def entry(f: torch.Tensor, name: str):
+    from . import _build
+
+    suffix = "f32" if f.dtype == torch.float32 else "f64"
+    return getattr(_build.load("d3q19_blocked"), f"{name}_{suffix}")
+
+
+def _launch(f, mask_u8, out, partials, tot, scalars):
+    global launches
+    launches += 1
+    rc = entry(f, "d3q19_blocked")(f.data_ptr(), mask_u8.data_ptr(), out.data_ptr(),
+                                   partials.data_ptr(), tot.data_ptr(), *scalars)
+    check_rc(rc, "d3q19_blocked")
+
+
+def stepk(
+    f: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    k_steps: int,
+    omega: float,
+    density: float,
+    accel: float,
+    accel_plane: int,
+    plane_offset: int = 0,
+    valid_planes: tuple | None = None,
+    valid_rows: tuple | None = None,
+    global_nz: int | None = None,
+    tile: tuple[int, int, int] | None = None,
+    threads: int | None = None,
+):
+    """K timesteps in one trip (kernel B7 on CUDA, `stepk_plain` on the CPU).
+    Returns (f_after_K_steps, tot_u per step (K,)); f is unchanged."""
+    kw = dict(k_steps=k_steps, omega=omega, density=density, accel=accel,
+              accel_plane=accel_plane, plane_offset=plane_offset, valid_planes=valid_planes,
+              valid_rows=valid_rows, global_nz=global_nz)
+    if f.device.type == "cpu":
+        return d3q19_kstep.stepk_plain(f, mask, **kw)
+    mask_u8 = obstacle_u8(mask)
+    _, ntiles, scalars = kernel_args(f, mask_u8, tile=tile, threads=threads, **kw)
+    out = torch.empty_like(f)
+    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
+    tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
+    _launch(f, mask_u8, out, partials, tot, scalars)
+    return out, tot
+
+
+def run(
+    f: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    num_steps: int,
+    omega: float,
+    density: float,
+    accel: float,
+    accel_plane: int,
+    k_steps: int = 1,
+    tile: tuple[int, int, int] | None = None,
+    threads: int | None = None,
+):
+    """`num_steps` timesteps, `k_steps` per trip, between two lattices beside
+    the caller's. Returns (f_final, tot_u (num_steps,)); f is unchanged."""
+    if num_steps % k_steps:
+        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
+    kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
+    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    if f.device.type == "cpu":
+        for i in range(num_steps // k_steps):
+            f, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
+                f, mask, k_steps=k_steps, **kw)
+        return f, tots
+    mask_u8 = obstacle_u8(mask)
+    _, ntiles, scalars = kernel_args(f, mask_u8, k_steps=k_steps, tile=tile, threads=threads,
+                                     **kw)
+    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
+    cur, other = f, None
+    for i in range(num_steps // k_steps):
+        # the first pass leaves the caller's f alone; later ones swap two lattices
+        out = torch.empty_like(f) if i < 2 else other
+        _launch(cur, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], scalars)
+        cur, other = out, (cur if i else None)
+    return cur, tots

@@ -2,10 +2,12 @@
 B4, the production 3-D engine.
 
 The counterpart of `lbm_tpu.ops.d3q19_pallas_inplace` (kernel `_kernel`,
-`stepk`, `run`) and of the slab half of
-`d3q19_pallas_inplace_blocked.pick_engine`/`choose_k`, with the contract of
-`d3q19_kstep` except that the state is advanced IN PLACE: `stepk` and `run`
-overwrite `f` and return it, and no second lattice is allocated.
+`stepk`, `run`), with the contract of `d3q19_kstep` except that the state is
+advanced IN PLACE: `stepk` and `run` overwrite `f` and return it, and no
+second lattice is allocated. The choice between this kernel (the 'slab' kind)
+and the blocked in-place kernel B5, `pick_engine` and `choose_k` of the
+reference's `d3q19_pallas_inplace_blocked`, is in
+`d3q19_kstep_inplace_blocked`; `choose_k` here is this kernel's own K.
 
 The TPU kernel is safe in place because its slabs run in order (delayed
 write-back, wraparound snapshot). On the card blocks run in no order, so the

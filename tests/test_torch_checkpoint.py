@@ -187,6 +187,34 @@ def test_3d_checkpoints_cross_load_and_resume(tmp_path):
     assert rel(jav, ref_av) <= 1e-12 and rel(jf, ref_f) <= 1e-12
 
 
+@pytest.mark.parametrize("engine", ["cuda-blocked", "cuda-inplace-blocked"])
+def test_3d_blocked_engines_chunk_resume_and_hand_over(engine, tmp_path):
+    """A chunked and resumed run of a blocked engine equals an uninterrupted
+    one bit for bit; so does one that another engine resumes at another K
+    (the 3-D checkpoint records no K: the state does not depend on it), and
+    the JAX package loads the checkpoint."""
+    from lbm_tpu_torch.ops import d3q19
+
+    nz, ny, nx = 6, 8, 16
+    ref_f, ref_av = d3q19.simulate(nz, ny, nx, num_steps=12, engine=engine, device="cpu")
+    kw = dict(checkpoint_every=4, engine=engine, device="cpu")
+    lbm3d.run_simulation_with_checkpoints(nz, ny, nx, num_steps=8,
+                                          checkpoint_path=tmp_path / "a.npz", **kw)
+    assert jcheckpoint.load3d(tmp_path / "a.npz").step == 8
+    (tmp_path / "b.npz").write_bytes((tmp_path / "a.npz").read_bytes())
+    f, av, _, ran = lbm3d.run_simulation_with_checkpoints(
+        nz, ny, nx, num_steps=12, resume=True, checkpoint_path=tmp_path / "a.npz", **kw)
+    assert ran == 4
+    np.testing.assert_array_equal(f, ref_f.numpy())
+    np.testing.assert_array_equal(av, ref_av.numpy().astype(np.float64))
+    f, av, _, ran = lbm3d.run_simulation_with_checkpoints(
+        nz, ny, nx, num_steps=12, resume=True, checkpoint_path=tmp_path / "b.npz",
+        checkpoint_every=1, engine="cuda", k_steps=1, device="cpu")
+    assert ran == 4
+    np.testing.assert_array_equal(f, ref_f.numpy())
+    np.testing.assert_array_equal(av, ref_av.numpy().astype(np.float64))
+
+
 def test_cli_checkpoint_flags(tmp_path, capsys):
     p, obs = small_case()
     p.to_file(tmp_path / "input.params")

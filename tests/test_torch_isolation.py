@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_lbm_tpu():
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     for name in ("ops.d2q9_kstep_inplace", "ops.d3q19", "ops.d3q19_lattice", "ops.d3q19_kstep",
-                 "ops.d3q19_kstep_inplace", "ops._build", "core.checkpoint", "models.lbm3d",
+                 "ops.d3q19_kstep_inplace", "ops.d3q19_kstep_blocked",
+                 "ops.d3q19_kstep_inplace_blocked", "ops._build", "core.checkpoint", "models.lbm3d",
                  "cli.lbm", "cli.lbm3d", "utils.image", "ops.stencil", "models.blur",
                  "cli.blur"):
         assert f"lbm_tpu_torch.{name}" in out["modules"]

@@ -12,6 +12,8 @@ ones bit for bit.
 
 from pathlib import Path
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ from lbm_tpu.ops import d3q19 as j3
 from lbm_tpu_torch.cli import lbm3d as cli
 from lbm_tpu_torch.core import checkpoint, io
 from lbm_tpu_torch.models import lbm3d
-from lbm_tpu_torch.ops import d3q19, d3q19_kstep
+from lbm_tpu_torch.ops import d3q19, d3q19_kstep, d3q19_kstep_blocked
 
 NZ, NY, NX = 6, 8, 16
 GOLDEN = Path(__file__).parent / "data" / "d3q19_16x16x32_200.av_vels.dat"
@@ -67,7 +69,40 @@ def test_float64_matches_jax_and_the_golden_anchor(engine):
     np.testing.assert_allclose(av[1:], golden[1:], rtol=1e-10)
 
 
-@pytest.mark.parametrize("engine", ["torch", "cuda", "cuda-inplace"])
+@functools.lru_cache(maxsize=None)
+def jax_blocked_route():
+    """Two steps at 4x256x256 through the JAX package's 'pallas-inplace'
+    engine, which routes 256x256 planes to its blocked kernel (interpret mode
+    on the CPU), as tests/test_d3q19_inplace_blocked.py runs it."""
+    _, av = j3.simulate(4, 256, 256, num_steps=2, engine="pallas-inplace", k_steps=2)
+    return np.asarray(av)
+
+
+@pytest.mark.parametrize("engine", ["cuda-inplace-blocked", "cuda-blocked", "cuda-inplace",
+                                    "cuda"])
+def test_cli_blocked_shape_matches_the_jax_blocked_route(engine, tmp_path, capsys):
+    """The 256x256-plane shape through the port's CLI and every kernel engine
+    against the JAX package's blocked route, at float32's rounding."""
+    assert cli.main(["--nz", "4", "--ny", "256", "--nx", "256", "-n", "2", "--device", "cpu",
+                     "--engine", engine, "--out-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert f"engine:\t\t\t{engine}\n" in out
+    kind = "blocked" if engine.endswith("-blocked") else "slab"
+    assert f"kernel:\t\t\t{kind}, 2 steps per pass\n" in out
+    assert out.index("kernel:") < out.index("==done==")
+    av = io.read_av_vels(tmp_path / "av_vels_3d.dat")
+    np.testing.assert_allclose(av, jax_blocked_route(), rtol=1e-4, atol=1e-7)
+
+
+def test_cli_prints_no_kernel_for_the_plain_engine(tmp_path, capsys):
+    assert cli.main(["--nz", "4", "--ny", "4", "--nx", "8", "-n", "3", "--device", "cpu",
+                     "--engine", "torch", "--out-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "engine:\t\t\ttorch\n" in out and "kernel:" not in out
+
+
+@pytest.mark.parametrize("engine", ["torch", "cuda", "cuda-inplace", "cuda-blocked",
+                                    "cuda-inplace-blocked"])
 def test_chunked_and_resumed_equal_uninterrupted(engine, tmp_path):
     ck = tmp_path / "ck3d.npz"
     ref_f, ref_av = d3q19.simulate(NZ, NY, NX, num_steps=12, engine=engine, device="cpu")
@@ -119,6 +154,14 @@ def test_select_k_steps_divides_steps_and_chunk(num_steps, every):
         # the deepest such K up to the kernels' preferred one
         assert all(num_steps % j or every % j for j in range(k + 1, d3q19_kstep.PREFERRED_K + 1))
     assert lbm3d.select_k_steps("torch", num_steps, every) == 1
+    for engine in ("cuda-blocked", "cuda-inplace-blocked"):
+        k = lbm3d.select_k_steps(engine, num_steps, every)
+        assert k == d3q19_kstep_blocked.choose_k(num_steps, every)
+        assert num_steps % k == 0 and every % k == 0
+    # with the shape, the K of the kind that pick_engine names there
+    for engine in ("cuda", "cuda-inplace"):
+        assert (lbm3d.select_k_steps(engine, num_steps, every, shape=(32, 256, 256))
+                == lbm3d.select_k_steps(engine, num_steps, every))
 
 
 def test_cli_checkpoint_flags(tmp_path, capsys):

@@ -9,22 +9,32 @@ Phases, each of which must pass or the script exits non-zero:
   1. prints the card's name and power limit; builds the CUDA kernels from
      lbm_tpu_torch/csrc/ with nvcc (one process per source, all started
      together) and prints the build time;
-  2. D2Q9 kernels vs plain version at 1024x1024: for kernels B2 (d2q9_kstep)
-     and B1 (d2q9_kstep_inplace), at K=1 and at the K of choose_config, in
-     float64 and float32, plus one case with a ghost window (row_offset,
-     valid rows and columns strictly inside, global_ny != ny): one stepk
-     with the kernel and one with stepk_plain on the card, from a
-     numpy-seeded state. B1 must be bit-equal to B2, also over three
+  2. D2Q9 kernels vs plain version at 1024x1024: for kernels B2 (d2q9_kstep),
+     B1 (d2q9_kstep_inplace) and B3 (d2q9_kstep_manual, the pipelined one),
+     at K = 1..4, in float64 and float32, plus one case with a ghost window
+     (row_offset, valid rows and columns strictly inside, global_ny != ny):
+     one stepk with the kernel and one with stepk_plain on the card, from a
+     numpy-seeded state. B1 and B3 must be bit-equal to B2, also over three
      passes of `run` (where B1 chains its boundary snapshot); the same on
-     three grids whose width is not a multiple of 32 (narrower tiles), and
-     a width no tile divides must raise;
+     three grids whose width is not a multiple of 32 (narrower tiles) and on
+     64x1001 and 72x130, which no tile divides (edge tiles). The diagnostic
+     modes: stream_only of B1, B2 and B3 bit-equal to the plain version's
+     state, copy and B12 (copy_floor) equal to their input. Timing of B1, B2,
+     B3 (and its persistent grid), B12 and `copy_`;
   3. the 2-D main path: the flagship run (1024x1024, 20,000 steps, float32)
      through `lbm_tpu_torch.cli.lbm --engine auto`, which must pick
      cuda-inplace (B1), launch it and never call the plain engine; then the
-     same run with `--engine cuda` (B2). Each final_state.dat is held to
-     check/1024x1024.final_state.dat.gz by the checker's per-cell rule
-     (verify/check.py: column 5, 1%), and the first 100 av_vels to a
-     100-step run of the plain engine on the card (4e-4);
+     same run with `--engine cuda` (B2) and `--engine cuda-manual` (B3). Each
+     final_state.dat is held to check/1024x1024.final_state.dat.gz by the
+     checker's per-cell rule (verify/check.py: column 5, 1%), and the first
+     100 av_vels to a 100-step run of the plain engine on the card (4e-4).
+     Then the JAX bench's 4096^2 x 2,000-step case through B3, B2 and B1
+     (MLUPS; 96-step gate against the plain engine; the three bit-equal); a
+     64x1001 grid through run_simulation with `auto`, `cuda`, `cuda-inplace`
+     and `cuda-manual` against the plain engine (float32 4e-4, float64
+     1e-10); and the 2-D time-breakdown path at 1024^2 (the modes of B2, B3
+     and B1 through experiments/cuda-kstep-tiles/breakdown2d.py, B12 and
+     `copy_` through copy_floor2d.py), each kernel launched there;
   4. D3Q19 kernels vs plain version at 64x128x256: B6 (d3q19_kstep) and B4
      (d3q19_kstep_inplace) at K=1, at choose_k's K and at K=3 (B4's swap),
      float64 and float32, plus a ghost window (plane_offset, valid planes
@@ -40,9 +50,10 @@ Phases, each of which must pass or the script exits non-zero:
      experiments/d3q19-drift/d3q19_16x64x128_6000.av_vels.dat, float32
      through both engines (max relative error over all steps <= 1.5e-3) and
      float64 through `cuda` (first 200 steps <= 1e-10);
-  7. checkpoint/resume on the card, 2-D (1024^2, B1) and 3-D (64x128x256,
-     B4): N steps with --checkpoint-every N/2, then 2N with --resume; av_vels
-     and the final state must equal an uninterrupted 2N run bit for bit;
+  7. checkpoint/resume on the card, 2-D (1024^2, B1 and B3) and 3-D
+     (64x128x256, B4): N steps with --checkpoint-every N/2, then 2N with
+     --resume; av_vels and the final state must equal an uninterrupted 2N run
+     bit for bit;
   7b. the blocked 3-D pair at 32x256x256 (the reference's
      `d3q19_blocked_only` shape), all of it in the phases named *_blocked:
      kernels B7 (d3q19_kstep_blocked) and B5 (d3q19_kstep_inplace_blocked) vs
@@ -80,9 +91,10 @@ Phases, each of which must pass or the script exits non-zero:
      2e-2, and its output within one level of the plain bfloat16 chain). The
      PNG leg runs if PIL imports; if not, the arrays go through
      `models.blur.run_blur` and a line says so;
- 10. one JSON line `{"kernels": [...]}` with each of the nine kernels'
+ 10. one JSON line `{"kernels": [...]}` with each of the eleven kernels'
      launches on its path, parity, time per launch, its bound, the plain
-     version's time and, for the blur kernels, the library's convolution;
+     version's time and the library's (the convolution for the blur
+     kernels, `copy_` for B12);
  11. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero, printing no result, when CUDA is absent or the package is not
@@ -118,6 +130,9 @@ FLAGSHIP = dict(nx=N, ny=N, max_iters=20000, reynolds_dim=10, density=0.1, accel
 BARS = {"float64": 1e-12, "float32": 1e-5}
 AV_VELS_BAR = 4e-4  # the bench gate on the 100-step prefix (ROADMAP.md)
 CHECK_TOLERANCE_PCT = 1.0  # verify/check.py default
+# the JAX bench's second 2-D size (bench.py d2q9_4096_only)
+SIZE_4096 = 4096
+STEPS_4096 = 2000
 # H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -128,7 +143,9 @@ FLOP_PER_CELL_STEP = 94
 KERNELS = {
     "d2q9_kstep_inplace": "lbm_tpu/ops/d2q9_pallas_inplace.py:78",
     "d2q9_kstep": "lbm_tpu/ops/d2q9_pallas.py:83",
+    "d2q9_kstep_manual": "lbm_tpu/ops/d2q9_pallas_manual.py:52",
 }
+KERNEL_COPY_FLOOR = "experiments/d2q9-blocked-floor/run.py:72"
 KERNELS_3D = {
     "d3q19_kstep_inplace": "lbm_tpu/ops/d3q19_pallas_inplace.py:50",
     "d3q19_kstep": "lbm_tpu/ops/d3q19_pallas.py:81",
@@ -233,7 +250,7 @@ def time_ms(torch, fn, iters: int) -> float:
 def phase_parity(torch, mods, k_main):
     """Phase 2. Returns {kernel: max_abs_err} of the float32 main-K case."""
     from lbm_tpu_torch.core import state
-    d2q9_kstep, d2q9_kstep_inplace = mods
+    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
     rng = np.random.default_rng(20261016)
     f_np, mask_np = random_state(rng, N, N), random_mask(rng, N, N)
     aw = dict(omega=1.85, accel_w1=0.1 * 0.01 / 9, accel_w2=0.1 * 0.01 / 36)
@@ -242,7 +259,7 @@ def phase_parity(torch, mods, k_main):
     abs_err = {}
     for dname, dtype in (("float64", torch.float64), ("float32", torch.float32)):
         f, mask = state.to_torch(f_np, mask_np, device="cuda", dtype=dtype)
-        cases = [(k, "full", dict(accel_row=N - 2)) for k in sorted({1, k_main})]
+        cases = [(k, "full", dict(accel_row=N - 2)) for k in sorted({1, 2, 3, 4, k_main})]
         cases.append((k_main, "window", window))
         for k, label, extra in cases:
             kw = dict(k_steps=k, **aw, **extra)
@@ -252,8 +269,11 @@ def phase_parity(torch, mods, k_main):
             torch.cuda.synchronize()
             b1_f, b1_tot = d2q9_kstep_inplace.stepk(f.clone(), mask, **kw)
             torch.cuda.synchronize()
+            b3_f, b3_tot = d2q9_kstep_manual.stepk(f, mask, **kw)
+            torch.cuda.synchronize()
             for name, kf, kt in (("d2q9_kstep", b2_f, b2_tot),
-                                 ("d2q9_kstep_inplace", b1_f, b1_tot)):
+                                 ("d2q9_kstep_inplace", b1_f, b1_tot),
+                                 ("d2q9_kstep_manual", b3_f, b3_tot)):
                 ef, et = rel_err(kf, ref_f), rel_err(kt, ref_tot)
                 ea = float((kf - ref_f).abs().max())
                 print(f"parity {name:19s} {dname} K={k} {label:6s}: state max rel err "
@@ -266,27 +286,31 @@ def phase_parity(torch, mods, k_main):
                     abs_err[name] = ea
             check(torch.equal(b1_f, b2_f) and torch.equal(b1_tot, b2_tot),
                   f"B1 is not bit-equal to B2 ({dname} K={k} {label})")
-            print(f"parity B1 == B2 bit for bit ({dname} K={k} {label})")
+            check(torch.equal(b3_f, b2_f) and torch.equal(b3_tot, b2_tot),
+                  f"B3 is not bit-equal to B2 ({dname} K={k} {label})")
+            print(f"parity B1 == B2 == B3 bit for bit ({dname} K={k} {label})")
         # several passes of run: B1 hands each pass its boundary snapshot
         run_kw = dict(num_steps=3 * k_main, k_steps=k_main, accel_row=N - 2, **aw)
         b2_f, b2_tot = d2q9_kstep.run(f, mask, **run_kw)
         b1_f, b1_tot = d2q9_kstep_inplace.run(f.clone(), mask, **run_kw)
+        b3_f, b3_tot = d2q9_kstep_manual.run(f, mask, **run_kw)
         torch.cuda.synchronize()
-        check(torch.equal(b1_f, b2_f) and torch.equal(b1_tot, b2_tot),
-              f"B1 run is not bit-equal to B2 run ({dname}, 3 passes of K={k_main})")
-        print(f"parity B1 run == B2 run bit for bit ({dname}, 3 passes of K={k_main})")
+        check(torch.equal(b1_f, b2_f) and torch.equal(b1_tot, b2_tot)
+              and torch.equal(b3_f, b2_f) and torch.equal(b3_tot, b2_tot),
+              f"B1 or B3 run is not bit-equal to B2 run ({dname}, 3 passes of K={k_main})")
+        print(f"parity B1 run == B2 run == B3 run bit for bit ({dname}, 3 passes of K={k_main})")
     return abs_err
 
 
 def phase_narrow_tiles(torch, mods, k_main):
     """Grids whose width is not a multiple of 32 run on the narrower tiles of
-    TILE_CANDIDATES (checked as in phase 2); a width that no tile divides
-    and a tile side shorter than K raise."""
+    TILE_CANDIDATES, and grids that no tile divides (64x1001, 72x130) on
+    edge tiles, checked as in phase 2; a tile side shorter than K raises."""
     from lbm_tpu_torch.core import state
-    d2q9_kstep, d2q9_kstep_inplace = mods
+    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
     rng = np.random.default_rng(11)
     aw = dict(omega=1.85, accel_w1=0.1 * 0.01 / 9, accel_w2=0.1 * 0.01 / 36)
-    for ny, nx in ((1024, 1008), (1000, 1008), (1024, 1000)):
+    for ny, nx in ((1024, 1008), (1000, 1008), (1024, 1000), (64, 1001), (72, 130)):
         th, tw, _ = d2q9_kstep.choose_config(ny, nx)
         check(d2q9_kstep.choose_engine(ny, nx) == "cuda-inplace",
               f"choose_engine({ny}, {nx}) is not cuda-inplace")
@@ -297,39 +321,80 @@ def phase_narrow_tiles(torch, mods, k_main):
             ref_f, ref_tot = d2q9_kstep.stepk_plain(f, mask, **kw)
             b2_f, b2_tot = d2q9_kstep.stepk(f, mask, **kw)
             b1_f, b1_tot = d2q9_kstep_inplace.stepk(f.clone(), mask, **kw)
+            b3_f, b3_tot = d2q9_kstep_manual.stepk(f, mask, tile=(th, tw), **kw)
             run_kw = dict(num_steps=3 * k_main, k_steps=k_main, accel_row=ny - 2, **aw)
             r2 = d2q9_kstep.run(f, mask, **run_kw)
             r1 = d2q9_kstep_inplace.run(f.clone(), mask, **run_kw)
+            r3 = d2q9_kstep_manual.run(f, mask, tile=(th, tw), **run_kw)
             torch.cuda.synchronize()
             ef, et = rel_err(b2_f, ref_f), rel_err(b2_tot, ref_tot)
             print(f"parity {ny}x{nx} tile {th}x{tw} {dname} K={k_main}: state max rel err "
-                  f"{ef:.3e}, Sum|u| max rel err {et:.3e}")
+                  f"{ef:.3e}, Sum|u| max rel err {et:.3e}; B1 == B2 == B3 (one pass, three)")
             check(np.isfinite(ef) and ef <= BARS[dname] and np.isfinite(et) and et <= BARS[dname],
                   f"{ny}x{nx} {dname}: kernel B2 disagrees with the plain version")
-            check(torch.equal(b1_f, b2_f) and torch.equal(b1_tot, b2_tot)
-                  and torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1]),
-                  f"{ny}x{nx} {dname}: B1 is not bit-equal to B2")
-    f, mask = state.to_torch(random_state(rng, 64, 1001), random_mask(rng, 64, 1001),
+            for name, got, run in (("B1", (b1_f, b1_tot), r1), ("B3", (b3_f, b3_tot), r3)):
+                check(torch.equal(got[0], b2_f) and torch.equal(got[1], b2_tot)
+                      and torch.equal(run[0], r2[0]) and torch.equal(run[1], r2[1]),
+                      f"{ny}x{nx} {dname}: {name} is not bit-equal to B2")
+    f, mask = state.to_torch(random_state(rng, 64, 1000), random_mask(rng, 64, 1000),
                              device="cuda", dtype=torch.float32)
-    for what, call in (
-            ("a 64x1001 grid", lambda: d2q9_kstep.stepk(f, mask, k_steps=4, accel_row=62, **aw)),
-            ("tile 4x8 at K=8", lambda: d2q9_kstep_inplace.stepk(
-                f[:, :, :1000].contiguous(), mask[:, :1000], k_steps=8, accel_row=62,
-                tile=(4, 8), **aw))):
-        try:
-            call()
-        except ValueError as err:
-            print(f"raises as it must on {what}: {err}")
-        else:
-            raise Failure(f"no error on {what}")
+    try:
+        d2q9_kstep_inplace.stepk(f, mask, k_steps=8, accel_row=62, tile=(4, 8), **aw)
+    except ValueError as err:
+        print(f"raises as it must on tile 4x8 at K=8: {err}")
+    else:
+        raise Failure("no error on tile 4x8 at K=8")
 
 
-def phase_timing(torch, mods, k_main):
+def phase_modes(torch, mods, copy_floor):
+    """The diagnostic modes and B12: stream_only of B1, B2 and B3 bit-equal
+    to the plain version's state (Sum|u| within BARS), copy and B12 equal to
+    their input, at 1024^2 float32 and 72x130 float64. Returns B12's largest
+    |out - in| over its passes at 1024^2 float32 in the main path's tile."""
+    from lbm_tpu_torch.core import state
+    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
+    rng = np.random.default_rng(12)
+    tile = d2q9_kstep.choose_config(N, N, torch.float32)[:2]
+    copy_err = None
+    aw = dict(omega=1.85, accel_w1=0.1 * 0.01 / 9, accel_w2=0.1 * 0.01 / 36)
+    for (ny, nx), dname, dtype in (((N, N), "float32", torch.float32),
+                                   ((72, 130), "float64", torch.float64)):
+        f, mask = state.to_torch(random_state(rng, ny, nx), random_mask(rng, ny, nx),
+                                 device="cuda", dtype=dtype)
+        kw = dict(k_steps=4, accel_row=ny - 2, **aw)
+        ref_f, ref_tot = d2q9_kstep.stepk_plain(f, mask, mode="stream_only", **kw)
+        for name, mod in (("B2", d2q9_kstep), ("B1", d2q9_kstep_inplace),
+                          ("B3", d2q9_kstep_manual)):
+            got_f, got_tot = mod.stepk(f.clone(), mask, mode="stream_only", **kw)
+            copy_f, _ = mod.stepk(f.clone(), mask, mode="copy", **kw)
+            torch.cuda.synchronize()
+            et = rel_err(got_tot, ref_tot)
+            check(torch.equal(got_f, ref_f), f"{name} stream_only {ny}x{nx} {dname}: state "
+                                             "differs from the plain version")
+            check(et <= BARS[dname], f"{name} stream_only {ny}x{nx}: Sum|u| rel err {et}")
+            check(torch.equal(copy_f, f), f"{name} copy {ny}x{nx} {dname}: state differs "
+                                          "from the input")
+            print(f"modes {name} {ny}x{nx} {dname} K=4: stream_only state bit-equal to the plain "
+                  f"version (Sum|u| rel err {et:.3e}); copy returns its input")
+        for by, bx in (tile, (16, nx), (5, 7)):
+            out = copy_floor.run_copy(f, 3, by, bx)
+            torch.cuda.synchronize()
+            check(torch.equal(out, f), f"B12 ({by}, {bx}) {ny}x{nx}: differs from its input")
+            if (ny, nx, by, bx) == (N, N, *tile):
+                copy_err = float((out - f).abs().max())
+        print(f"modes B12 {ny}x{nx} {dname}: three passes equal the input bit for bit "
+              f"(blocks {tile[0]}x{tile[1]}, full-width bands of 16 rows, 5x7)")
+    print(f"modes B12 max |out - in| at {N}^2 float32, blocks {tile[0]}x{tile[1]}: {copy_err}")
+    return copy_err
+
+
+def phase_timing(torch, mods, k_main, copy_floor):
     """Time per launch of each kernel, and of the plain version, at the main
     path's shapes (1024^2 float32, K of choose_config), inside `run` as the
-    main path calls them."""
+    main path calls them; B12 at the K-step tile and `copy_`, the library call
+    that computes its function, at the same shape."""
     from lbm_tpu_torch.core import state
-    d2q9_kstep, d2q9_kstep_inplace = mods
+    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
     rng = np.random.default_rng(7)
     f, mask = state.to_torch(random_state(rng, N, N), random_mask(rng, N, N),
                              device="cuda", dtype=torch.float32)
@@ -337,7 +402,8 @@ def phase_timing(torch, mods, k_main):
               accel_row=N - 2)
     passes = 500
     ms = {}
-    for name, mod in (("d2q9_kstep", d2q9_kstep), ("d2q9_kstep_inplace", d2q9_kstep_inplace)):
+    for name, mod in (("d2q9_kstep", d2q9_kstep), ("d2q9_kstep_inplace", d2q9_kstep_inplace),
+                      ("d2q9_kstep_manual", d2q9_kstep_manual)):
         g = f.clone()
         ms[name] = time_ms(torch, lambda: mod.run(g, mask, num_steps=k_main * passes,
                                                   k_steps=k_main, **kw), 1) / passes
@@ -348,11 +414,34 @@ def phase_timing(torch, mods, k_main):
     flops = FLOP_PER_CELL_STEP * k_main * cells
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    tile = d2q9_kstep_manual.choose_config(N, N)[:2]
+    blocks = d2q9_kstep_manual.grid_blocks(f, tile, k_main)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ntiles = (N // tile[0]) * (N // tile[1])
     for name, t in ms.items():
         print(f"timing {name:19s}: {t:.4f} ms per K={k_main} launch "
               f"({cells * k_main / t / 1e3:.0f} MLUPS), bound {bound[0]:.4f} ms ({bound[1]}), "
               f"plain version {plain_ms:.4f} ms")
-    return ms, plain_ms, bound
+    print(f"timing d2q9_kstep_manual: persistent grid of {blocks} blocks on {sms} SMs "
+          f"({blocks / sms:g} an SM, {d2q9_kstep_manual.smem_bytes(*tile, k_main, itemsize)} B "
+          f"of shared memory each), {ntiles} tiles of {tile[0]}x{tile[1]}: "
+          f"{ntiles / blocks:.2f} rounds")
+    # B12: a pass of out = in at the K-step tile; bytes 9 values in and out a cell
+    passes_copy = 1000
+    copy_ms = time_ms(torch, lambda: copy_floor.run_copy(f, passes_copy, *tile), 1) / passes_copy
+    out = torch.empty_like(f)
+    library_ms = time_ms(torch, lambda: out.copy_(f), 200)
+    copy_plain_ms = time_ms(torch, lambda: copy_floor.run_copy_plain(f, 1, *tile), 200)
+    copy_bound = (2 * 9 * itemsize * cells / HBM_BYTES_PER_S * 1e3, "bytes")
+    print(f"timing copy_floor         : {copy_ms:.4f} ms per pass (blocks {tile[0]}x{tile[1]}, "
+          f"{2 * 9 * itemsize * cells / copy_ms / 1e6:.0f} GB/s), bound {copy_bound[0]:.4f} ms "
+          f"(bytes), plain version (clone) {copy_plain_ms:.4f} ms, library (copy_) "
+          f"{library_ms:.4f} ms")
+    copy = dict(ms=copy_ms, plain_ms=copy_plain_ms, library_ms=library_ms, bound=copy_bound,
+                block=list(tile))
+    occupancy = dict(blocks=blocks, blocks_per_sm=blocks / sms, tile=list(tile),
+                     rounds=ntiles / blocks)
+    return ms, plain_ms, bound, copy, occupancy
 
 
 def run_cli(main_fn, argv):
@@ -405,7 +494,7 @@ def phase_main_path(torch, mods, golden, mask):
     from lbm_tpu_torch.core.params import Obstacles, Params
     from lbm_tpu_torch.models import lbm as lbm_model
     from lbm_tpu_torch.ops import d2q9
-    d2q9_kstep, d2q9_kstep_inplace = mods
+    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
 
     results = {}
     avs = {}
@@ -416,21 +505,24 @@ def phase_main_path(torch, mods, golden, mask):
         params.to_file(tmp / "input_1024x1024.params")
         obstacles.to_file(tmp / "obstacles_1024x1024.dat")
         print(f"main path: flagship mask has {obstacles.num_blocked} blocked cells")
-        for engine, kernel, mod, other in (
-                ("auto", "d2q9_kstep_inplace", d2q9_kstep_inplace, d2q9_kstep),
-                ("cuda", "d2q9_kstep", d2q9_kstep, d2q9_kstep_inplace)):
+        for engine, kernel, mod in (
+                ("auto", "d2q9_kstep_inplace", d2q9_kstep_inplace),
+                ("cuda", "d2q9_kstep", d2q9_kstep),
+                ("cuda-manual", "d2q9_kstep_manual", d2q9_kstep_manual)):
             out = tmp / engine
             argv = ["--params", str(tmp / "input_1024x1024.params"),
                     "--obstacles", str(tmp / "obstacles_1024x1024.dat"),
                     "--engine", engine, "--dtype", "float32", "--out-dir", str(out)]
-            d2q9_kstep.launches = d2q9_kstep_inplace.launches = 0
+            for m in mods:
+                m.launches = 0
             with CountCalls(d2q9, "collide_fields") as plain:
                 rc, text = run_cli(cli.main, argv)
-            launches, other_launches = mod.launches, other.launches
+            launches = mod.launches
+            other_launches = sum(m.launches for m in mods if m is not mod)
             print(f"main path --engine {engine}:\n{text.rstrip()}")
             check(rc == 0, f"cli returned {rc}")
             check(launches > 0, f"--engine {engine}: {kernel} was never launched")
-            check(other_launches == 0, f"--engine {engine}: the other kernel was launched")
+            check(other_launches == 0, f"--engine {engine}: another 2-D kernel was launched")
             check(plain.calls == 0,
                   f"--engine {engine}: the plain engine ran {plain.calls} collisions")
             if engine == "auto":
@@ -667,7 +759,7 @@ def phase_checkpoint(torch, mods, mods3, mask):
     from lbm_tpu_torch.core.params import Obstacles, Params
     from lbm_tpu_torch.models import lbm as lbm_model
     from lbm_tpu_torch.ops import d3q19
-    d2q9_kstep, d2q9_kstep_inplace = mods
+    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
     d3q19_kstep, d3q19_kstep_inplace = mods3
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -680,13 +772,15 @@ def phase_checkpoint(torch, mods, mods3, mask):
         base = ["--params", str(tmp / "input.params"), "--obstacles", str(tmp / "obstacles.dat"),
                 "--engine", "auto", "--out-dir", str(tmp / "ck2d"),
                 "--checkpoint-every", str(n // 2)]
-        d2q9_kstep.launches = d2q9_kstep_inplace.launches = 0
+        for m in mods:
+            m.launches = 0
         for argv in (base + ["--num-steps", str(n)],
                      base + ["--num-steps", str(2 * n), "--resume"]):
             rc, text = run_cli(cli.main, argv)
             check(rc == 0, f"2-D checkpointed cli returned {rc}")
         launches["d2q9_kstep_inplace"] = d2q9_kstep_inplace.launches
-        check(d2q9_kstep_inplace.launches > 0 and d2q9_kstep.launches == 0,
+        check(d2q9_kstep_inplace.launches > 0 and d2q9_kstep.launches == 0
+              and d2q9_kstep_manual.launches == 0,
               "the 2-D checkpointed run did not go through B1 alone")
         ref = lbm_model.run_simulation(params, obstacles, dtype=torch.float32, engine="auto",
                                        num_steps=2 * n, device="cuda")
@@ -700,6 +794,34 @@ def phase_checkpoint(torch, mods, mods3, mask):
         print(f"checkpoint 2-D 1024x1024 (B1, {launches['d2q9_kstep_inplace']} launches): "
               f"{n} steps in chunks of {n // 2}, resumed to {2 * n}: av_vels and final state "
               "equal the uninterrupted run bit for bit")
+
+        # 2-D, kernel B3: 1000 steps in chunks of 500, then on to 2000
+        m_steps = 1000
+        base = ["--params", str(tmp / "input.params"), "--obstacles", str(tmp / "obstacles.dat"),
+                "--engine", "cuda-manual", "--out-dir", str(tmp / "ck2d_manual"),
+                "--checkpoint-every", str(m_steps // 2)]
+        for m in mods:
+            m.launches = 0
+        for argv in (base + ["--num-steps", str(m_steps)],
+                     base + ["--num-steps", str(2 * m_steps), "--resume"]):
+            rc, text = run_cli(cli.main, argv)
+            check(rc == 0, f"2-D checkpointed cli (cuda-manual) returned {rc}")
+        launches["d2q9_kstep_manual"] = d2q9_kstep_manual.launches
+        check(d2q9_kstep_manual.launches > 0 and d2q9_kstep.launches == 0
+              and d2q9_kstep_inplace.launches == 0,
+              "the cuda-manual checkpointed run did not go through B3 alone")
+        ref = lbm_model.run_simulation(params, obstacles, dtype=torch.float32,
+                                       engine="cuda-manual", num_steps=2 * m_steps, device="cuda")
+        with np.load(tmp / "ck2d_manual" / "checkpoint.npz") as ck:
+            check(int(ck["step"]) == 2 * m_steps and int(ck["k_steps"]) > 0,
+                  "the cuda-manual checkpoint does not record step and k_steps")
+            check(np.array_equal(ck["av_vels"], ref.av_vels),
+                  "cuda-manual: resumed av_vels differ from the uninterrupted run")
+            check(np.array_equal(ck["f"], ref.f_final),
+                  "cuda-manual: resumed final state differs from the uninterrupted run")
+        print(f"checkpoint 2-D 1024x1024 (B3, {launches['d2q9_kstep_manual']} launches): "
+              f"{m_steps} steps in chunks of {m_steps // 2}, resumed to {2 * m_steps}: av_vels "
+              "and final state equal the uninterrupted run bit for bit")
 
         # 3-D, kernel B4: 600 steps in chunks of 300, then on to 1200
         nz, ny, nx = SHAPE_3D
@@ -725,6 +847,135 @@ def phase_checkpoint(torch, mods, mods3, mask):
               f"{n} steps in chunks of {n // 2}, resumed to {2 * n}: av_vels and final state "
               "equal the uninterrupted run bit for bit")
     return launches
+
+
+def phase_4096(torch, mods):
+    """The JAX bench's d2q9_4096 case (bench.py `d2q9_4096_only`): a uniform
+    4096^2 float32 state, no obstacles, omega 1.85, accel 0.005 at density
+    0.1, 2,000 steps at choose_config's K through B3, B2 and B1, each by its
+    wrapper's `run` as the bench runs its engine. The first 96 steps of each
+    are held to the plain engine on the card (Sum|u|, the bench's 4e-4 gate)
+    and double as the warm-up; the 2,000-step run is timed with CUDA events;
+    the three final states and Sum|u| series must be equal bit for bit.
+    Returns {kernel: (launches, seconds, mlups)}."""
+    from lbm_tpu_torch.ops import d2q9
+    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
+    n = SIZE_4096
+    f = torch.full((9, n, n), 0.1 / 9, dtype=torch.float32, device="cuda")
+    mask = torch.zeros((n, n), dtype=torch.bool, device="cuda")
+    w1, w2 = 0.1 * 0.005 / 9, 0.1 * 0.005 / 36
+    kw = dict(omega=1.85, accel_w1=w1, accel_w2=w2, accel_row=n - 2)
+    amask = d2q9.accel_row_mask(n, n, n - 2, dtype=f.dtype, device=f.device)
+    _, ref_tot = d2q9.run(f, mask, amask, num_steps=96, omega=1.85, accel_w1=w1, accel_w2=w2)
+    results, finals = {}, {}
+    for name, mod in (("d2q9_kstep_manual", d2q9_kstep_manual), ("d2q9_kstep", d2q9_kstep),
+                      ("d2q9_kstep_inplace", d2q9_kstep_inplace)):
+        th, tw, k = (mod.choose_config if mod is d2q9_kstep_manual
+                     else d2q9_kstep.choose_config)(n, n)
+        for m in mods:
+            m.launches = 0
+        _, tot96 = mod.run(f.clone(), mask, num_steps=96, k_steps=k, **kw)
+        err = float(((tot96[1:] - ref_tot[1:]).abs() / ref_tot[1:].abs()).max())
+        check(np.isfinite(err) and err <= AV_VELS_BAR,
+              f"4096^2 {name}: 96-step Sum|u| rel err {err} > {AV_VELS_BAR}")
+        g = f.clone()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, tots = mod.run(g, mask, num_steps=STEPS_4096, k_steps=k, **kw)
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1e3
+        launched = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods if m.launches}
+        check(list(launched) == [name], f"4096^2 {name}: launched {launched}")
+        check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(tots).all()),
+              f"4096^2 {name}: the state or Sum|u| is not finite")
+        mlups = n * n * STEPS_4096 / seconds / 1e6
+        print(f"4096^2 x {STEPS_4096} float32 {name} (tile {th}x{tw}, K={k}): {seconds:.6f} s, "
+              f"{mlups:.1f} MLUPS, {launched[name]} launches (96 + {STEPS_4096} steps), "
+              f"first 96 Sum|u| vs plain max rel err {err:.3e} (bar {AV_VELS_BAR})")
+        results[name] = (launched[name], seconds, mlups)
+        finals[name] = (out, tots)
+        del g
+    b2 = finals["d2q9_kstep"]
+    for name in ("d2q9_kstep_manual", "d2q9_kstep_inplace"):
+        check(torch.equal(finals[name][0], b2[0]) and torch.equal(finals[name][1], b2[1]),
+              f"4096^2: {name} is not bit-equal to d2q9_kstep after {STEPS_4096} steps")
+    print(f"4096^2: B3 and B1 equal B2 bit for bit after {STEPS_4096} steps (state and Sum|u|)")
+    return results
+
+
+def phase_any_width(torch, mods):
+    """A 64x1001 grid, whose width no tile divides, through run_simulation
+    with --engine auto, cuda, cuda-inplace and cuda-manual, each against the
+    plain engine on the card: float32 (200 steps, 4e-4) and float64 (1e-10),
+    on av_vels and the final state."""
+    from lbm_tpu_torch.core.params import Obstacles, Params
+    from lbm_tpu_torch.models import lbm as lbm_model
+    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
+    ny, nx = 64, 1001
+    params = Params(nx=nx, ny=ny, max_iters=200, reynolds_dim=10, density=0.1, accel=0.005,
+                    omega=1.85)
+    obstacles = Obstacles(random_mask(np.random.default_rng(13), ny, nx))
+    for dname, dtype, bar in (("float32", torch.float32, AV_VELS_BAR),
+                              ("float64", torch.float64, GOLDEN_3D_BAR_F64)):
+        plain = lbm_model.run_simulation(params, obstacles, dtype=dtype, engine="torch",
+                                         device="cuda")
+        for engine, mod in (("auto", d2q9_kstep_inplace), ("cuda", d2q9_kstep),
+                            ("cuda-inplace", d2q9_kstep_inplace),
+                            ("cuda-manual", d2q9_kstep_manual)):
+            for m in mods:
+                m.launches = 0
+            res = lbm_model.run_simulation(params, obstacles, dtype=dtype, engine=engine,
+                                           device="cuda")
+            others = sum(m.launches for m in mods if m is not mod)
+            check(mod.launches > 0 and others == 0,
+                  f"{ny}x{nx} --engine {engine}: not through its kernel alone")
+            e_av = float(np.abs(res.av_vels - plain.av_vels).max() / np.abs(plain.av_vels).max())
+            e_f = float(np.abs(res.f_final - plain.f_final).max() / np.abs(plain.f_final).max())
+            print(f"{ny}x{nx} {dname} --engine {engine} ({res.engine}, {mod.launches} launches): "
+                  f"av_vels rel err {e_av:.3e}, final state {e_f:.3e} vs the plain engine "
+                  f"(bar {bar})")
+            check(np.isfinite(e_av) and e_av <= bar and np.isfinite(e_f) and e_f <= bar,
+                  f"{ny}x{nx} {dname} --engine {engine}: outside the bar of the plain engine")
+
+
+def load_harness(name):
+    """experiments/cuda-kstep-tiles/<name>.py as a module."""
+    import importlib.util
+    path = REPO / "experiments" / "cuda-kstep-tiles" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"cuda_kstep_tiles_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_breakdown_path(torch, mods, copy_floor, k_main):
+    """The 2-D time-breakdown path at 1024^2: experiments/cuda-kstep-tiles/
+    breakdown2d.py (modes full, stream_only and copy of B2, B3 and B1 at
+    choose_config's K) and copy_floor2d.py (B12 over the K-step tiles and
+    full-width bands, and `copy_`), cut to one grid and 100 passes. Returns
+    ({kernel: launches}, {engine: {mode: us per step}}, {pattern: us})."""
+    breakdown2d, copy_floor2d = load_harness("breakdown2d"), load_harness("copy_floor2d")
+    for m in (*mods, copy_floor):
+        m.launches = 0
+    rows = breakdown2d.breakdown([N], ks=[k_main], passes=100)
+    floor_rows = copy_floor2d.shape_sweep([N], passes=100)
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in (*mods, copy_floor)}
+    check(all(launches.values()), f"the breakdown path left a kernel out: {launches}")
+    for line in breakdown2d.summary(rows):
+        print(f"breakdown {line}")
+    for r in floor_rows:
+        shape = f"blocks {r['by']}x{r['bx']}" if r["by"] else "(library)"
+        print(f"copy floor {r['pattern']:5s} {shape}: {r['us_per_pass']} us a pass, "
+              f"{r['gbps_effective']} GB/s")
+    print(f"breakdown path launches: {launches}")
+    per_step = {}
+    for r in rows:
+        per_step.setdefault(r["engine"], {})[r["mode"]] = r["us_per_step"]
+    floor = {f"{r['pattern']} {r['by']}x{r['bx']}" if r["by"] else r["pattern"]: r["us_per_pass"]
+             for r in floor_rows}
+    return launches, per_step, floor
 
 
 def hold_blocked(what, dname, got, ref):
@@ -1351,10 +1602,10 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from lbm_tpu_torch.ops import (_build, d2q9_kstep, d2q9_kstep_inplace, d3q19_kstep,
-                                   d3q19_kstep_blocked, d3q19_kstep_inplace,
-                                   d3q19_kstep_inplace_blocked, stencil)
-    mods = (d2q9_kstep, d2q9_kstep_inplace)
+    from lbm_tpu_torch.ops import (_build, copy_floor, d2q9_kstep, d2q9_kstep_inplace,
+                                   d2q9_kstep_manual, d3q19_kstep, d3q19_kstep_blocked,
+                                   d3q19_kstep_inplace, d3q19_kstep_inplace_blocked, stencil)
+    mods = (d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual)
     mods3 = (d3q19_kstep, d3q19_kstep_inplace)
     modsb = (d3q19_kstep_blocked, d3q19_kstep_inplace_blocked)
 
@@ -1371,11 +1622,15 @@ def main() -> int:
         print(f"choose_config(1024, 1024, float32) = tile {th}x{tw}, K={k_main}")
         abs_err = phase_parity(torch, mods, k_main)
         phase_narrow_tiles(torch, mods, k_main)
-        ms, plain_ms, bound = phase_timing(torch, mods, k_main)
+        copy_err = phase_modes(torch, mods, copy_floor)
+        ms, plain_ms, bound, copy, occupancy = phase_timing(torch, mods, k_main, copy_floor)
         t0 = time.perf_counter()
         golden, mask = load_golden()
         print(f"loaded {GOLDEN.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s")
         paths = phase_main_path(torch, mods, golden, mask)
+        paths_4096 = phase_4096(torch, mods)
+        phase_any_width(torch, mods)
+        bd_launches, bd_steps, bd_floor = phase_breakdown_path(torch, mods, copy_floor, k_main)
 
         k3 = d3q19_kstep_inplace.choose_k(STEPS_3D)
         block3 = d3q19_kstep.choose_block(SHAPE_3D[2])
@@ -1400,14 +1655,28 @@ def main() -> int:
         return 1
 
     kernels = [{
-        "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/d2q9_kstep.cu",
+        "name": name, "route": "cuda",
+        "source": ("lbm_tpu_torch/csrc/d2q9_manual.cu" if name == "d2q9_kstep_manual"
+                   else "lbm_tpu_torch/csrc/d2q9_kstep.cu"),
         "replaces": replaces, "launches": paths[name][0], "parity": "ok",
         "max_abs_err": abs_err[name], "ms": ms[name], "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
         "k_steps": k_main, "tile": [th, tw], "flagship_seconds": paths[name][1],
         "flagship_mlups": paths[name][2],
         "checkpoint_launches": ck_launches.get(name, 0),
+        "mlups_4096": paths_4096[name][2], "breakdown_launches": bd_launches[name],
+        "breakdown_us_per_step": bd_steps[{"d2q9_kstep": "B2", "d2q9_kstep_inplace": "B1",
+                                           "d2q9_kstep_manual": "B3"}[name]],
+        **({"grid": occupancy} if name == "d2q9_kstep_manual" else {}),
     } for name, replaces in KERNELS.items()]
+    kernels.append({
+        "name": "copy_floor", "route": "cuda", "source": "lbm_tpu_torch/csrc/copy_floor.cu",
+        "replaces": KERNEL_COPY_FLOOR, "launches": bd_launches["copy_floor"],
+        "main_path": "the 2-D time-breakdown path (breakdown2d.py, copy_floor2d.py) at 1024^2",
+        "parity": "ok", "max_abs_err": copy_err, "ms": copy["ms"], "plain_ms": copy["plain_ms"],
+        "bound_ms": copy["bound"][0], "bound_by": copy["bound"][1],
+        "library_ms": copy["library_ms"], "block": copy["block"],
+        "floor_us_per_pass": bd_floor})
     kernels += [{
         "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/d3q19_kstep.cu",
         "replaces": replaces, "launches": paths3[name][0], "parity": "ok",

@@ -3,7 +3,7 @@
 Usage:
     python -m lbm_tpu_torch.cli.lbm --params input_1024x1024.params \
         --obstacles obstacles_1024x1024.dat
-        [--engine auto|cuda-inplace|cuda|torch] [--dtype float32|float64]
+        [--engine auto|cuda-inplace|cuda|cuda-manual|torch] [--dtype float32|float64]
         [--device cuda|cpu] [--num-steps N] [--out-dir .]
         [--checkpoint-every N] [--checkpoint FILE] [--resume]
 
@@ -27,7 +27,8 @@ def main(argv=None) -> int:
     parser.add_argument("--obstacles", required=True, help="obstacle .dat file")
     parser.add_argument("--engine", default="auto", choices=list(lbm_model.ENGINES),
                         help="compute path: 'cuda-inplace' (kernel B1), 'cuda' "
-                             "(kernel B2), 'torch' (plain PyTorch) or 'auto' "
+                             "(kernel B2), 'cuda-manual' (kernel B3, B2 through an "
+                             "explicit copy pipeline), 'torch' (plain PyTorch) or 'auto' "
                              "(d2q9_kstep.choose_engine)")
     parser.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

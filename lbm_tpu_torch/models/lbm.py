@@ -18,9 +18,9 @@ import torch
 
 from ..core import io, state
 from ..core.params import Obstacles, Params, reynolds_number
-from ..ops import d2q9, d2q9_kstep, d2q9_kstep_inplace
+from ..ops import d2q9, d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual
 
-ENGINES = ("torch", "cuda", "cuda-inplace", "auto")
+ENGINES = ("torch", "cuda", "cuda-inplace", "cuda-manual", "auto")
 
 
 @dataclasses.dataclass
@@ -68,15 +68,17 @@ def run_simulation(
     """Run the full simulation on `device` (default: CUDA). `engine` selects
     the compute path: 'torch' (the plain PyTorch engine, ops/d2q9.py),
     'cuda' (kernel B2, two-stream, ops/d2q9_kstep.py), 'cuda-inplace'
-    (kernel B1, in place, ops/d2q9_kstep_inplace.py) or 'auto'
-    (d2q9_kstep.choose_engine). On the CPU the kernel engines run their
-    kernels' plain version."""
+    (kernel B1, in place, ops/d2q9_kstep_inplace.py), 'cuda-manual' (kernel
+    B3, B2 through an explicit copy pipeline, ops/d2q9_kstep_manual.py; the
+    counterpart of 'pallas-manual') or 'auto' (d2q9_kstep.choose_engine). On
+    the CPU the kernel engines run their kernels' plain version."""
     device = resolve_device(device)
     p = params if num_steps is None else dataclasses.replace(params, max_iters=num_steps)
     if engine == "auto":
         engine = d2q9_kstep.choose_engine(p.ny, p.nx)
     simulate = {"torch": d2q9.simulate, "cuda": d2q9_kstep.simulate,
-                "cuda-inplace": d2q9_kstep_inplace.simulate}.get(engine)
+                "cuda-inplace": d2q9_kstep_inplace.simulate,
+                "cuda-manual": d2q9_kstep_manual.simulate}.get(engine)
     if simulate is None:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
 
@@ -143,7 +145,8 @@ def run_simulation_with_checkpoints(
     p = params if num_steps is None else dataclasses.replace(params, max_iters=num_steps)
     if engine == "auto":
         engine = d2q9_kstep.choose_engine(p.ny, p.nx)
-    run_fn = {"cuda": d2q9_kstep.run, "cuda-inplace": d2q9_kstep_inplace.run}.get(engine)
+    run_fn = {"cuda": d2q9_kstep.run, "cuda-inplace": d2q9_kstep_inplace.run,
+              "cuda-manual": d2q9_kstep_manual.run}.get(engine)
     if run_fn is None and engine != "torch":
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     total = p.max_iters

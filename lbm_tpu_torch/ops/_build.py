@@ -31,8 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# d2q9_kstep.cu: ny .. accel_row, omega, w1, w2, stream
-_D2Q9_SCALARS = [_I] * 12 + [_D, _D, _D, _P]
+# d2q9_kstep.cu and d2q9_manual.cu: ny .. accel_row, mode, omega, w1, w2, stream
+_D2Q9_SCALARS = [_I] * 13 + [_D, _D, _D, _P]
 # d3q19_kstep.cu: nz .. accel_plane, six collision coefficients, stream
 _D3Q19_SCALARS = [_I] * 14 + [_D] * 6 + [_P]
 # d3q19_blocked.cu: nz .. tile, threads, k .. accel_plane, six coefficients, stream
@@ -47,6 +47,15 @@ SIGNATURES = {
         "d2q9_kstep_f64": [_P] * 5 + _D2Q9_SCALARS,
         "d2q9_kstep_inplace_f32": [_P] * 4 + [_I] + [_P] * 4 + _D2Q9_SCALARS,
         "d2q9_kstep_inplace_f64": [_P] * 4 + [_I] + [_P] * 4 + _D2Q9_SCALARS,
+    },
+    "d2q9_manual": {
+        "d2q9_manual_f32": [_P] * 5 + _D2Q9_SCALARS,
+        "d2q9_manual_f64": [_P] * 5 + _D2Q9_SCALARS,
+        "d2q9_manual_blocks": [_I] * 7,
+    },
+    "copy_floor": {
+        "copy_floor_f32": [_P] * 2 + [_I] * 4 + [_P],
+        "copy_floor_f64": [_P] * 2 + [_I] * 4 + [_P],
     },
     "d3q19_kstep": {
         "d3q19_kstep_f32": [_P] * 6 + _D3Q19_SCALARS,

@@ -6,14 +6,22 @@ every intermediate step held in shared memory, and returns the per-step
 Sum|u| over the valid window. See the note at the top of the source for the
 design and its bound on the card.
 
-Contract of `stepk` (shared with `d2q9_kstep_inplace.stepk`):
-  * f is (9, ny, nx) float32/float64 and contiguous; mask is the (ny, nx)
-    obstacle mask (bool or uint8, nonzero = blocked);
+Contract of `stepk` (shared with `d2q9_kstep_inplace.stepk` and
+`d2q9_kstep_manual.stepk`):
+  * f is (9, ny, nx) float32/float64 and contiguous, any ny and nx of at
+    least K; mask is the (ny, nx) obstacle mask (bool or uint8, nonzero =
+    blocked). The tiles of the last row and column are cut to the grid;
   * row_offset / valid_rows / valid_cols / global_ny describe a
     ghost-extended block as in `lbm_tpu.ops.d2q9_pallas.stepk`: local row r
     is global row r + row_offset, the accelerated row is tested as
     (r + row_offset) mod global_ny == accel_row, and only cells inside
     [valid_rows) x [valid_cols) count towards Sum|u|;
+  * `mode` is one of MODES, the TPU kernels' diagnostic modes: "full" (the
+    production step), "stream_only" (K periodic pull-streams without
+    bounce-back or collision; Sum|u| is the window sum of the rest-speed
+    plane, as `u = state[0]` in the TPU kernels) or "copy" (out = in). The
+    copy mode's Sum|u| is a token: zeros here, where the TPU kernels sum one
+    128-wide row per band to keep their output alive; it is never compared;
   * on a CUDA tensor the kernel is launched, or the call raises; on a CPU
     tensor the plain version `stepk_plain` runs. There is no other route.
 
@@ -44,10 +52,13 @@ WARPS_PER_BLOCK = 8
 # results.csv): 16x32 at K=4 is the fastest of 28 (tile, K) pairs for both
 # kernels (B1 0.120 ms per pass, B2 0.093); K=2 and K=8 lose at every tile.
 # 8x32 (B1 0.133 ms) serves grids whose height is a multiple of 8 only; the
-# narrower tiles, not timed, serve widths that are not a multiple of 32. The
+# narrower tiles, not timed, serve widths that are not a multiple of 32. A
+# grid that none divides takes the first that fits, with edge tiles. The
 # kernels take any tile whose sides are at least K.
 TILE_CANDIDATES = ((16, 32), (8, 32), (16, 16), (8, 16), (8, 8))
 PREFERRED_K = 4
+# the diagnostic modes of the kernels, by their index in the C entry points
+MODES = ("full", "stream_only", "copy")
 
 
 def smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int:
@@ -58,21 +69,22 @@ def smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int:
     return 2 * 9 * rh * rw * itemsize + 2 * WARPS_PER_BLOCK * itemsize + rh * rw + rh + rw
 
 
-def choose_tile(h: int, w: int, itemsize: int, k_steps: int) -> tuple[int, int] | None:
-    """The first tile of TILE_CANDIDATES that divides the grid and whose
-    block fits in shared memory at this K; None if there is none."""
-    for th, tw in TILE_CANDIDATES:
-        if h % th == 0 and w % tw == 0 and smem_bytes(th, tw, k_steps, itemsize) <= SMEM_PER_BLOCK:
-            return th, tw
-    return None
+def choose_tile(h: int, w: int, itemsize: int, k_steps: int,
+                smem=smem_bytes) -> tuple[int, int] | None:
+    """The first of TILE_CANDIDATES that divides the grid and whose block
+    fits in shared memory (`smem(th, tw, K, itemsize)`) at this K; else the
+    first that fits, whose last row and column of tiles are cut to the grid.
+    None only if no candidate fits."""
+    fits = [(th, tw) for th, tw in TILE_CANDIDATES
+            if smem(th, tw, k_steps, itemsize) <= SMEM_PER_BLOCK]
+    return next(((th, tw) for th, tw in fits if h % th == 0 and w % tw == 0),
+                fits[0] if fits else None)
 
 
-def choose_config(h: int, w: int, dtype=torch.float32) -> tuple[int, int, int] | None:
-    """(tile_h, tile_w, k_steps) for the kernels on this grid, or None when
-    no tile divides it."""
+def choose_config(h: int, w: int, dtype=torch.float32) -> tuple[int, int, int]:
+    """(tile_h, tile_w, k_steps) for the kernels B1 and B2 on this grid."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    tile = choose_tile(h, w, itemsize, PREFERRED_K)
-    return None if tile is None else (*tile, PREFERRED_K)
+    return (*choose_tile(h, w, itemsize, PREFERRED_K), PREFERRED_K)
 
 
 def choose_engine(h: int, w: int) -> str:
@@ -82,8 +94,8 @@ def choose_engine(h: int, w: int) -> str:
     the plain 'torch' engine when it is not a multiple of 8, else
     'cuda-inplace' (kernel B1), which keeps one lattice in memory instead of
     two and needs no minimum band count (unlike the TPU's in-place
-    pipeline). A width that no tile divides (not a multiple of 8) makes the
-    kernel raise; it is not sent to the plain engine."""
+    pipeline). Any width runs on the kernel: a width that no tile divides
+    gets edge tiles."""
     del w  # the width never decides the engine, as in the reference
     return "torch" if h % 8 else "cuda-inplace"
 
@@ -112,11 +124,17 @@ def stepk_plain(
     valid_rows: tuple | None = None,
     valid_cols: tuple | None = None,
     global_ny: int | None = None,
+    mode: str = "full",
 ):
     """The plain PyTorch version of the K-step kernels: K steps of
     `d2q9.collide_fields` on `d2q9.stream_pull`, with per-step Sum|u| over
-    the valid window only. Returns (f_after_K, tot (K,))."""
+    the valid window only; in mode "stream_only" K pull-streams with the
+    rest-speed plane as |u|, in mode "copy" f itself and a Sum|u| of zeros.
+    Returns (f_after_K, tot (K,))."""
+    check_mode(mode)
     _, ny, nx = f.shape
+    if mode == "copy":
+        return f.clone(), torch.zeros(k_steps, dtype=f.dtype, device=f.device)
     valid_rows = valid_rows or (0, ny)
     valid_cols = valid_cols or (0, nx)
     rows = torch.arange(ny, device=f.device) + int(row_offset)
@@ -128,18 +146,32 @@ def stepk_plain(
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
     tots = []
     for _ in range(k_steps):
-        f, u = d2q9.collide_fields(d2q9.stream_pull(f), obstacle, amask, omega=omega,
-                                   accel_w1=accel_w1, accel_w2=accel_w2)
+        if mode == "stream_only":
+            f = torch.stack(d2q9.stream_pull(f))
+            u = f[0]
+        else:
+            f, u = d2q9.collide_fields(d2q9.stream_pull(f), obstacle, amask, omega=omega,
+                                       accel_w1=accel_w1, accel_w2=accel_w2)
         tots.append(torch.where(window, u, zero).sum())
     return f, torch.stack(tots)
+
+
+def check_mode(mode: str) -> int:
+    """The index of `mode` in MODES, which the C entry points take."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    return MODES.index(mode)
 
 
 def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int, tile,
                 omega: float, accel_w1: float, accel_w2: float, accel_row: int,
                 row_offset: int = 0, valid_rows: tuple | None = None,
-                valid_cols: tuple | None = None, global_ny: int | None = None):
-    """Checks a CUDA call of either K-step kernel and returns (tile,
-    nblocks, the trailing scalar arguments of its C entry point)."""
+                valid_cols: tuple | None = None, global_ny: int | None = None,
+                mode: str = "full", smem=smem_bytes):
+    """Checks a CUDA call of a K-step kernel (B1, B2; B3 with its own `smem`)
+    and returns (tile, ntiles, the trailing scalar arguments of its C entry
+    point)."""
+    mode_index = check_mode(mode)
     if f.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got one on {f.device}")
     if f.dim() != 3 or f.shape[0] != 9:
@@ -153,18 +185,19 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int, tile,
         raise ValueError(f"mask must be ({ny}, {nx}) uint8 on {f.device}")
     if not 1 <= k_steps <= MAX_STEPS_PER_PASS:
         raise ValueError(f"k_steps must be in 1..{MAX_STEPS_PER_PASS}, got {k_steps}")
+    if min(ny, nx) < k_steps:
+        # B1's snapshot windows of 2K rows and columns each wrap at most once
+        raise ValueError(f"the {ny}x{nx} grid has a side shorter than k_steps={k_steps}")
     if tile is None:
-        tile = choose_tile(ny, nx, f.element_size(), k_steps)
+        tile = choose_tile(ny, nx, f.element_size(), k_steps, smem)
         if tile is None:
-            raise ValueError(f"no tile of {TILE_CANDIDATES} divides the {ny}x{nx} grid")
+            raise ValueError(f"no tile of {TILE_CANDIDATES} fits shared memory at K={k_steps}")
     th, tw = tile
-    if ny % th or nx % tw:
-        raise ValueError(f"tile {tile} must divide the {ny}x{nx} grid")
     if min(th, tw) < k_steps:
         # B1 hands each pass the K-deep ring of every tile as the next
-        # pass's halo snapshot; both kernels keep one rule
+        # pass's halo snapshot; all kernels keep one rule
         raise ValueError(f"tile {tile} has a side shorter than k_steps={k_steps}")
-    if smem_bytes(th, tw, k_steps, f.element_size()) > SMEM_PER_BLOCK:
+    if smem(th, tw, k_steps, f.element_size()) > SMEM_PER_BLOCK:
         raise ValueError(f"tile {tile} at K={k_steps} needs more than {SMEM_PER_BLOCK} B "
                          "of shared memory")
     valid_rows = valid_rows or (0, ny)
@@ -172,9 +205,9 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int, tile,
     stream = torch.cuda.current_stream(f.device).cuda_stream
     scalars = [ny, nx, th, tw, int(k_steps), int(row_offset), int(valid_rows[0]),
                int(valid_rows[1]), int(global_ny or ny), int(valid_cols[0]),
-               int(valid_cols[1]), int(accel_row), float(omega), float(accel_w1),
+               int(valid_cols[1]), int(accel_row), mode_index, float(omega), float(accel_w1),
                float(accel_w2), stream]
-    return (th, tw), (ny // th) * (nx // tw), scalars
+    return (th, tw), -(-ny // th) * -(-nx // tw), scalars
 
 
 def check_rc(rc: int, what: str) -> None:
@@ -182,11 +215,11 @@ def check_rc(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def _entry(f: torch.Tensor, name: str):
+def _entry(f: torch.Tensor, name: str, source: str = "d2q9_kstep"):
     from . import _build
 
     suffix = "f32" if f.dtype == torch.float32 else "f64"
-    return getattr(_build.load("d2q9_kstep"), f"{name}_{suffix}")
+    return getattr(_build.load(source), f"{name}_{suffix}")
 
 
 def _launch(f, mask_u8, out, partials, tot, scalars):
@@ -211,20 +244,21 @@ def stepk(
     valid_cols: tuple | None = None,
     global_ny: int | None = None,
     tile: tuple[int, int] | None = None,
+    mode: str = "full",
 ):
     """K fused timesteps in one pass (kernel B2 on CUDA, `stepk_plain` on
     the CPU). Returns (f_after_K_steps, tot_u per step (K,)); f is unchanged."""
     window = dict(row_offset=row_offset, valid_rows=valid_rows, valid_cols=valid_cols,
-                  global_ny=global_ny)
+                  global_ny=global_ny, mode=mode)
     if f.device.type == "cpu":
         return stepk_plain(f, mask, k_steps=k_steps, omega=omega, accel_w1=accel_w1,
                            accel_w2=accel_w2, accel_row=accel_row, **window)
     mask_u8 = obstacle_u8(mask)
-    _, nblocks, scalars = kernel_args(
+    _, ntiles, scalars = kernel_args(
         f, mask_u8, k_steps=k_steps, tile=tile, omega=omega, accel_w1=accel_w1,
         accel_w2=accel_w2, accel_row=accel_row, **window)
     out = torch.empty_like(f)
-    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
     _launch(f, mask_u8, out, partials, tot, scalars)
     return out, tot
@@ -234,6 +268,18 @@ def step(f, mask, **kw):
     """One fused timestep. Returns (f', tot_u scalar)."""
     f_new, tots = stepk(f, mask, k_steps=1, **kw)
     return f_new, tots[0]
+
+
+def run_plain(f, mask, *, num_steps: int, k_steps: int, mode: str = "full", **kw):
+    """`num_steps` timesteps in passes of `stepk_plain`, the CPU route of
+    every wrapper's `run`. Returns (f_final, tot_u (num_steps,))."""
+    if num_steps % k_steps:
+        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
+    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    for i in range(num_steps // k_steps):
+        f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps,
+                                                             mode=mode, **kw)
+    return f, tots
 
 
 def run(
@@ -247,21 +293,20 @@ def run(
     accel_row: int,
     k_steps: int = 1,
     tile: tuple[int, int] | None = None,
+    mode: str = "full",
 ):
     """`num_steps` timesteps, `k_steps` per pass, ping-ponging between two
     lattices. Returns (f_final, tot_u (num_steps,)); f is unchanged."""
+    kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
+    if f.device.type == "cpu":
+        return run_plain(f, mask, num_steps=num_steps, k_steps=k_steps, mode=mode, **kw)
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
     tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
-    if f.device.type == "cpu":
-        for i in range(num_steps // k_steps):
-            f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps, **kw)
-        return f, tots
     mask_u8 = obstacle_u8(mask)
-    _, nblocks, scalars = kernel_args(f, mask_u8, k_steps=k_steps, tile=tile, **kw)
+    _, ntiles, scalars = kernel_args(f, mask_u8, k_steps=k_steps, tile=tile, mode=mode, **kw)
     bufs = (torch.empty_like(f), torch.empty_like(f))
-    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     for i in range(num_steps // k_steps):
         out = bufs[i % 2]
         _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], scalars)
@@ -271,7 +316,7 @@ def run(
 
 def simulate_with(run_fn, params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor):
     """First-accelerate, then max_iters steps through `run_fn` (the `run`
-    of either kernel's wrapper), at the largest K of PREFERRED_K, PREFERRED_K/2,
+    of a kernel's wrapper), at the largest K of PREFERRED_K, PREFERRED_K/2,
     ..., 1 that divides max_iters. Returns (f_final, av_vels) as
     `d2q9.simulate` does."""
     aw = d2q9.AccelWeights.from_params(params)

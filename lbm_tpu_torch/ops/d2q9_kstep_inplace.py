@@ -27,11 +27,11 @@ launches = 0
 
 
 def snapshot_shapes(ny: int, nx: int, tile: tuple[int, int], k_steps: int):
-    """Shapes of the boundary snapshot: rows around each of the ny/tile_h
-    horizontal boundaries and columns around each of the nx/tile_w vertical
-    ones."""
+    """Shapes of the boundary snapshot: rows around each of the ceil(ny /
+    tile_h) horizontal boundaries and columns around each of the ceil(nx /
+    tile_w) vertical ones (boundary 0 also closes the last, partial tile)."""
     th, tw = tile
-    return (ny // th, 9, 2 * k_steps, nx), (nx // tw, 9, ny, 2 * k_steps)
+    return (-(-ny // th), 9, 2 * k_steps, nx), (-(-nx // tw), 9, ny, 2 * k_steps)
 
 
 def _launch(f, mask_u8, snap, take_snapshot, next_snap, partials, tot, scalars):
@@ -67,20 +67,21 @@ def stepk(
     valid_cols: tuple | None = None,
     global_ny: int | None = None,
     tile: tuple[int, int] | None = None,
+    mode: str = "full",
 ):
     """K fused timesteps in one in-place pass (kernel B1 on CUDA,
     `d2q9_kstep.stepk_plain` on the CPU). Overwrites f with the state after
     K steps; returns (f, tot_u per step (K,))."""
     kw = dict(k_steps=k_steps, omega=omega, accel_w1=accel_w1, accel_w2=accel_w2,
               accel_row=accel_row, row_offset=row_offset, valid_rows=valid_rows,
-              valid_cols=valid_cols, global_ny=global_ny)
+              valid_cols=valid_cols, global_ny=global_ny, mode=mode)
     if f.device.type == "cpu":
         f_new, tot = d2q9_kstep.stepk_plain(f, mask, **kw)
         f.copy_(f_new)
         return f, tot
     mask_u8 = d2q9_kstep.obstacle_u8(mask)
-    tile, nblocks, scalars = d2q9_kstep.kernel_args(f, mask_u8, tile=tile, **kw)
-    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    tile, ntiles, scalars = d2q9_kstep.kernel_args(f, mask_u8, tile=tile, **kw)
+    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
     _launch(f, mask_u8, _snapshot(f, tile, k_steps), True, None, partials, tot, scalars)
     return f, tot
@@ -103,24 +104,25 @@ def run(
     accel_row: int,
     k_steps: int = 1,
     tile: tuple[int, int] | None = None,
+    mode: str = "full",
 ):
     """`num_steps` timesteps, `k_steps` per in-place pass. Overwrites f;
     returns (f, tot_u (num_steps,)). The first pass snapshots f's tile
     boundaries; each pass then hands the next one its snapshot."""
+    kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
+    if f.device.type == "cpu":
+        f_new, tots = d2q9_kstep.run_plain(f, mask, num_steps=num_steps, k_steps=k_steps,
+                                           mode=mode, **kw)
+        f.copy_(f_new)
+        return f, tots
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
     tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
-    if f.device.type == "cpu":
-        for i in range(num_steps // k_steps):
-            f_new, tots[i * k_steps:(i + 1) * k_steps] = d2q9_kstep.stepk_plain(
-                f, mask, k_steps=k_steps, **kw)
-            f.copy_(f_new)
-        return f, tots
     mask_u8 = d2q9_kstep.obstacle_u8(mask)
-    tile, nblocks, scalars = d2q9_kstep.kernel_args(f, mask_u8, k_steps=k_steps, tile=tile, **kw)
+    tile, ntiles, scalars = d2q9_kstep.kernel_args(f, mask_u8, k_steps=k_steps, tile=tile,
+                                                   mode=mode, **kw)
     snaps = (_snapshot(f, tile, k_steps), _snapshot(f, tile, k_steps))
-    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     for i in range(num_steps // k_steps):
         _launch(f, mask_u8, snaps[i % 2], i == 0, snaps[(i + 1) % 2], partials,
                 tots[i * k_steps:(i + 1) * k_steps], scalars)

@@ -150,24 +150,23 @@ def test_choose_config_and_engine():
     # as in lbm_tpu.ops.d2q9_pallas.choose_engine, the width never decides
     assert d2q9_kstep.choose_engine(32, 48) == "cuda-inplace"
     assert d2q9_kstep.choose_engine(1024, 1001) == "cuda-inplace"
-    assert d2q9_kstep.choose_config(12, 128) is None
+    # no candidate divides a 12-row grid: the first tile, with edge tiles
+    assert d2q9_kstep.choose_config(12, 128) == (16, 32, 4)
 
 
 @pytest.mark.parametrize("shape, tile", [
     ((32, 48), (16, 16)),
     ((1000, 1008), (8, 16)),
     ((1024, 1000), (8, 8)),
-    ((1024, 1001), None),  # no tile: the kernels raise on such a grid
+    ((1024, 1001), (16, 32)),  # no tile divides it: edge tiles
 ])
 def test_choose_config_narrow_widths(shape, tile):
-    """Widths that are not a multiple of 32 take a narrower tile, whose
-    sides are still at least K; a width that is not a multiple of 8 has none."""
+    """Widths that are not a multiple of 32 take a narrower tile that
+    divides them, whose sides are still at least K; a width that no tile
+    divides takes the first tile, whose last column of tiles is cut."""
     config = d2q9_kstep.choose_config(*shape, torch.float32)
-    if tile is None:
-        assert config is None
-    else:
-        assert config == (*tile, d2q9_kstep.PREFERRED_K)
-        assert min(tile) >= d2q9_kstep.MAX_STEPS_PER_PASS
+    assert config == (*tile, d2q9_kstep.PREFERRED_K)
+    assert min(tile) >= d2q9_kstep.MAX_STEPS_PER_PASS
 
 
 def test_smem_bytes_formula():

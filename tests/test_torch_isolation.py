@@ -23,7 +23,7 @@ import torch
 from lbm_tpu_torch.core import state
 from lbm_tpu_torch.core.params import Obstacles, Params
 from lbm_tpu_torch.models import blur, lbm
-from lbm_tpu_torch.ops import d2q9_kstep, d2q9_kstep_inplace, stencil
+from lbm_tpu_torch.ops import copy_floor, d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual, stencil
 
 REPO = Path(__file__).resolve().parent.parent
 KW = dict(k_steps=2, omega=1.85, accel_w1=1e-4, accel_w2=2.5e-5, accel_row=6)
@@ -48,7 +48,7 @@ def test_port_imports_no_jax_and_no_lbm_tpu():
                  "ops.d3q19_kstep_inplace", "ops.d3q19_kstep_blocked",
                  "ops.d3q19_kstep_inplace_blocked", "ops._build", "core.checkpoint", "models.lbm3d",
                  "cli.lbm", "cli.lbm3d", "utils.image", "ops.stencil", "models.blur",
-                 "cli.blur"):
+                 "cli.blur", "ops.d2q9_kstep_manual", "ops.copy_floor"):
         assert f"lbm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -117,7 +117,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("mod", [d2q9_kstep, d2q9_kstep_inplace])
+@pytest.mark.parametrize("mod", [d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual])
 def test_wrapper_raises_on_a_non_cpu_tensor(mod):
     f_np = np.full((9, 8, 32), 0.1 / 9)
     mask_np = np.zeros((8, 32), bool)
@@ -136,6 +136,16 @@ def test_wrapper_raises_on_a_non_cpu_tensor(mod):
         mod.run(f, mask, num_steps=4, **KW)
     assert mod.launches == before
 
+
+def test_copy_floor_raises_on_a_non_cpu_tensor(monkeypatch):
+    def never(*args, **kwargs):
+        raise AssertionError("the copy floor's wrapper left its kernel's path")
+
+    monkeypatch.setattr(copy_floor, "run_copy_plain", never)
+    before = copy_floor.launches
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        copy_floor.run_copy(torch.empty((9, 8, 32), device="meta"), 2, 8, 32)
+    assert copy_floor.launches == before
 
 
 def test_blur_defaults_to_cuda_and_raises_without_it(tmp_path):

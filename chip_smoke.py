@@ -7,8 +7,8 @@ Run from the root of the repository, with no arguments:
 
 Phases, each of which must pass or the script exits non-zero:
   1. prints the card's name and power limit; builds the CUDA kernels from
-     lbm_tpu_torch/csrc/ with nvcc (one process per source, all started
-     together) and prints the build time;
+     the seven sources of lbm_tpu_torch/csrc/ with nvcc (one process per
+     source, all started together) and prints the build time;
   2. D2Q9 kernels vs plain version at 1024x1024: for kernels B2 (d2q9_kstep),
      B1 (d2q9_kstep_inplace) and B3 (d2q9_kstep_manual, the pipelined one),
      at K = 1..4, in float64 and float32, plus one case with a ghost window
@@ -91,11 +91,24 @@ Phases, each of which must pass or the script exits non-zero:
      2e-2, and its output within one level of the plain bfloat16 chain). The
      PNG leg runs if PIL imports; if not, the arrays go through
      `models.blur.run_blur` and a line says so;
- 10. one JSON line `{"kernels": [...]}` with each of the eleven kernels'
+ 10. kernel B11, the overlap probes (ops/overlap_probe.py, through
+     experiments/cuda-kstep-tiles/overlap_probe.py): every engine of the
+     harness (probe.py's table, and the strided manual engines again in
+     (9, 1, 512) tiles) against its plain version bit for bit at 256x256,
+     bands 32 and 64, R = 0 and 2 (smem totals too; the manual engines also
+     against auto; manual6 must refuse band 64, as probe.py does), and at
+     4096^2, band 64, R = 16, where each block of a manual engine walks tens
+     of tiles through its ring (the smem totals of 64 bands too); then the
+     main path, the harness's sweep of every engine at 4096^2, band 64, 200
+     calls, R = 0, 16 and 64 (best of 3), and `copy_` at R = 0, each
+     instance launched; each case's bound, each engine's arithmetic a round
+     (the slope from R = 256 to 512) and overlap fraction, and probe.py's
+     own fractions (`analyze`);
+ 11. one JSON line `{"kernels": [...]}` with each of the twelve kernels'
      launches on its path, parity, time per launch, its bound, the plain
      version's time and the library's (the convolution for the blur
-     kernels, `copy_` for B12);
- 11. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+     kernels, `copy_` for B12 and B11);
+ 12. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero, printing no result, when CUDA is absent or the package is not
 beside this file. Imports nothing of JAX or of lbm_tpu.
@@ -197,6 +210,17 @@ STATE_BAR = {"float32": 1e-5, "bfloat16": 2e-2}
 # and the separable pass of B9 and B8 (rows 3, columns 3, scale and mask 2)
 FLOP_PER_VALUE_STEP = 12
 FLOP_PER_VALUE_SEPARABLE = 8
+
+# the overlap probes (B11): the eight builders of probe.py they replace, and
+# probe.csv's case: 4096^2, band 64, 200 iterations
+KERNEL_OVERLAP = "experiments/d2q9-overlap/probe.py:51,130,194,261,335,362,428,450"
+OVERLAP_FUNCTIONS = ["build_auto", "build_manual", "build_manual_depth", "build_manual_flat",
+                     "build_auto_flat", "build_manual_alias", "build_auto_alias",
+                     "build_manual_alias_safe"]
+OVERLAP_SIZE, OVERLAP_BAND, OVERLAP_ITERS = 4096, 64, 200
+OVERLAP_ROUNDS = [0, 16, 64]
+# the engines whose times the kernels line carries
+OVERLAP_REPORTED = ("auto", "manual", "manual@1x512", "manual_flat", "manual_alias_safe")
 
 
 class Failure(Exception):
@@ -1591,6 +1615,77 @@ def phase_blur_timing(torch, stencil):
     return out
 
 
+
+def phase_overlap(torch, overlap_probe, card):
+    """Kernel B11, the overlap probes (experiments/cuda-kstep-tiles/
+    overlap_probe.py): every engine of the harness against its plain version
+    bit for bit at 256x256 (bands 32 and 64, R = 0 and 2; the manual engines
+    also against auto) and at 4096^2, band 64, R = 16 (smem totals too);
+    then the main path, the harness's sweep of every engine at 4096^2, band
+    64, 200 iterations, R in {0, 16, 64} and `copy_` at R = 0, with its
+    bounds and overlap fractions. Returns the numbers of the kernels line."""
+    harness = load_harness("overlap_probe")
+    n, band, iters, rounds_list = OVERLAP_SIZE, OVERLAP_BAND, OVERLAP_ITERS, OVERLAP_ROUNDS
+    try:
+        held, refused = harness.canary(harness.ENGINES)
+        print(f"overlap canary: {held} cases at {harness.CANARY}x{harness.CANARY} bit-equal to "
+              "the plain versions (smem totals too; manual == auto); refused to build, too few "
+              f"bands (as probe.py): {refused or 'none'}")
+        max_err = harness.check_full(harness.ENGINES, n, band, 16,
+                                     log=lambda line: print(f"overlap {line}"))
+    except RuntimeError as err:
+        raise Failure(f"B11: {err}") from err
+    print(f"overlap: every kernel engine at {n}^2, band {band}, R=16 bit-equal to its plain "
+          "version")
+    f = torch.from_numpy(np.random.default_rng(11).random((9, n, n), dtype=np.float32)).cuda()
+    plain = {r: overlap_probe.build_auto(n, n, band, r) for r in (0, 16)}
+    plain_ms = {r: time_ms(torch, lambda: p.plain(f), 3) for r, p in plain.items()}
+    del f
+
+    launches, rows = {}, []
+    overlap_probe.launches = 0
+    for name in harness.ENGINES:
+        before = overlap_probe.launches
+        rows += harness.sweep([name], n, band, iters, rounds_list, card, library=False,
+                              log=lambda line: print(f"overlap {line}"))
+        launches[name] = overlap_probe.launches - before
+    rows += harness.sweep([], n, band, iters, [0], card, log=lambda line: print(f"overlap {line}"))
+    total_launches = overlap_probe.launches
+    missing = [k for k, v in launches.items() if k != "torch" and v == 0]
+    check(not missing and launches["torch"] == 0,
+          f"B11: the sweep did not launch every instance: {launches}")
+    per_round = harness.us_per_round(harness.ENGINES, n, band)
+    harness.add_overlap(rows, per_round)
+    print(f"overlap arithmetic a round (slope R = {harness.SLOPE_ROUNDS}): "
+          + ", ".join(f"{e} {c:.3f} us" for e, c in per_round.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "overlap.csv"
+        harness.write_csv(rows, path)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            overlap_probe.analyze(path)
+    for line in buf.getvalue().splitlines():
+        print(f"overlap analyze {line}")
+    for r in rows:
+        if r["overlap"] != "":
+            print(f"overlap {r['engine']:23s} R={r['rounds']:<3d} wall {r['us_per_iter']} us, "
+                  f"bound {r['bound_us']} us ({r['bound_by']}), arithmetic ~{r['compute_us']} us, "
+                  f"overlap {r['overlap']:+.3f}")
+    print(f"overlap sweep launches: {launches} (total {total_launches})")
+    wall = {(r["engine"], r["rounds"]): r["us_per_iter"] / 1e3 for r in rows}
+    blocks = {r["engine"]: r["blocks_per_sm"] for r in rows if r["blocks_per_sm"] != ""}
+    bound = {r: harness.bound_us("auto", n, n, r) for r in (0, 16)}
+    return dict(
+        launches=total_launches, launches_by_engine=launches, max_abs_err=max_err,
+        ms=wall[("auto", 0)], plain_ms=plain_ms[0], library_ms=wall[("copy_", 0)],
+        bound_ms=bound[0][0] / 1e3, bound_by=bound[0][1],
+        ms_by_engine={e: {str(r): wall[(e, r)] for r in (0, 16)} for e in OVERLAP_REPORTED},
+        plain_ms_r16=plain_ms[16], bound_ms_r16=bound[16][0] / 1e3, bound_by_r16=bound[16][1],
+        blocks_per_sm=blocks,
+        us_per_round={e: per_round[e] for e in OVERLAP_REPORTED},
+        overlap={f"{r['engine']} R={r['rounds']}": r["overlap"] for r in rows
+                 if r["overlap"] != "" and r["engine"] in OVERLAP_REPORTED})
+
 def main() -> int:
     import torch
 
@@ -1604,7 +1699,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from lbm_tpu_torch.ops import (_build, copy_floor, d2q9_kstep, d2q9_kstep_inplace,
                                    d2q9_kstep_manual, d3q19_kstep, d3q19_kstep_blocked,
-                                   d3q19_kstep_inplace, d3q19_kstep_inplace_blocked, stencil)
+                                   d3q19_kstep_inplace, d3q19_kstep_inplace_blocked,
+                                   overlap_probe, stencil)
     mods = (d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual)
     mods3 = (d3q19_kstep, d3q19_kstep_inplace)
     modsb = (d3q19_kstep_blocked, d3q19_kstep_inplace_blocked)
@@ -1650,6 +1746,8 @@ def main() -> int:
         abs_err_blur = phase_blur_parity(torch, stencil)
         times_blur = phase_blur_timing(torch, stencil)
         paths_blur = phase_blur_main_path(torch, stencil)
+
+        overlap = phase_overlap(torch, overlap_probe, card)
     except Failure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -1705,6 +1803,14 @@ def main() -> int:
             "replaces": replaces, "launches": paths_blur[name][0], "parity": "ok",
             "max_abs_err": abs_err_blur[name], "bound_ms": bound_ms, "bound_by": bound_by,
             "main_path_seconds": paths_blur[name][1], **t})
+    kernels.append({
+        "name": "overlap_probe", "route": "cuda", "source": "lbm_tpu_torch/csrc/overlap_probe.cu",
+        "replaces": KERNEL_OVERLAP, "replaces_functions": OVERLAP_FUNCTIONS,
+        "main_path": (f"experiments/cuda-kstep-tiles/overlap_probe.py: every engine at "
+                      f"{OVERLAP_SIZE}^2, band {OVERLAP_BAND}, {OVERLAP_ITERS} iterations, "
+                      f"R in {OVERLAP_ROUNDS}; ms, plain_ms, bound_ms and library_ms (copy_) "
+                      "are auto's at R = 0"),
+        "parity": "ok", **overlap})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -57,6 +57,12 @@ SIGNATURES = {
         "copy_floor_f32": [_P] * 2 + [_I] * 4 + [_P],
         "copy_floor_f64": [_P] * 2 + [_I] * 4 + [_P],
     },
+    "overlap_probe": {
+        "overlap_auto": [_P] * 4 + [_I] * 9 + [_P],
+        "overlap_manual": [_P] * 2 + [_I] * 9 + [_P],
+        "overlap_auto_blocks": [_I] * 2,
+        "overlap_manual_blocks": [_I] * 5,
+    },
     "d3q19_kstep": {
         "d3q19_kstep_f32": [_P] * 6 + _D3Q19_SCALARS,
         "d3q19_kstep_f64": [_P] * 6 + _D3Q19_SCALARS,

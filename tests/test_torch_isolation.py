@@ -23,7 +23,8 @@ import torch
 from lbm_tpu_torch.core import state
 from lbm_tpu_torch.core.params import Obstacles, Params
 from lbm_tpu_torch.models import blur, lbm
-from lbm_tpu_torch.ops import copy_floor, d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual, stencil
+from lbm_tpu_torch.ops import (copy_floor, d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual,
+                               overlap_probe, stencil)
 
 REPO = Path(__file__).resolve().parent.parent
 KW = dict(k_steps=2, omega=1.85, accel_w1=1e-4, accel_w2=2.5e-5, accel_row=6)
@@ -48,7 +49,7 @@ def test_port_imports_no_jax_and_no_lbm_tpu():
                  "ops.d3q19_kstep_inplace", "ops.d3q19_kstep_blocked",
                  "ops.d3q19_kstep_inplace_blocked", "ops._build", "core.checkpoint", "models.lbm3d",
                  "cli.lbm", "cli.lbm3d", "utils.image", "ops.stencil", "models.blur",
-                 "cli.blur", "ops.d2q9_kstep_manual", "ops.copy_floor"):
+                 "cli.blur", "ops.d2q9_kstep_manual", "ops.copy_floor", "ops.overlap_probe"):
         assert f"lbm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -70,8 +71,9 @@ def test_chip_smoke_imports_no_jax_and_no_lbm_tpu():
     bad = sorted(n for n in names
                  if n.split(".")[0] in ("jax", "jaxlib", "lbm_tpu"))
     assert bad == []
-    # every source of the port, read the same way
-    for path in (REPO / "lbm_tpu_torch").rglob("*.py"):
+    # every source of the port, and the overlap probes' harness, read the same way
+    for path in [*(REPO / "lbm_tpu_torch").rglob("*.py"),
+                 REPO / "experiments" / "cuda-kstep-tiles" / "overlap_probe.py"]:
         assert not [n for n in imported_modules(path)
                     if n.split(".")[0] in ("jax", "jaxlib", "lbm_tpu")], path
 
@@ -146,6 +148,21 @@ def test_copy_floor_raises_on_a_non_cpu_tensor(monkeypatch):
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         copy_floor.run_copy(torch.empty((9, 8, 32), device="meta"), 2, 8, 32)
     assert copy_floor.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(set(overlap_probe.ENGINES) - {"torch"}))
+def test_overlap_probe_raises_on_a_non_cpu_tensor(name, monkeypatch):
+    def never(*args, **kwargs):
+        raise AssertionError("an overlap probe left its kernel's path")
+
+    for plain in ("work_plain", "halo_plain", "smem_total_plain", "alias_plain"):
+        monkeypatch.setattr(overlap_probe, plain, never)
+    monkeypatch.setattr(overlap_probe.Probe, "plain", never)
+    probe = overlap_probe.ENGINES[name](96, 128, 16, 2)
+    before = overlap_probe.launches
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        probe(torch.empty((9, 96, 128), device="meta"))
+    assert overlap_probe.launches == before
 
 
 def test_blur_defaults_to_cuda_and_raises_without_it(tmp_path):

@@ -7,7 +7,7 @@ Run from the root of the repository, with no arguments:
 
 Phases, each of which must pass or the script exits non-zero:
   1. prints the card's name and power limit; builds the CUDA kernels from
-     the seven sources of lbm_tpu_torch/csrc/ with nvcc (one process per
+     the eight sources of lbm_tpu_torch/csrc/ with nvcc (one process per
      source, all started together) and prints the build time;
   2. D2Q9 kernels vs plain version at 1024x1024: for kernels B2 (d2q9_kstep),
      B1 (d2q9_kstep_inplace) and B3 (d2q9_kstep_manual, the pipelined one),
@@ -104,11 +104,23 @@ Phases, each of which must pass or the script exits non-zero:
      instance launched; each case's bound, each engine's arithmetic a round
      (the slope from R = 256 to 512) and overlap fraction, and probe.py's
      own fractions (`analyze`);
- 11. one JSON line `{"kernels": [...]}` with each of the twelve kernels'
+ 11. kernel B13, the resident-blur variants v0-v7 (ops/blur_resident_opt.py,
+     through experiments/cuda-kstep-tiles/blur_resident_opt.py): every
+     variant against its plain version bit for bit, in float32 and bfloat16
+     I/O, at bricks (4x304x512) and at 3x37x53 (which no tile divides) after
+     0, 2, 7 and 200 passes (7 runs 6, as run.py's `_pingpong`) and at leaf
+     (4x1032x896) after 2 and 200 where the variant fits, v0 and v1 against
+     B8; the variants whose tiles do not fit leaf must refuse it, naming
+     the bytes a block would need. Then the main path, the harness's sweep
+     of all eight at bricks and leaf in bfloat16 (run.py's per-pass cost:
+     median of 5 (t(n_hi) - t(n_lo)) / (n_hi - n_lo), n_lo = 2000), every
+     variant launched; v0's launch of 2000 passes beside its plain version,
+     2000 convolutions and its bound;
+ 12. one JSON line `{"kernels": [...]}` with each of the thirteen kernels'
      launches on its path, parity, time per launch, its bound, the plain
      version's time and the library's (the convolution for the blur
      kernels, `copy_` for B12 and B11);
- 12. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+ 13. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero, printing no result, when CUDA is absent or the package is not
 beside this file. Imports nothing of JAX or of lbm_tpu.
@@ -221,6 +233,10 @@ OVERLAP_SIZE, OVERLAP_BAND, OVERLAP_ITERS = 4096, 64, 200
 OVERLAP_ROUNDS = [0, 16, 64]
 # the engines whose times the kernels line carries
 OVERLAP_REPORTED = ("auto", "manual", "manual@1x512", "manual_flat", "manual_alias_safe")
+
+# the resident-blur variants (B13): the one pallas_call site of the study
+# they replace
+KERNEL_BLUR_RESIDENT_OPT = "experiments/blur-resident-opt/run.py:55"
 
 
 class Failure(Exception):
@@ -1686,6 +1702,92 @@ def phase_overlap(torch, overlap_probe, card):
         overlap={f"{r['engine']} R={r['rounds']}": r["overlap"] for r in rows
                  if r["overlap"] != "" and r["engine"] in OVERLAP_REPORTED})
 
+
+def phase_blur_resident_opt(torch, bro, stencil, card):
+    """Kernel B13, the resident-blur variants (experiments/cuda-kstep-tiles/
+    blur_resident_opt.py): every variant against its plain version bit for
+    bit at bricks and a small odd shape (passes 0, 2, 7, 200; float32 and
+    bfloat16 I/O) and at leaf where it fits (2, 200), v0 and v1 against B8;
+    the variants that do not fit leaf must refuse it, naming the bytes a
+    block would need; then the main path, the harness's sweep of all eight
+    at bricks and leaf (bfloat16, as run.py's main), each variant launched.
+    Returns the numbers of the kernels line."""
+    harness = load_harness("blur_resident_opt")
+    print(f"B13 on {card}")
+    try:
+        max_err = harness.check_parity(log=lambda line: print(f"B13 {line}"))
+    except RuntimeError as err:
+        raise Failure(f"B13: {err}") from err
+    shape, hw0 = harness.IMAGES["leaf"]
+    img_np, _ = harness.study_case(shape, hw0)
+    x = torch.from_numpy(img_np).to("cuda", torch.bfloat16)
+    fit_leaf = []
+    for variant in bro.VARIANTS:
+        if harness.fits(variant, shape):
+            fit_leaf.append(variant)
+            continue
+        try:
+            bro.build(variant, x, hw0)
+        except ValueError as err:
+            check(" B of shared memory a block" in str(err), f"B13's refusal names no bytes: {err}")
+            print(f"B13 {variant} refuses leaf as it must: {err}")
+        else:
+            raise Failure(f"B13 {variant} took leaf, whose tiles do not fit")
+    print(f"B13 variants that fit leaf on this card: {fit_leaf}")
+    del x
+
+    for variant in bro.launches:
+        bro.launches[variant] = 0
+    rows = harness.sweep(list(harness.IMAGES), bro.VARIANTS, harness.REPEATS, card,
+                         log=lambda line: print(f"B13 {line}"))
+    launches = dict(bro.launches)
+    check(all(launches.values()), f"B13: the sweep did not launch every variant: {launches}")
+    print(f"B13 sweep launches: {launches}")
+
+    # one launch of n_lo passes of v0 at bricks beside its plain version, the
+    # library's passes and its bound
+    shape, hw0 = harness.IMAGES["bricks"]
+    img_np, int_np = harness.study_case(shape, hw0)
+    call, x, m = harness.prepare("v0-roll", img_np, int_np, hw0, torch.bfloat16)
+    n = harness.N_LO
+
+    def conv_run():
+        y = x
+        for _ in range(n):
+            y = stencil.blur_step_conv(y, m)
+
+    plain_ms = time_ms(torch, lambda: call.plain(n, x, m), 1)
+    library_ms = time_ms(torch, conv_run, 1)
+    bound_ms, bound_by = harness.run_bound_ms("v0-roll", shape, n, 2)
+    by_key = {(r["image"], r["variant"]): r for r in rows}
+    v0 = by_key[("bricks", "v0-roll")]
+    # the device time of every launch of the sweep, beside the sum of their
+    # bounds: the launches run 2,000 to 30,910 passes, so `ms` (one launch of
+    # 2,000) times `launches` undercounts the path
+    ran = [r for r in rows if r["fits"]]
+    main_path_ms = sum(r["sweep_ms"] for r in ran)
+    main_path_bound_ms = sum(r["sweep_bound_ms"] for r in ran)
+    print(f"B13 sweep: {main_path_ms:.3f} ms of device time in {sum(launches.values())} "
+          f"launches, their bounds {main_path_bound_ms:.3f} ms")
+    return dict(
+        launches=sum(launches.values()), launches_by_variant=launches, max_abs_err=max_err,
+        main_path_ms=main_path_ms, main_path_bound_ms=main_path_bound_ms,
+        ms=v0["lo_ms"], plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, passes_a_launch=n,
+        us_per_pass={v: {img: (by_key[(img, v)]["us_per_pass"] if by_key[(img, v)]["fits"]
+                               else "does not fit") for img in harness.IMAGES}
+                     for v in bro.VARIANTS},
+        bound_us_per_pass={v: {img: by_key[(img, v)]["bound_us"] for img in harness.IMAGES}
+                           for v in bro.VARIANTS},
+        plain_us_per_pass={v: {img: by_key[(img, v)]["plain_us"] for img in harness.IMAGES}
+                           for v in bro.VARIANTS},
+        library_us_per_pass={img: by_key[(img, "v0-roll")]["library_us"]
+                             for img in harness.IMAGES},
+        fits_leaf=fit_leaf,
+        block_bytes={v: {img: by_key[(img, v)]["block_bytes"] for img in harness.IMAGES}
+                     for v in bro.VARIANTS})
+
+
 def main() -> int:
     import torch
 
@@ -1701,6 +1803,7 @@ def main() -> int:
                                    d2q9_kstep_manual, d3q19_kstep, d3q19_kstep_blocked,
                                    d3q19_kstep_inplace, d3q19_kstep_inplace_blocked,
                                    overlap_probe, stencil)
+    from lbm_tpu_torch.ops import blur_resident_opt
     mods = (d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual)
     mods3 = (d3q19_kstep, d3q19_kstep_inplace)
     modsb = (d3q19_kstep_blocked, d3q19_kstep_inplace_blocked)
@@ -1748,6 +1851,7 @@ def main() -> int:
         paths_blur = phase_blur_main_path(torch, stencil)
 
         overlap = phase_overlap(torch, overlap_probe, card)
+        resident_opt = phase_blur_resident_opt(torch, blur_resident_opt, stencil, card)
     except Failure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -1811,6 +1915,14 @@ def main() -> int:
                       f"R in {OVERLAP_ROUNDS}; ms, plain_ms, bound_ms and library_ms (copy_) "
                       "are auto's at R = 0"),
         "parity": "ok", **overlap})
+    kernels.append({
+        "name": "blur_resident_opt", "route": "cuda",
+        "source": "lbm_tpu_torch/csrc/blur_resident_opt.cu", "replaces": KERNEL_BLUR_RESIDENT_OPT,
+        "replaces_functions": [f"v{i}_kernel" for i in range(8)],
+        "main_path": ("experiments/cuda-kstep-tiles/blur_resident_opt.py: the eight variants at "
+                      "bricks and leaf, bfloat16; ms, plain_ms, library_ms and bound_ms are one "
+                      f"launch of {resident_opt['passes_a_launch']} passes of v0-roll at bricks"),
+        "parity": "ok", **resident_opt})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -53,68 +53,31 @@
 //        instructions, not by bytes.
 //   B8   the card has no fast memory that holds a whole image, so the image
 //        is spread over the shared memory of the SMs: ONE cooperative launch
-//        of at most as many blocks as are co-resident, each keeping its tile
-//        (plus a 1-cell halo, two buffers, and its part of the mask) in
-//        shared memory as float32 for the whole run. After each pass a block
-//        writes its tile's first and last row and column to a small exchange
-//        buffer in device memory (full-width rows, so corners need no case of
-//        their own), the grid synchronises, and every block reads its halo
-//        from its neighbours' edges. Two exchange buffers alternate by the
-//        pass's parity, so one barrier per pass is enough. The image crosses
-//        device memory once in and once out; the number of passes is a
-//        runtime argument. The exchange is read and written past L1
-//        (__ldcg/__stcg), which is not coherent between SMs.
+//        of at most one block per SM, each keeping its tile (plus a 1-cell
+//        halo, two buffers, and its part of the mask) in shared memory as
+//        float32 for the whole run, an exchange of tile edges through device
+//        memory and one grid barrier a pass. It is the V0 instance of the
+//        resident template of blur_resident.cuh, which has the design and
+//        which B13's variants share.
 //
 // Interface: plain C, one entry per (kernel, storage type), each launching on
 // the given stream and returning cudaGetLastError(), or a negative code of
 // its own where it refuses a launch. The kernels allocate nothing.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
+#include "blur_common.cuh"
+#include "blur_resident.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;          // B10
-constexpr int kMaxThreads = 1024;      // B9 and B8: the caller names the count
 constexpr int kRowsPerThread = 8;      // B10: rows one thread walks down
 constexpr int kStripRows = 8;          // B9: rows of a strip in shared memory
 
-// refusals of the entry points (CUDA's own errors are positive)
-constexpr int kNotCoResident = -1;
-constexpr int kNoCooperativeLaunch = -2;
-constexpr int kBadArgument = -3;
-
-// x mod n, non-negative. Only cells of a halo that crosses the array's edge
-// pay for the division.
-__device__ __forceinline__ int wrap(int x, int n) {
-  if ((unsigned)x >= (unsigned)n) {
-    x %= n;
-    if (x < 0) x += n;
-  }
-  return x;
-}
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// idx / w for 0 <= idx < 2^16 and 0 < w < 2^10, with inv_w = 1.0f / w:
-// (idx + 0.5) / w lies at least 0.5/w from an integer, far more than the
-// float rounding error of the product, so truncation gives the quotient.
-__device__ __forceinline__ int div_small(int idx, float inv_w) {
-  return (int)((float(idx) + 0.5f) * inv_w);
-}
-
-// The separable pass of B9 and B8 on one cell: a, m, b are the three rows in
-// the order their sum is taken, (a + 2m) + b, each as (left, middle, right).
+// The separable pass of B9 on one cell: a, m, b are the three rows in the
+// order their sum is taken, (a + 2m) + b, each as (left, middle, right).
 __device__ __forceinline__ float separable(float al, float am, float ar,
                                            float ml, float mm, float mr,
                                            float bl, float bm, float br,
@@ -259,150 +222,6 @@ int launch_k(const void* img, const void* interior, void* out, int c, int h,
   return (int)cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- B8 ----
-
-// Exchange buffers, one pair per parity of the pass:
-//   xrow[parity][channel][tile row][0 = first row, 1 = last row][w]
-//   xcol[parity][channel][tile column][0 = first column, 1 = last column][h]
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-blur_resident_kernel(const T* __restrict__ img, const T* __restrict__ interior,
-                     T* __restrict__ out, float* xrow, float* xcol, int h,
-                     int w, int th, int tw, int num_passes) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int ntx = gridDim.x, nty = gridDim.y, nc = gridDim.z;
-  const int tx = blockIdx.x, ty = blockIdx.y, ch = blockIdx.z;
-  const int r0 = ty * th, c0 = tx * tw;
-  const int eh = min(th, h - r0), ew = min(tw, w - c0);  // this tile's extent
-  const int sw = tw + 2;                                  // shared row stride
-  const int plane = (th + 2) * sw;
-  float* cur = reinterpret_cast<float*>(smem_raw);
-  float* nxt = cur + plane;
-  float* m = nxt + plane;  // th x tw, row stride tw
-
-  const T* gplane = img + (size_t)ch * h * w;
-  const float inv_ew2 = 1.0f / (ew + 2), inv_ew = 1.0f / ew;
-  for (int idx = tid; idx < (eh + 2) * (ew + 2); idx += nthreads) {
-    const int r = div_small(idx, inv_ew2);
-    const int c = idx - r * (ew + 2);
-    cur[r * sw + c] = ld(gplane + (size_t)wrap(r0 - 1 + r, h) * w + wrap(c0 - 1 + c, w));
-  }
-  for (int idx = tid; idx < eh * ew; idx += nthreads) {
-    const int r = div_small(idx, inv_ew);
-    const int c = idx - r * ew;
-    m[r * tw + c] = ld(interior + (size_t)(r0 + r) * w + c0 + c);
-  }
-  __syncthreads();
-
-  const size_t xrow_parity = (size_t)nc * nty * 2 * w;
-  const size_t xcol_parity = (size_t)nc * ntx * 2 * h;
-  const int ty_up = (ty + nty - 1) % nty, ty_down = (ty + 1) % nty;
-  const int tx_left = (tx + ntx - 1) % ntx, tx_right = (tx + 1) % ntx;
-
-  for (int p = 0; p < num_passes; ++p) {
-    for (int idx = tid; idx < eh * ew; idx += nthreads) {
-      const int r = div_small(idx, inv_ew);
-      const int c = idx - r * ew;
-      const int mid = (r + 1) * sw + c + 1, up = mid - sw, down = mid + sw;
-      nxt[mid] = separable(cur[down - 1], cur[down], cur[down + 1],
-                           cur[mid - 1], cur[mid], cur[mid + 1],
-                           cur[up - 1], cur[up], cur[up + 1], m[r * tw + c]);
-    }
-    __syncthreads();
-    if (p + 1 < num_passes) {
-      float* xr = xrow + (p & 1) * xrow_parity;
-      float* xc = xcol + (p & 1) * xcol_parity;
-      float* my_rows = xr + (size_t)(ch * nty + ty) * 2 * w + c0;
-      float* my_cols = xc + (size_t)(ch * ntx + tx) * 2 * h + r0;
-      for (int c = tid; c < ew; c += nthreads) {
-        __stcg(my_rows + c, nxt[sw + c + 1]);
-        __stcg(my_rows + w + c, nxt[eh * sw + c + 1]);
-      }
-      for (int r = tid; r < eh; r += nthreads) {
-        __stcg(my_cols + r, nxt[(r + 1) * sw + 1]);
-        __stcg(my_cols + h + r, nxt[(r + 1) * sw + ew]);
-      }
-      grid.sync();
-      // halo: the last row of the tile row above, the first of the one
-      // below (corners included: the rows span the width), then the last
-      // column of the tile column to the left and the first to the right
-      const float* above = xr + ((size_t)(ch * nty + ty_up) * 2 + 1) * w;
-      const float* below = xr + ((size_t)(ch * nty + ty_down) * 2) * w;
-      for (int c = tid; c < ew + 2; c += nthreads) {
-        const int gc = wrap(c0 - 1 + c, w);
-        nxt[c] = __ldcg(above + gc);
-        nxt[(eh + 1) * sw + c] = __ldcg(below + gc);
-      }
-      const float* left = xc + ((size_t)(ch * ntx + tx_left) * 2 + 1) * h + r0;
-      const float* right = xc + ((size_t)(ch * ntx + tx_right) * 2) * h + r0;
-      for (int r = tid; r < eh; r += nthreads) {
-        nxt[(r + 1) * sw] = __ldcg(left + r);
-        nxt[(r + 1) * sw + ew + 1] = __ldcg(right + r);
-      }
-      __syncthreads();
-    }
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-
-  T* oplane = out + (size_t)ch * h * w;
-  for (int idx = tid; idx < eh * ew; idx += nthreads) {
-    const int r = div_small(idx, inv_ew);
-    const int c = idx - r * ew;
-    st(oplane + (size_t)(r0 + r) * w + c0 + c, cur[(r + 1) * sw + c + 1]);
-  }
-}
-
-// Mirrored by stencil.resident_smem_bytes on the Python side.
-size_t resident_smem_bytes(int th, int tw) {
-  return ((size_t)2 * (th + 2) * (tw + 2) + (size_t)th * tw) * sizeof(float);
-}
-
-template <typename T>
-int launch_resident(const void* img, const void* interior, void* out,
-                    void* xrow, void* xcol, int c, int h, int w, int th,
-                    int tw, int num_passes, int threads, cudaStream_t stream) {
-  if (threads < 32 || threads > kMaxThreads || th < 1 || tw < 1 ||
-      tw > 1021 || (th + 2) * (tw + 2) >= 65536 || num_passes < 0)
-    return kBadArgument;
-  int device = 0, cooperative = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return (int)err;
-  if (!cooperative) return kNoCooperativeLaunch;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t smem = resident_smem_bytes(th, tw);
-  err = cudaFuncSetAttribute(blur_resident_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, blur_resident_kernel<T>, threads, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + tw - 1) / tw, (h + th - 1) / th, c);
-  // a grid barrier among blocks that are not all resident never returns
-  if ((long long)grid.x * grid.y * grid.z > (long long)per_sm * sms)
-    return kNotCoResident;
-
-  const T* img_t = static_cast<const T*>(img);
-  const T* interior_t = static_cast<const T*>(interior);
-  T* out_t = static_cast<T*>(out);
-  float* xrow_f = static_cast<float*>(xrow);
-  float* xcol_f = static_cast<float*>(xcol);
-  void* args[] = {&img_t, &interior_t, &out_t, &xrow_f, &xcol_f,
-                  &h, &w, &th, &tw, &num_passes};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(blur_resident_kernel<T>), grid, dim3(threads),
-      args, smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -445,16 +264,16 @@ int stencil_k_bf16(const void* img, const void* interior, void* out, int c,
 int stencil_resident_f32(const void* img, const void* interior, void* out,
                          void* xrow, void* xcol, int c, int h, int w, int th,
                          int tw, int num_passes, int threads, void* stream) {
-  return launch_resident<float>(img, interior, out, xrow, xcol, c, h, w, th, tw,
-                                num_passes, threads,
-                                static_cast<cudaStream_t>(stream));
+  return launch_resident<float, V0>(img, interior, out, xrow, xcol, c, h, w, th, tw,
+                                    0, 0, num_passes, threads,
+                                    static_cast<cudaStream_t>(stream));
 }
 int stencil_resident_bf16(const void* img, const void* interior, void* out,
                           void* xrow, void* xcol, int c, int h, int w, int th,
                           int tw, int num_passes, int threads, void* stream) {
-  return launch_resident<__nv_bfloat16>(img, interior, out, xrow, xcol, c, h, w,
-                                        th, tw, num_passes, threads,
-                                        static_cast<cudaStream_t>(stream));
+  return launch_resident<__nv_bfloat16, V0>(img, interior, out, xrow, xcol, c, h, w,
+                                            th, tw, 0, 0, num_passes, threads,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -40,6 +40,8 @@ _D3Q19_BLOCKED_SCALARS = [_I] * 15 + [_D] * 6 + [_P]
 # stencil.cu: image, interior, out, then c, h, w and each kernel's own ints
 _STENCIL_K = [_P] * 3 + [_I] * 7 + [_P]
 _STENCIL_RESIDENT = [_P] * 5 + [_I] * 7 + [_P]
+# blur_resident_opt.cu: image, interior, out, xrow, xcol, then c .. threads
+_BLUR_RESIDENT_OPT = [_P] * 5 + [_I] * 9 + [_P]
 # argument types of every C entry point, by source (the file's stem)
 SIGNATURES = {
     "d2q9_kstep": {
@@ -82,6 +84,10 @@ SIGNATURES = {
         "stencil_k_bf16": _STENCIL_K,
         "stencil_resident_f32": _STENCIL_RESIDENT,
         "stencil_resident_bf16": _STENCIL_RESIDENT,
+    },
+    "blur_resident_opt": {
+        f"blur_resident_opt_{instance}_{io}": _BLUR_RESIDENT_OPT
+        for instance in ("v0", "v2", "v3", "v4", "v5", "v6", "v7") for io in ("f32", "bf16")
     },
 }
 

@@ -55,6 +55,7 @@ H100_SMS = 132
 DEFAULT_TILE = (32, 64)
 K_THREADS = 256
 # B8: threads of a block, and the widest tile its index arithmetic takes
+# (blur_resident_opt.MAX_ROW less the halo)
 RESIDENT_THREADS = 512
 RESIDENT_MAX_TILE_W = 1021
 
@@ -238,33 +239,25 @@ def blur_k(img: torch.Tensor, interior: torch.Tensor, *, k_passes: int,
 
 def resident_smem_bytes(tile_h: int, tile_w: int) -> int:
     """Dynamic shared memory of one block of B8: two float32 buffers of the
-    tile plus a 1-cell halo, and the tile's mask (mirrors
-    resident_smem_bytes in csrc/stencil.cu)."""
-    return (2 * (tile_h + 2) * (tile_w + 2) + tile_h * tile_w) * 4
+    tile plus a 1-cell halo, and the tile's mask. B8 is the v0 instance of
+    the resident template (csrc/blur_resident.cuh), so this is
+    `blur_resident_opt.resident_bytes` of v0."""
+    from .blur_resident_opt import resident_bytes
+
+    return resident_bytes("v0-roll", (tile_h, tile_w))
 
 
-@functools.lru_cache(maxsize=64)
 def resident_tiling(c: int, h: int, w: int, sms: int = H100_SMS,
                     smem: int = SMEM_PER_BLOCK) -> tuple[int, int] | None:
     """The tile (rows, columns) of kernel B8 for a (c, h, w) image on a
     device of `sms` SMs with `smem` bytes of shared memory per block: at
     most one block per SM, so that the grid is co-resident whatever else
     limits occupancy; among the tilings that fit, the one with the fewest
-    cells per block, then the shortest edges. None when none fits."""
-    per_channel = sms // c
-    best = None
-    for rows in range(1, min(h, per_channel) + 1):
-        th = -(-h // rows)
-        nty = -(-h // th)
-        for cols in range(1, min(w, per_channel // nty) + 1):
-            tw = -(-w // cols)
-            if (tw > RESIDENT_MAX_TILE_W or (th + 2) * (tw + 2) >= 65536
-                    or resident_smem_bytes(th, tw) > smem):
-                continue
-            key = (th * tw, th + tw)
-            if best is None or key < best[0]:
-                best = (key, (th, tw))
-    return None if best is None else best[1]
+    cells per block, then the shortest edges. None when none fits. The
+    rule is `blur_resident_opt.tiling`'s for v0, whose instance B8 is."""
+    from .blur_resident_opt import tiling
+
+    return tiling("v0-roll", c, h, w, sms, smem)
 
 
 def device_limits(device: torch.device) -> tuple[int, int]:

@@ -23,8 +23,8 @@ import torch
 from lbm_tpu_torch.core import state
 from lbm_tpu_torch.core.params import Obstacles, Params
 from lbm_tpu_torch.models import blur, lbm
-from lbm_tpu_torch.ops import (copy_floor, d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual,
-                               overlap_probe, stencil)
+from lbm_tpu_torch.ops import (blur_resident_opt, copy_floor, d2q9_kstep, d2q9_kstep_inplace,
+                               d2q9_kstep_manual, overlap_probe, stencil)
 
 REPO = Path(__file__).resolve().parent.parent
 KW = dict(k_steps=2, omega=1.85, accel_w1=1e-4, accel_w2=2.5e-5, accel_row=6)
@@ -209,3 +209,36 @@ def test_blur_wrapper_raises_on_a_non_cpu_tensor(name, monkeypatch):
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         BLUR_WRAPPERS[name](x, m)
     assert stencil.launches == before
+
+
+def test_blur_resident_opt_and_its_harness_import_no_jax_and_no_lbm_tpu():
+    res = subprocess.run([sys.executable, "-c", IMPORT_ALL], capture_output=True, text=True,
+                         cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "lbm_tpu_torch.ops.blur_resident_opt" in json.loads(
+        res.stdout.strip().splitlines()[-1])["modules"]
+    harness = REPO / "experiments" / "cuda-kstep-tiles" / "blur_resident_opt.py"
+    names = imported_modules(harness)
+    assert "lbm_tpu_torch.ops" in names
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "lbm_tpu")]
+
+
+@pytest.mark.parametrize("variant", blur_resident_opt.VARIANTS)
+def test_blur_resident_opt_raises_on_a_non_cpu_tensor(variant, monkeypatch):
+    # a tensor that is not on the CPU goes to the kernel's checks, which
+    # refuse it: the plain version is never the answer
+    def never(*args, **kwargs):
+        raise AssertionError("a resident-blur variant left its kernel's path")
+
+    for plain in ("plain", "_pass"):
+        monkeypatch.setattr(blur_resident_opt, plain, never)
+    monkeypatch.setattr(blur_resident_opt.Resident, "plain", never)
+    x = torch.empty((4, 32, 128), device="meta")
+    call, layout = blur_resident_opt.build(variant, x, (30, 126))
+    if layout == "rank2":
+        x = torch.empty((32, 512), device="meta")
+    m = torch.empty(x.shape[-2:], device="meta")
+    before = dict(blur_resident_opt.launches)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        call(2, x, m)
+    assert blur_resident_opt.launches == before

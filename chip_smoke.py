@@ -8,7 +8,9 @@ Run from the root of the repository, with no arguments:
 Phases, each of which must pass or the script exits non-zero:
   1. prints the card's name and power limit; builds the CUDA kernels from
      the eight sources of lbm_tpu_torch/csrc/ with nvcc (one process per
-     source, all started together) and prints the build time;
+     source, all started together) and prints the build time; prints what
+     `nvcc -Xptxas -v` says of the two tile-copy sources (B12 and B11, on
+     csrc/tile_copy.cuh);
   2. D2Q9 kernels vs plain version at 1024x1024: for kernels B2 (d2q9_kstep),
      B1 (d2q9_kstep_inplace) and B3 (d2q9_kstep_manual, the pipelined one),
      at K = 1..4, in float64 and float32, plus one case with a ghost window
@@ -19,8 +21,11 @@ Phases, each of which must pass or the script exits non-zero:
      three grids whose width is not a multiple of 32 (narrower tiles) and on
      64x1001 and 72x130, which no tile divides (edge tiles). The diagnostic
      modes: stream_only of B1, B2 and B3 bit-equal to the plain version's
-     state, copy and B12 (copy_floor) equal to their input. Timing of B1, B2,
-     B3 (and its persistent grid), B12 and `copy_`;
+     state, copy and B12 (copy_floor) equal to their input; both paths of
+     B12 (TMA, one value a piece) in float32 and float64 bit-equal to
+     `run_copy_plain`, with edge tiles, widths TMA cannot take (1001, 33)
+     and a state off 16 bytes (experiments/cuda-kstep-tiles/ab_copy.py). Timing of B1, B2, B3 (and its persistent grid), B12 (its
+     device ms and its host's enqueue µs a pass) and `copy_`;
   3. the 2-D main path: the flagship run (1024x1024, 20,000 steps, float32)
      through `lbm_tpu_torch.cli.lbm --engine auto`, which must pick
      cuda-inplace (B1), launch it and never call the plain engine; then the
@@ -96,7 +101,9 @@ Phases, each of which must pass or the script exits non-zero:
      harness (probe.py's table, and the strided manual engines again in
      (9, 1, 512) tiles) against its plain version bit for bit at 256x256,
      bands 32 and 64, R = 0 and 2 (smem totals too; the manual engines also
-     against auto; manual6 must refuse band 64, as probe.py does), and at
+     against auto; manual6 must refuse band 64, as probe.py does); every
+     `auto` instance on its one-value path (a width of 250, a state off 16
+     bytes) too; and at
      4096^2, band 64, R = 16, where each block of a manual engine walks tens
      of tiles through its ring (the smem totals of 64 bands too); then the
      main path, the harness's sweep of every engine at 4096^2, band 64, 200
@@ -287,6 +294,19 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def phase_ptxas():
+    """What nvcc -Xptxas -v says of the two sources on the tile copy
+    (registers, shared memory, spills of each kernel)."""
+    harness = load_harness("ab_copy")
+    t0 = time.perf_counter()
+    try:
+        for source in ("copy_floor", "overlap_probe"):
+            harness.ptxas_report(source)
+    except SystemExit as err:
+        raise Failure(f"nvcc -Xptxas -v failed: {err}") from err
+    print(f"ptxas reports in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_parity(torch, mods, k_main):
     """Phase 2. Returns {kernel: max_abs_err} of the float32 main-K case."""
     from lbm_tpu_torch.core import state
@@ -425,6 +445,13 @@ def phase_modes(torch, mods, copy_floor):
         print(f"modes B12 {ny}x{nx} {dname}: three passes equal the input bit for bit "
               f"(blocks {tile[0]}x{tile[1]}, full-width bands of 16 rows, 5x7)")
     print(f"modes B12 max |out - in| at {N}^2 float32, blocks {tile[0]}x{tile[1]}: {copy_err}")
+    try:
+        held = load_harness("ab_copy").b12_parity(torch, copy_floor,
+                                                  log=lambda line: print(f"paths {line}"))
+    except RuntimeError as err:
+        raise Failure(str(err)) from err
+    print(f"paths B12: {held} cases bit-equal to run_copy_plain (TMA and scalar paths, float32 "
+          "and float64)")
     return copy_err
 
 
@@ -469,6 +496,13 @@ def phase_timing(torch, mods, k_main, copy_floor):
     # B12: a pass of out = in at the K-step tile; bytes 9 values in and out a cell
     passes_copy = 1000
     copy_ms = time_ms(torch, lambda: copy_floor.run_copy(f, passes_copy, *tile), 1) / passes_copy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    copy_floor.run_copy(f, passes_copy, *tile)
+    enqueue_us = (time.perf_counter() - t0) / passes_copy * 1e6
+    torch.cuda.synchronize()
+    path, chunk, stages = copy_floor.plan(f, f, *tile)
+    per_sm = copy_floor.blocks_per_sm(4, chunk, stages)
     out = torch.empty_like(f)
     library_ms = time_ms(torch, lambda: out.copy_(f), 200)
     copy_plain_ms = time_ms(torch, lambda: copy_floor.run_copy_plain(f, 1, *tile), 200)
@@ -477,8 +511,13 @@ def phase_timing(torch, mods, k_main, copy_floor):
           f"{2 * 9 * itemsize * cells / copy_ms / 1e6:.0f} GB/s), bound {copy_bound[0]:.4f} ms "
           f"(bytes), plain version (clone) {copy_plain_ms:.4f} ms, library (copy_) "
           f"{library_ms:.4f} ms")
+    print(f"timing copy_floor         : {path} path, chunk {chunk}, {stages} stage(s), {per_sm} "
+          f"blocks an SM; the host enqueues a pass in {enqueue_us:.2f} us against "
+          f"{copy_ms * 1e3:.2f} us of device time ({'device' if enqueue_us < copy_ms * 1e3 else 'HOST'}"
+          "-bound)")
     copy = dict(ms=copy_ms, plain_ms=copy_plain_ms, library_ms=library_ms, bound=copy_bound,
-                block=list(tile))
+                block=list(tile), path=path, chunk=list(chunk), stages=stages,
+                blocks_per_sm=per_sm, host_enqueue_us=enqueue_us)
     occupancy = dict(blocks=blocks, blocks_per_sm=blocks / sms, tile=list(tile),
                      rounds=ntiles / blocks)
     return ms, plain_ms, bound, copy, occupancy
@@ -1647,6 +1686,9 @@ def phase_overlap(torch, overlap_probe, card):
         print(f"overlap canary: {held} cases at {harness.CANARY}x{harness.CANARY} bit-equal to "
               "the plain versions (smem totals too; manual == auto); refused to build, too few "
               f"bands (as probe.py): {refused or 'none'}")
+        held = load_harness("ab_copy").auto_values_parity(
+            torch, overlap_probe, log=lambda line: print(f"overlap {line}"))
+        print(f"overlap: {held} cases of the auto instances' one-value path bit-equal")
         max_err = harness.check_full(harness.ENGINES, n, band, 16,
                                      log=lambda line: print(f"overlap {line}"))
     except RuntimeError as err:
@@ -1816,6 +1858,7 @@ def main() -> int:
             _build.load(name)
             print(f"built {lib_path.relative_to(REPO)}")
         print(f"built and loaded the kernels in {time.perf_counter() - t0:.1f} s")
+        phase_ptxas()
 
         th, tw, k_main = d2q9_kstep.choose_config(N, N, torch.float32)
         print(f"choose_config(1024, 1024, float32) = tile {th}x{tw}, K={k_main}")
@@ -1877,8 +1920,9 @@ def main() -> int:
         "main_path": "the 2-D time-breakdown path (breakdown2d.py, copy_floor2d.py) at 1024^2",
         "parity": "ok", "max_abs_err": copy_err, "ms": copy["ms"], "plain_ms": copy["plain_ms"],
         "bound_ms": copy["bound"][0], "bound_by": copy["bound"][1],
-        "library_ms": copy["library_ms"], "block": copy["block"],
-        "floor_us_per_pass": bd_floor})
+        "library_ms": copy["library_ms"], "block": copy["block"], "path": copy["path"],
+        "chunk": copy["chunk"], "stages": copy["stages"], "blocks_per_sm": copy["blocks_per_sm"],
+        "host_enqueue_us": copy["host_enqueue_us"], "floor_us_per_pass": bd_floor})
     kernels += [{
         "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/d3q19_kstep.cu",
         "replaces": replaces, "launches": paths3[name][0], "parity": "ok",

@@ -16,18 +16,27 @@
 // byte bound and the operation bound cross near R = 40 at 4096^2.
 //
 // Two kernel families:
-//   * auto_kernel<Halo, Smem>, the "automatic pipeline": one block per
-//     (planes, by, bx) tile, 16 bytes a load, three loads a thread in flight,
-//     the R rounds in registers, then the store: the blocking of B12
-//     (csrc/copy_floor.cu) with arithmetic added. The overlap comes from the
-//     other blocks resident on the SM, the card's form of the TPU's grid
-//     pipeline. `auto_flat` is the same kernel over the (9 ny, nx) view with
-//     one plane and tiles of 9 by rows; `auto_alias` is it with out == in.
-//     Halo adds input rows band_start - 1 and band_end (mod ny) to a band's
-//     first and last rows. Smem writes a per-band partial of f[0,
-//     band_start, :128] (a warp: four values a lane in order, then a shuffle
-//     tree), summed over the bands in band order by sum_partials_kernel, one
-//     thread: no float atomics.
+//   * auto_kernel<Halo, Smem, Tma>, the "automatic pipeline": one block a
+//     (planes, by, bx) tile, which csrc/tile_copy.cuh moves as B12's TMA
+//     path does: one TMA load of the whole tile into shared memory (18,432 B
+//     at (9, 16, 32)), the R rounds taken shared -> registers -> shared, one
+//     TMA store, waited with cp.async.bulk.wait_group.read before the block
+//     retires. Where TMA cannot (nx % 4 != 0, unaligned buffers) the threads
+//     move the tile one value at a time. A block waits only on its own
+//     tile's load; the overlap comes from the other blocks resident on the
+//     SM (11 at 128 threads and 18,560 B), the card's form of the TPU's grid
+//     pipeline; four tiles side by side are one cluster, whose blocks meet
+//     before their loads (tile_copy::launch_tiles). At R = 0 the tile goes
+//     back as it came, with no thread touching it: the byte bound (72 B a
+//     cell) is the whole of the work,
+//     and no thread spends an instruction on an address or a division.
+//     `auto_flat` is the same kernel over the (9 ny, nx) view with one plane
+//     and tiles of 9 by rows; `auto_alias` is it with out == in. Halo adds
+//     input rows band_start - 1 and band_end (mod ny) to a band's first and
+//     last rows, in shared memory after the rounds. Smem writes a per-band
+//     partial of f[0, band_start, :128] (a warp: four values a lane in order,
+//     then a shuffle tree), summed over the bands in band order by
+//     sum_partials_kernel, one thread: no float atomics.
 //   * manual_kernel<Depth, Flat, Safe>, the explicit pipeline: a persistent
 //     grid (as many blocks as are resident at once, like B3); block b walks
 //     the tiles b, b + grid, ... in band order through a ring of Depth
@@ -52,14 +61,16 @@
 // Interface: plain C; launches on the given stream and returns
 // cudaGetLastError(); allocates nothing.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_copy.cuh"
 
 namespace {
 
-constexpr int kThreads = 384;
-constexpr int kUnroll = 3;  // 384 threads x 3 x 16 B: one (9, 16, 32) float32 tile a sweep
-constexpr int kSmemCols = 128;  // the smem trait sums f[0, band_start, :128]
+using tile_copy::Box;
+
+constexpr int kThreads = 384;      // manual_kernel
+constexpr int kUnroll = 3;         // 16-byte pieces a thread in flight in a pass over a stage
+constexpr int kAutoThreads = 128;  // auto_kernel: 11 tiles of 18,432 B an SM
+constexpr int kSmemCols = 128;     // the smem trait sums f[0, band_start, :128]
 
 struct Grid {
   int planes, ny, nx, by, bx;
@@ -81,77 +92,105 @@ __device__ __forceinline__ void rounds_on(float4 (&v)[kUnroll], int rounds) {
   }
 }
 
-__device__ __forceinline__ void add4(float4& v, const float4 h) {
-  v.x = __fadd_rn(v.x, h.x);
-  v.y = __fadd_rn(v.y, h.y);
-  v.z = __fadd_rn(v.z, h.z);
-  v.w = __fadd_rn(v.w, h.w);
-}
-
-// ---------------------------------------------------------------- auto ----
-
-template <bool kHalo, bool kSmem>
-__global__ void __launch_bounds__(kThreads)
-auto_kernel(const float* in, float* out, float* partials, Grid g, int band, int rounds) {
-  constexpr int V = 4;
-  const int r0 = blockIdx.y * g.by, c0 = blockIdx.x * g.bx;
-  const int h = min(g.by, g.ny - r0), w = min(g.bx, g.nx - c0);
-  const size_t plane = (size_t)g.ny * g.nx;
-  const bool vec = g.nx % V == 0 && c0 % V == 0 && w % V == 0
-                   && reinterpret_cast<uintptr_t>(in) % 16 == 0
-                   && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int per_row = vec ? w / V : w;
-  const int n = g.planes * h * per_row;
-  for (int base = threadIdx.x; base < n; base += kThreads * kUnroll) {
+// all threads: out_stage = R rounds of in_stage, n values of shared memory
+// (16-byte pieces, then the last n % 4 one at a time); in place if the two
+// are one
+template <int kBlock>
+__device__ __forceinline__ void work_stage(const float* in_stage, float* out_stage, int n,
+                                           int rounds) {
+  const float4* src = reinterpret_cast<const float4*>(in_stage);
+  float4* dst = reinterpret_cast<float4*>(out_stage);
+  const int n4 = n / 4;
+  for (int base = threadIdx.x; base < n4; base += kBlock * kUnroll) {
     float4 v[kUnroll];
-    size_t at[kUnroll];
-    int row[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int idx = base + u * kThreads;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      at[u] = 0;
-      row[u] = 0;
-      if (idx < n) {
-        const int rr = idx / per_row;  // (q, r) of the tile
-        const int piece = idx - rr * per_row;
-        const int q = rr / h;
-        row[u] = r0 + rr - q * h;
-        at[u] = q * plane + (size_t)row[u] * g.nx + c0 + (vec ? piece * V : piece);
-        if (vec)
-          v[u] = *reinterpret_cast<const float4*>(in + at[u]);
-        else
-          v[u].x = in[at[u]];
-      }
+      const int idx = base + u * kBlock;
+      v[u] = idx < n4 ? src[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     rounds_on(v, rounds);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (base + u * kThreads >= n) continue;
-      if (kHalo) {
-        // the input rows just outside the band, wrapped at ny
-        const int in_band = row[u] % band;
-        const size_t line = at[u] - (size_t)row[u] * g.nx;
-        if (in_band == 0) {
-          const size_t src = line + (size_t)((row[u] - 1 + g.ny) % g.ny) * g.nx;
-          if (vec)
-            add4(v[u], *reinterpret_cast<const float4*>(in + src));
-          else
-            v[u].x = __fadd_rn(v[u].x, in[src]);
-        }
-        if (in_band == band - 1) {
-          const size_t src = line + (size_t)((row[u] + 1) % g.ny) * g.nx;
-          if (vec)
-            add4(v[u], *reinterpret_cast<const float4*>(in + src));
-          else
-            v[u].x = __fadd_rn(v[u].x, in[src]);
-        }
-      }
-      if (vec)
-        *reinterpret_cast<float4*>(out + at[u]) = v[u];
-      else
-        out[at[u]] = v[u].x;
+      const int idx = base + u * kBlock;
+      if (idx < n4) dst[idx] = v[u];
     }
+  }
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += kBlock) {
+    float v = in_stage[i];
+    for (int k = 0; k < rounds; ++k) v = round1(v);
+    out_stage[i] = v;
+  }
+}
+
+// ---------------------------------------------------------------- auto ----
+
+// The halo trait on a tile in shared memory: input rows band_start - 1 and
+// band_end (mod ny) added to each band's first and last rows in the tile.
+__device__ __forceinline__ void add_halo(float* tile, const float* in, const Grid& g, int band,
+                                         int r0, int c0, int h, int w) {
+  const size_t plane = (size_t)g.ny * g.nx;
+  const int per_row = g.planes * w;
+  for (int r = 0; r < h; ++r) {
+    const int row = r0 + r, in_band = row % band;
+    if (in_band != 0 && in_band != band - 1) continue;
+    const int src_row = in_band == 0 ? (row - 1 + g.ny) % g.ny : (row + 1) % g.ny;
+    for (int i = threadIdx.x; i < per_row; i += blockDim.x) {
+      const int q = i / w, c = i - q * w;
+      float& v = tile[(q * g.by + r) * g.bx + c];
+      v = __fadd_rn(v, in[q * plane + (size_t)src_row * g.nx + c0 + c]);
+    }
+  }
+}
+
+// One block a (planes, by, bx) tile: the tile into shared memory (one TMA
+// load, or the threads one value at a time where TMA cannot), the R rounds
+// and the halo rows there, the tile back (one TMA store, or the threads).
+// A block waits only on its own tile's load; the overlap comes from the
+// other tiles resident on the SM.
+template <bool kHalo, bool kSmem, bool kTma>
+__global__ void __launch_bounds__(kAutoThreads)
+auto_kernel(__grid_constant__ const CUtensorMap src, __grid_constant__ const CUtensorMap dst,
+            const float* in, float* out, float* partials, Grid g, int band, int rounds) {
+  extern __shared__ unsigned char smem_raw[];
+  tile_copy::cluster_meet();
+  float* tile = tile_copy::align128<float>(smem_raw);
+  const int n = g.planes * g.by * g.bx;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tile + n);  // n * 4 B: a multiple of 16
+  const int r0 = blockIdx.y * g.by, c0 = blockIdx.x * g.bx;
+  const int h = min(g.by, g.ny - r0), w = min(g.bx, g.nx - c0);
+  const Box b{(size_t)r0 * g.nx + c0, (size_t)g.ny * g.nx, g.nx, h, w};
+  if (kTma) {
+    if (threadIdx.x == 0) {
+      tile_copy::mbar_init(full, 1);
+      tile_copy::mbar_expect_tx(full, (uint32_t)n * 4);
+      tile_copy::box_load(&src, tile, full, c0, r0, 0);
+    }
+    __syncthreads();  // the barrier is initialised before anyone waits on it
+    tile_copy::mbar_wait(full, 0);
+  } else {
+    tile_copy::load_box_values(in, tile, b, g.planes, g.by, g.bx);
+    __syncthreads();
+  }
+  // does the tile hold a band's first or last row?
+  const bool edge_rows = kHalo && ((r0 + band - 1) / band * band < r0 + h ||
+                                   (r0 + 1 + band - 1) / band * band < r0 + h + 1);
+  if (rounds > 0 || edge_rows) {
+    work_stage<kAutoThreads>(tile, tile, n, rounds);
+    if (edge_rows) {
+      __syncthreads();
+      add_halo(tile, in, g, band, r0, c0, h, w);
+    }
+    if (kTma) tile_copy::fence_proxy_async();
+    __syncthreads();
+  }
+  if (kTma) {
+    if (threadIdx.x == 0) {
+      tile_copy::box_store(&dst, tile, c0, r0, 0);
+      tile_copy::bulk_commit();
+      tile_copy::bulk_wait_read<0>();  // the store has read the tile before the block ends
+    }
+  } else {
+    tile_copy::store_box_values(tile, out, b, g.planes, g.by, g.bx);
   }
   if (kSmem && blockIdx.x == 0 && threadIdx.x < 32) {
     // the partial of every band that starts in this tile's rows
@@ -176,65 +215,14 @@ __global__ void sum_partials_kernel(const float* partials, int n, float* total) 
 
 // -------------------------------------------------------------- manual ----
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// global -> shared, completing `bytes` on bar
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// shared -> global, in this thread's current bulk group
-__device__ __forceinline__ void bulk_store(float* dst, const float* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_addr(src)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's bulk groups still read shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
+using tile_copy::bulk_commit;
+using tile_copy::bulk_load;
+using tile_copy::bulk_store;
+using tile_copy::bulk_wait_all;
+using tile_copy::bulk_wait_read;
+using tile_copy::mbar_expect_tx;
+using tile_copy::mbar_init;
+using tile_copy::mbar_wait;
 
 // A tile of the manual kernel: its values are `rows` segments of `w` values,
 // segment j at src + seg_offset(j) in device memory and at stage + j * bx in
@@ -301,27 +289,6 @@ __device__ __forceinline__ void write_back(float* out, const float* stage, const
   bulk_commit();
 }
 
-// all threads: out_stage = R rounds of in_stage, n4 pieces of 16 bytes
-__device__ __forceinline__ void work_stage(const float* in_stage, float* out_stage, int n4,
-                                           int rounds) {
-  const float4* src = reinterpret_cast<const float4*>(in_stage);
-  float4* dst = reinterpret_cast<float4*>(out_stage);
-  for (int base = threadIdx.x; base < n4; base += kThreads * kUnroll) {
-    float4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int idx = base + u * kThreads;
-      v[u] = idx < n4 ? src[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    rounds_on(v, rounds);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int idx = base + u * kThreads;
-      if (idx < n4) dst[idx] = v[u];
-    }
-  }
-}
-
 template <int kDepth, bool kFlat, bool kSafe>
 __global__ void __launch_bounds__(kThreads)
 manual_kernel(const float* in, float* out, Grid g, int rounds, int ntiles) {
@@ -333,7 +300,6 @@ manual_kernel(const float* in, float* out, Grid g, int rounds, int ntiles) {
   const bool producer = threadIdx.x < 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kDepth; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   // this block's tiles: blockIdx.x + i * gridDim.x for i < mine
@@ -354,9 +320,9 @@ manual_kernel(const float* in, float* out, Grid g, int rounds, int ntiles) {
     // the out-slot of tile i - Depth must have been read by its write-back
     if (producer) bulk_wait_read<kDepth - 1>();
     __syncthreads();
-    const int n4 = (kFlat ? tile_of<kFlat>(g, tile(i)).w : stage) / 4;
-    work_stage(in_sl + slot * stage, out_sl + slot * stage, n4, rounds);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const int n = kFlat ? tile_of<kFlat>(g, tile(i)).w : stage;
+    work_stage<kThreads>(in_sl + slot * stage, out_sl + slot * stage, n, rounds);
+    tile_copy::fence_proxy_async();
     __syncthreads();
     if (!kSafe && producer) write_back<kFlat>(out, out_sl + slot * stage, g, tile(i));
   }
@@ -433,24 +399,79 @@ struct PerSm {
   static int run(int by, int bx) { return manual_per_sm<kDepth, kFlat, kSafe>(by, bx); }
 };
 
-template <bool kHalo, bool kSmem>
-int auto_launch(const float* in, float* out, float* partials, float* total, const Grid& g,
-                int band, int rounds, cudaStream_t stream) {
+size_t auto_smem(int values) {
+  return 128 + (size_t)values * sizeof(float) + sizeof(uint64_t);
+}
+
+// the dynamic shared memory last set on auto_kernel<kHalo, kSmem, kTma>
+template <bool kHalo, bool kSmem, bool kTma>
+size_t& auto_smem_set() {
+  static size_t bytes = 0;
+  return bytes;
+}
+
+template <bool kHalo, bool kSmem, bool kTma>
+int auto_launch(const float* in, float* out, float* partials, float* total, Grid g, int band,
+                int rounds, cudaStream_t stream) {
+  g.by = min(g.by, g.ny);  // a tile longer than the grid is the grid
+  g.bx = min(g.bx, g.nx);
+  CUtensorMap src{}, dst{};
+  if (kTma) {
+    if (!tile_copy::tma_fits(in, out, 4, g.nx, g.planes, g.by, g.bx))
+      return (int)cudaErrorInvalidValue;
+    int rc = tile_copy::encode_map(&src, {in, 4, g.planes, g.ny, g.nx, g.planes, g.by, g.bx});
+    if (rc == 0)
+      rc = tile_copy::encode_map(&dst, {out, 4, g.planes, g.ny, g.nx, g.planes, g.by, g.bx});
+    if (rc) return rc;
+  }
+  const size_t smem = auto_smem(g.planes * g.by * g.bx);
+  cudaError_t err = tile_copy::fit_smem(auto_kernel<kHalo, kSmem, kTma>, smem,
+                                        auto_smem_set<kHalo, kSmem, kTma>());
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((g.nx + g.bx - 1) / g.bx, (g.ny + g.by - 1) / g.by);
-  auto_kernel<kHalo, kSmem><<<grid, kThreads, 0, stream>>>(in, out, partials, g, band, rounds);
-  cudaError_t err = cudaGetLastError();
+  err = tile_copy::launch_tiles(auto_kernel<kHalo, kSmem, kTma>, grid, kAutoThreads, smem,
+                                stream, true, src, dst, in, out, partials, g, band, rounds);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess || !kSmem) return (int)err;
   sum_partials_kernel<<<1, 1, 0, stream>>>(partials, g.ny / band, total);
   return (int)cudaGetLastError();
 }
 
-template <bool kHalo, bool kSmem>
-int auto_per_sm() {
+template <bool kHalo, bool kSmem, bool kTma>
+int auto_per_sm(int values) {
+  const size_t smem = auto_smem(values);
+  if (tile_copy::fit_smem(auto_kernel<kHalo, kSmem, kTma>, smem,
+                          auto_smem_set<kHalo, kSmem, kTma>()) != cudaSuccess)
+    return 0;
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, auto_kernel<kHalo, kSmem>, kThreads,
-                                                    0) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, auto_kernel<kHalo, kSmem, kTma>,
+                                                    kAutoThreads, smem) != cudaSuccess)
     return 0;
   return per_sm;
+}
+
+template <bool kHalo, bool kSmem, bool kTma>
+struct AutoLaunch {
+  static int run(const float* in, float* out, float* partials, float* total, Grid g, int band,
+                 int rounds, cudaStream_t stream) {
+    return auto_launch<kHalo, kSmem, kTma>(in, out, partials, total, g, band, rounds, stream);
+  }
+};
+
+template <bool kHalo, bool kSmem, bool kTma>
+struct AutoPerSm {
+  static int run(int values) { return auto_per_sm<kHalo, kSmem, kTma>(values); }
+};
+
+// F<Halo, Smem, Tma>::run(args...) for the runtime triple
+template <template <bool, bool, bool> class F, typename... A>
+int auto_dispatch(bool halo, bool smem, bool tma, A... args) {
+  if (tma) {
+    if (halo) return smem ? F<true, true, true>::run(args...) : F<true, false, true>::run(args...);
+    return smem ? F<false, true, true>::run(args...) : F<false, false, true>::run(args...);
+  }
+  if (halo) return smem ? F<true, true, false>::run(args...) : F<true, false, false>::run(args...);
+  return smem ? F<false, true, false>::run(args...) : F<false, false, false>::run(args...);
 }
 
 }  // namespace
@@ -459,21 +480,16 @@ extern "C" {
 
 // auto_kernel: out = R rounds of in over (planes, ny, nx) in (planes, by, bx)
 // tiles; halo adds the rows outside each band of `band` rows; smem writes
-// ny / band partials and their sum to total. out may be in when halo is 0.
+// ny / band partials and their sum to total; tma moves each tile with TMA
+// (16-byte aligned buffers, nx % 4 == 0, bx % 4 == 0), else the threads move
+// it. out may be in when halo is 0.
 int overlap_auto(const void* in, void* out, void* partials, void* total, int planes, int ny,
-                 int nx, int by, int bx, int band, int rounds, int halo, int smem,
+                 int nx, int by, int bx, int band, int rounds, int halo, int smem, int tma,
                  void* stream) {
-  const Grid g{planes, ny, nx, by, bx};
-  const float* src = static_cast<const float*>(in);
-  float* dst = static_cast<float*>(out);
-  float* part = static_cast<float*>(partials);
-  float* tot = static_cast<float*>(total);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (halo)
-    return smem ? auto_launch<true, true>(src, dst, part, tot, g, band, rounds, s)
-                : auto_launch<true, false>(src, dst, part, tot, g, band, rounds, s);
-  return smem ? auto_launch<false, true>(src, dst, part, tot, g, band, rounds, s)
-              : auto_launch<false, false>(src, dst, part, tot, g, band, rounds, s);
+  return auto_dispatch<AutoLaunch>(halo != 0, smem != 0, tma != 0, static_cast<const float*>(in),
+                                   static_cast<float*>(out), static_cast<float*>(partials),
+                                   static_cast<float*>(total), Grid{planes, ny, nx, by, bx}, band,
+                                   rounds, static_cast<cudaStream_t>(stream));
 }
 
 // manual_kernel over a (9, ny, nx) state on a persistent grid of `blocks`
@@ -487,11 +503,11 @@ int overlap_manual(const void* in, void* out, int ny, int nx, int by, int bx, in
   return rc < 0 ? (int)cudaErrorInvalidValue : rc;
 }
 
-// Blocks of each kernel resident on one SM of the current device; 0 on an
-// error of the query or a triple with no instance.
-int overlap_auto_blocks(int halo, int smem) {
-  if (halo) return smem ? auto_per_sm<true, true>() : auto_per_sm<true, false>();
-  return smem ? auto_per_sm<false, true>() : auto_per_sm<false, false>();
+// Blocks of each kernel resident on one SM of the current device (auto: with
+// tiles of `values` values); 0 on an error of the query or a triple with no
+// instance.
+int overlap_auto_blocks(int halo, int smem, int tma, int values) {
+  return auto_dispatch<AutoPerSm>(halo != 0, smem != 0, tma != 0, values);
 }
 
 int overlap_manual_blocks(int depth, int flat, int safe, int by, int bx) {

@@ -56,13 +56,13 @@ SIGNATURES = {
         "d2q9_manual_blocks": [_I] * 7,
     },
     "copy_floor": {
-        "copy_floor_f32": [_P] * 2 + [_I] * 4 + [_P],
-        "copy_floor_f64": [_P] * 2 + [_I] * 4 + [_P],
+        "copy_floor_run": [_P] * 4,  # plan: 10 ints (ops/copy_floor.py)
+        "copy_floor_tma_blocks": [_I] * 5,
     },
     "overlap_probe": {
-        "overlap_auto": [_P] * 4 + [_I] * 9 + [_P],
+        "overlap_auto": [_P] * 4 + [_I] * 10 + [_P],
         "overlap_manual": [_P] * 2 + [_I] * 9 + [_P],
-        "overlap_auto_blocks": [_I] * 2,
+        "overlap_auto_blocks": [_I] * 4,
         "overlap_manual_blocks": [_I] * 5,
     },
     "d3q19_kstep": {

@@ -23,9 +23,11 @@ memory. The strided manual engines (`STRIDED`) take another tile, `tile=`:
 the (9, 16, 32) tile makes it 144 copies of 128 B.
 
 - `auto` engines: one block a tile, the overlap left to the other blocks
-  resident on the SM (the TPU's grid pipeline). `par` changes nothing there:
-  a CUDA grid's blocks are always independent. It stays a flag so that the
-  CSV keeps the TPU's rows.
+  resident on the SM (the TPU's grid pipeline). The tile moves by TMA where
+  `auto_path` says the layout allows it (B12's tile copy,
+  csrc/tile_copy.cuh), else one value at a time. `par` changes nothing
+  there: a CUDA grid's blocks are always independent. It stays a flag so
+  that the CSV keeps the TPU's rows.
 - `manual` engines: a persistent grid whose blocks walk their tiles through a
   ring of `depth` shared-memory stages filled and drained by Hopper bulk
   copies.
@@ -103,6 +105,13 @@ def alias_plain(f: torch.Tensor, rounds: int) -> torch.Tensor:
     for _ in range(rounds):
         f.mul_(1.0001).add_(0.0001)
     return f
+
+
+def auto_path(nx: int, aligned: bool) -> str:
+    """How an `auto` kernel moves its tiles: `tma` where rows are whole
+    16-byte pieces and both buffers start on 16 bytes (`aligned`), `values`
+    (one at a time) otherwise. TILE's width is a multiple of 4 already."""
+    return "tma" if aligned and nx % 4 == 0 else "values"
 
 
 def check_build(ny: int, nx: int, band: int, *, min_bands: int = 1, halo: bool = False,
@@ -204,12 +213,13 @@ class Probe:
                 partials = torch.empty(self.ny // self.band, dtype=f.dtype, device=f.device)
                 total = torch.empty((), dtype=f.dtype, device=f.device)
             planes, ny, tile_h = (1, 9 * self.ny, 9 * by) if self.flat else (9, self.ny, by)
+            tma = auto_path(self.nx, f.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0) == "tma"
             launches += 2 if self.smem else 1
             rc = lib.overlap_auto(f.data_ptr(), out.data_ptr(),
                                   partials.data_ptr() if self.smem else None,
                                   total.data_ptr() if self.smem else None, planes, ny, self.nx,
                                   tile_h, bx, self.band, self.rounds, int(self.halo),
-                                  int(self.smem), stream)
+                                  int(self.smem), int(tma), stream)
             self.total = total
         else:
             launches += 1
@@ -221,12 +231,15 @@ class Probe:
         return out
 
     def blocks_per_sm(self) -> int:
-        """Blocks of this probe's kernel resident on one SM of the current card."""
+        """Blocks of this probe's kernel resident on one SM of the current card
+        (`auto`: on its TMA path where the width allows it)."""
         from . import _build
 
         lib = _build.load("overlap_probe")
         if self.kind == "auto":
-            n = lib.overlap_auto_blocks(int(self.halo), int(self.smem))
+            by, bx = min(self.tile[0], self.ny), min(self.tile[1], self.nx)
+            n = lib.overlap_auto_blocks(int(self.halo), int(self.smem),
+                                        int(auto_path(self.nx, True) == "tma"), 9 * by * bx)
         else:
             n = lib.overlap_manual_blocks(self.depth, int(self.flat), int(self.safe), *self.tile)
         if n <= 0:

@@ -246,3 +246,44 @@ def test_analyze_prints_what_probe_py_prints():
         op.analyze(str(csv_path))
     assert got.getvalue() == want.getvalue()
     assert "overlap_frac" in got.getvalue()
+
+
+@pytest.mark.parametrize("nx, aligned, path", [
+    (128, True, "tma"),      # rows of whole 16-byte pieces
+    (4096, True, "tma"),     # the sweep's grid
+    (130, True, "values"),   # nx % 4 == 2
+    (250, True, "values"),
+    (129, True, "values"),
+    (128, False, "values"),  # a state or output off 16 bytes
+])
+def test_auto_path_by_width_and_alignment(nx, aligned, path):
+    assert op.auto_path(nx, aligned) == path
+
+
+AUTO = sorted(e for e in op.ENGINES if e.startswith("auto"))
+
+
+@pytest.mark.parametrize("name", AUTO)
+def test_auto_engines_at_a_width_tma_cannot_take_match_the_tpu_kernel(name):
+    """nx = 250 (rows of 1,000 B): on the card the one-value path; on the
+    CPU the plain version, bit-equal to the interpret-mode kernel at R = 0
+    and to eager work at R = 2."""
+    ny, nx, band = 64, 250, 16 if name not in ("auto_halo", "auto_full") else 8
+    f = np.random.default_rng(13).random((9, ny, nx), dtype=np.float32)
+    np.testing.assert_array_equal(port(name, f, ny, nx, band, 0),
+                                  tpu_kernel(name, f, ny, nx, band, 0))
+    np.testing.assert_array_equal(port(name, f, ny, nx, band, 2),
+                                  eager_reference(name, f, band, 2))
+
+
+@pytest.mark.parametrize("name", AUTO)
+def test_auto_engines_take_a_state_off_16_bytes(name):
+    """A contiguous state 4 bytes past its storage's start (on the card: the
+    one-value path) gives what an aligned copy of it gives."""
+    ny, nx, band = 48, 128, 16
+    f = np.random.default_rng(17).random((9, ny, nx), dtype=np.float32)
+    x = torch.zeros(f.size + 1)[1:].view(f.shape)
+    x.copy_(torch.from_numpy(f))
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    got = op.ENGINES[name](ny, nx, band, 2)(x)
+    np.testing.assert_array_equal(got.numpy(), port(name, f, ny, nx, band, 2))

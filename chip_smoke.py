@@ -115,14 +115,19 @@ Phases, each of which must pass or the script exits non-zero:
      through experiments/cuda-kstep-tiles/blur_resident_opt.py): every
      variant against its plain version bit for bit, in float32 and bfloat16
      I/O, at bricks (4x304x512) and at 3x37x53 (which no tile divides) after
-     0, 2, 7 and 200 passes (7 runs 6, as run.py's `_pingpong`) and at leaf
-     (4x1032x896) after 2 and 200 where the variant fits, v0 and v1 against
-     B8; the variants whose tiles do not fit leaf must refuse it, naming
-     the bytes a block would need. Then the main path, the harness's sweep
-     of all eight at bricks and leaf in bfloat16 (run.py's per-pass cost:
-     median of 5 (t(n_hi) - t(n_lo)) / (n_hi - n_lo), n_lo = 2000), every
-     variant launched; v0's launch of 2000 passes beside its plain version,
-     2000 convolutions and its bound;
+     0, 2, 7, 200 and 202 passes (7 runs 6, as run.py's `_pingpong`), at the
+     depth the rule picks (the passes a block runs between two exchanges of
+     tile edges) and at depth 1, and at leaf (4x1032x896) after 2 and 200
+     where the variant fits, v0 and v1 against B8; two launches in a row on
+     the same exchange words with different images (every variant and B8,
+     one exchange a launch and 202 passes), each bit-equal to its plain
+     version; the variants whose tiles do not fit leaf must refuse it,
+     naming the bytes a block would need. Then the main path, the harness's
+     sweep of all eight at bricks and leaf in bfloat16 (run.py's per-pass
+     cost: median of 5 (t(n_hi) - t(n_lo)) / (n_hi - n_lo), n_lo = 2000),
+     every variant launched; v0's launch of 2000 passes beside its plain
+     version, 2000 convolutions and its bound; v0's µs a pass at bricks at
+     depth 1 (an exchange every pass) beside the rule's depth;
  12. one JSON line `{"kernels": [...]}` with each of the thirteen kernels'
      launches on its path, parity, time per launch, its bound, the plain
      version's time and the library's (the convolution for the blur
@@ -1758,6 +1763,7 @@ def phase_blur_resident_opt(torch, bro, stencil, card):
     print(f"B13 on {card}")
     try:
         max_err = harness.check_parity(log=lambda line: print(f"B13 {line}"))
+        harness.check_reuse(log=lambda line: print(f"B13 {line}"))
     except RuntimeError as err:
         raise Failure(f"B13: {err}") from err
     shape, hw0 = harness.IMAGES["leaf"]
@@ -1801,6 +1807,12 @@ def phase_blur_resident_opt(torch, bro, stencil, card):
     plain_ms = time_ms(torch, lambda: call.plain(n, x, m), 1)
     library_ms = time_ms(torch, conv_run, 1)
     bound_ms, bound_by = harness.run_bound_ms("v0-roll", shape, n, 2)
+    # an exchange every pass against one every `depth` passes
+    by_depth = {}
+    for depth in (1, call.depth):
+        one, x1, m1 = harness.prepare("v0-roll", img_np, int_np, hw0, torch.bfloat16, depth=depth)
+        by_depth[depth] = harness.time_variant(one, x1, m1, n, harness.n_hi(x1.numel()), 3)[0]
+        print(f"B13 v0-roll bricks at depth {depth}: {by_depth[depth]:.4f} us a pass")
     by_key = {(r["image"], r["variant"]): r for r in rows}
     v0 = by_key[("bricks", "v0-roll")]
     # the device time of every launch of the sweep, beside the sum of their
@@ -1825,7 +1837,9 @@ def phase_blur_resident_opt(torch, bro, stencil, card):
                            for v in bro.VARIANTS},
         library_us_per_pass={img: by_key[(img, "v0-roll")]["library_us"]
                              for img in harness.IMAGES},
-        fits_leaf=fit_leaf,
+        fits_leaf=fit_leaf, v0_bricks_us_per_pass_by_depth=by_depth,
+        depth={v: {img: by_key[(img, v)]["depth"] for img in harness.IMAGES}
+               for v in bro.VARIANTS},
         block_bytes={v: {img: by_key[(img, v)]["block_bytes"] for img in harness.IMAGES}
                      for v in bro.VARIANTS})
 

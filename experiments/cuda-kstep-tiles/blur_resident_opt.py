@@ -24,8 +24,12 @@ would need and no time.
 Before any timing, every variant is held to its plain version bit for bit
 at bricks and at a small shape that no tile divides (`ODD`), in float32 and
 bfloat16 I/O, at `PARITY_PASSES` passes (an odd count runs one pass fewer,
-as run.py's `_pingpong`), and v0 and v1 to kernel B8
-(`stencil.blur_resident`); the variants that fit leaf are held there too.
+as run.py's `_pingpong`), at the depth the rule picks and at depth 1 (the
+passes a block runs between two exchanges of tile edges), and v0 and v1 to
+kernel B8 (`stencil.blur_resident`); the variants that fit leaf are held
+there too, at the rule's depth. `check_reuse` then runs two launches in a
+row on the same exchange words with different images, each held to its
+plain version: a word the first left must not pass for one of the second's.
 
 Writes results_blur_resident_opt.csv beside this file (or --out): run.py's
 columns and the card's name and power limit, spread, tile, bytes a block,
@@ -33,7 +37,8 @@ blocks, fits, bound, plain and library times, the median ms of an n_lo run,
 and the device ms of all of a row's launches (`sweep_ms`, warm runs
 included) beside the sum of their bounds (`sweep_bound_ms`).
 
-`--probe` is the short first call after a change to csrc/blur_resident_opt.cu:
+`--probe` is the short first call after a change to csrc/blur_resident_opt.cu
+or csrc/blur_resident.cuh:
 what `nvcc -Xptxas -v` says of it (registers, shared memory, spills), the
 parity checks, and one run of n_lo passes of each variant; no CSV.
 
@@ -73,13 +78,13 @@ FLOP_PER_VALUE = {v: (9 if bro.SPECS[v].folded else 8) for v in bro.VARIANTS}
 IMAGES = {"bricks": ((4, 304, 512), (302, 499)), "leaf": ((4, 1032, 896), (1024, 768))}
 ODD = ((3, 37, 53), (33, 47))  # three channels, sides no tile divides
 N_LO = 2000
-PARITY_PASSES = (0, 2, 7, 200)
+PARITY_PASSES = (0, 2, 7, 200, 202)
 LEAF_PARITY_PASSES = (2, 200)
 REPEATS = 5
 PLAIN_PASSES = 20
 LIBRARY_CALLS = 20
 FIELDS = ["image", "platform", "variant", "us_per_pass", "gvals_per_s", "checksum", "card",
-          "spread_us", "tile", "block_bytes", "blocks", "fits", "bound_us", "plain_us",
+          "spread_us", "tile", "depth", "block_bytes", "blocks", "fits", "bound_us", "plain_us",
           "library_us", "n_lo", "n_hi", "lo_ms", "sweep_ms", "sweep_bound_ms"]
 
 
@@ -102,11 +107,12 @@ def study_case(shape, hw0):
     return rng.random((c, h, w)).astype(np.float32) * interior, interior
 
 
-def prepare(variant, img_np, int_np, hw0, dtype, device="cuda"):
-    """(call, image, interior) of a variant on the device, in its layout."""
+def prepare(variant, img_np, int_np, hw0, dtype, device="cuda", depth=None):
+    """(call, image, interior) of a variant on the device, in its layout, at
+    the rule's depth or the one named."""
     img = torch.from_numpy(img_np).to(device, dtype)
     interior = torch.from_numpy(int_np).to(device, dtype)
-    call, layout = bro.build(variant, img, hw0)
+    call, layout = bro.build(variant, img, hw0, depth=depth)
     if layout == "rank2":
         img = bro.to_rank2(img).contiguous()
         interior = bro.rank2_interior(interior, img_np.shape[0]).contiguous()
@@ -134,40 +140,98 @@ def run_bound_ms(variant, shape, passes, itemsize) -> tuple[float, str]:
 
 def check_parity(cases=None, dtypes=(torch.float32, torch.bfloat16), log=print) -> float:
     """Every variant against its plain version on the card, bit for bit, and
-    v0 and v1 against B8, at `cases` {label: (shape, hw0, passes)} (bricks
-    and ODD at PARITY_PASSES, leaf at LEAF_PARITY_PASSES for the variants
-    that fit it). Raises RuntimeError on a difference; returns the greatest
+    v0 and v1 against B8, at `cases` {label: (shape, hw0, passes, depth 1
+    too)} (bricks and ODD at PARITY_PASSES at the rule's depth and at depth
+    1, leaf at LEAF_PARITY_PASSES at the rule's depth for the variants that
+    fit it). Raises RuntimeError on a difference; returns the greatest
     |difference| (0.0)."""
     if cases is None:
-        cases = {"bricks": (*IMAGES["bricks"], PARITY_PASSES), "odd": (*ODD, PARITY_PASSES),
-                 "leaf": (*IMAGES["leaf"], LEAF_PARITY_PASSES)}
+        cases = {"bricks": (*IMAGES["bricks"], PARITY_PASSES, True),
+                 "odd": (*ODD, PARITY_PASSES, True),
+                 "leaf": (*IMAGES["leaf"], LEAF_PARITY_PASSES, False)}
     max_err, held, bad = 0.0, 0, []
-    for label, (shape, hw0, passes) in cases.items():
+    for label, (shape, hw0, passes, depth_one) in cases.items():
         img_np, int_np = study_case(shape, hw0)
+        depths = set()
         for dtype in dtypes:
             dname = str(dtype).removeprefix("torch.")
             for variant in bro.VARIANTS:
                 if not fits(variant, shape):
                     continue
-                call, x, m = prepare(variant, img_np, int_np, hw0, dtype)
+                rule, x, m = prepare(variant, img_np, int_np, hw0, dtype)
+                calls = [rule] + ([prepare(variant, img_np, int_np, hw0, dtype, depth=1)[0]]
+                                  if depth_one and rule.depth != 1 else [])
                 for n in passes:
-                    got = call(n, x, m)
-                    refs = {"plain": call.plain(n, x, m)}
+                    refs = {"plain": rule.plain(n, x, m)}
                     if bro.SPECS[variant].instance == "v0":
                         refs["B8"] = stencil.blur_resident(x, m, num_passes=2 * (n // 2))
-                    torch.cuda.synchronize()
-                    for what, ref in refs.items():
-                        err = float((got.float() - ref.float()).abs().max())
-                        max_err = max(max_err, err)
-                        held += 1
-                        if not torch.equal(got, ref):
-                            bad.append(f"{variant} {label} {dname} n={n} vs {what}: max |d| {err}")
+                    for call in calls:
+                        depths.add((variant, call.depth))
+                        got = call(n, x, m)
+                        torch.cuda.synchronize()
+                        for what, ref in refs.items():
+                            err = float((got.float() - ref.float()).abs().max())
+                            max_err = max(max_err, err)
+                            held += 1
+                            if not torch.equal(got, ref):
+                                bad.append(f"{variant} {label} {dname} depth {call.depth} n={n} "
+                                           f"vs {what}: max |d| {err}")
             log(f"parity {label} {tuple(shape)} {dname}: every variant that fits bit-equal to "
                 f"its plain version at passes {list(passes)}, v0 and v1 to B8")
+        log(f"parity {label}: (variant, depth) held: {sorted(depths)}")
     if bad:
         raise RuntimeError("B13 differs: " + "; ".join(bad))
     log(f"parity: {held} comparisons bit-equal")
     return max_err
+
+
+def check_reuse(log=print) -> int:
+    """Two launches in a row on one stream's exchange words, the second on
+    another image at the same tile and depth, each held to its plain version
+    bit for bit: every variant at bricks, bfloat16, and B8 at float32. Each
+    pair runs twice: at twice the depth, one exchange a launch, where the
+    second launch's first poll meets a word the first launch left at the
+    same place (a tag that started again from the first launch's would take
+    it), and at 202 passes. The second launch's tags must follow the
+    first's on the same words. Raises RuntimeError; returns the pairs held."""
+    shape, hw0 = IMAGES["bricks"]
+    first, int_np = study_case(shape, hw0)
+    second = np.random.default_rng(1).random(shape).astype(np.float32) * int_np
+    stream = torch.cuda.current_stream().cuda_stream
+    key = (str(torch.device("cuda", torch.cuda.current_device())), stream)
+    held, bad = 0, []
+    for variant in bro.VARIANTS + ("B8",):
+        if variant == "B8":
+            dtype = torch.float32
+            tile = stencil.resident_tiling(*shape, *stencil.device_limits(torch.device("cuda")))
+            depth = bro.choose_depth("v0-roll", *shape, tile,
+                                     stencil.device_limits(torch.device("cuda"))[1])
+        else:
+            dtype = torch.bfloat16
+            depth = prepare(variant, first, int_np, hw0, dtype)[0].depth
+        for passes in (2 * depth, 202):
+            outs, words = [], []
+            for img_np in (first, second):
+                if variant == "B8":
+                    x, m = (torch.from_numpy(a).to("cuda", dtype) for a in (img_np, int_np))
+                    out = stencil.blur_resident(x, m, num_passes=passes)
+                    ref = stencil.blur_resident_plain(x, m, num_passes=passes)
+                else:
+                    call, x, m = prepare(variant, img_np, int_np, hw0, dtype)
+                    out, ref = call(passes, x, m), call.plain(passes, x, m)
+                torch.cuda.synchronize()
+                kept, last_tag = bro._EXCHANGE[key]
+                words.append((kept.data_ptr(), last_tag))
+                outs.append(torch.equal(out, ref))
+            held += 1
+            if not all(outs) or words[0][0] != words[1][0] or words[1][1] <= words[0][1]:
+                bad.append(f"{variant} {passes} passes: bit-equal {outs}, (words, last tag) "
+                           f"{words}")
+    if bad:
+        raise RuntimeError("resident launches on reused exchange words: " + "; ".join(bad))
+    log(f"reuse: {held} pairs of launches in a row on the same exchange words (one exchange "
+        "each, and 202 passes), each bit-equal to its plain version")
+    return held
 
 
 def time_launch(call, x, m, n) -> tuple[float, torch.Tensor]:
@@ -235,7 +299,7 @@ def sweep(images, variants, repeats, card, log=print):
                 need = bro.needed_bytes(variant, *shape,
                                         stencil.device_limits(torch.device("cuda"))[0])
                 row.update(us_per_pass="", gvals_per_s="", checksum="", spread_us="", tile="",
-                           block_bytes=need, blocks="", fits=False, plain_us="", lo_ms="",
+                           depth="", block_bytes=need, blocks="", fits=False, plain_us="", lo_ms="",
                            sweep_ms="", sweep_bound_ms="")
                 log(f"{name:7s} {variant:14s} does not fit: {need:,} B a block")
                 rows.append(row)
@@ -245,13 +309,15 @@ def sweep(images, variants, repeats, card, log=print):
             plain = time_ms(lambda: call.plain(PLAIN_PASSES, x, m), 1) / PLAIN_PASSES * 1e3
             row.update(us_per_pass=round(us, 4), gvals_per_s=round(n_vals / us / 1e3, 1),
                        checksum=f"{checksum:.6g}", spread_us=round(spread, 4),
-                       tile=f"{call.tile[0]}x{call.tile[1]}", block_bytes=call.block_bytes,
+                       tile=f"{call.tile[0]}x{call.tile[1]}", depth=call.depth,
+                       block_bytes=call.block_bytes,
                        blocks=call.blocks, fits=True, plain_us=round(plain, 2),
                        lo_ms=round(lo_ms, 4), sweep_ms=round(sweep_ms, 3),
                        sweep_bound_ms=round(
                            (repeats + 1) * (N_LO + hi) * bound_us(variant, shape) / 1e3, 3))
             log(f"{name:7s} {variant:14s} {us:8.4f} us/pass (spread {spread:.4f}) "
                 f"{n_vals / us / 1e3:7.1f} Gval/s checksum={checksum:.6g}; tile {row['tile']}, "
+                f"depth {call.depth}, "
                 f"{call.block_bytes:,} B a block, {call.blocks} blocks; bound "
                 f"{row['bound_us']} us, plain {row['plain_us']} us, conv {row['library_us']} us")
             rows.append(row)
@@ -287,6 +353,7 @@ def probe_run(images, variants) -> int:
     ptxas_report()
     try:
         check_parity()
+        check_reuse()
     except RuntimeError as err:
         print(f"FAILED: {err}")
         return 1
@@ -301,7 +368,8 @@ def probe_run(images, variants) -> int:
             time_launch(call, x, m, N_LO)
             t, _ = time_launch(call, x, m, N_LO)
             print(f"{name:7s} {variant:14s} {N_LO} passes in {t:.3f} ms ({t / N_LO * 1e3:.3f} us "
-                  f"a pass with the launch), tile {call.tile}, {call.block_bytes:,} B a block")
+                  f"a pass with the launch), tile {call.tile}, depth {call.depth}, "
+                  f"{call.block_bytes:,} B a block")
     return 0
 
 
@@ -322,6 +390,7 @@ def main() -> int:
     if args.probe:
         return probe_run(args.images, args.variants)
     check_parity()
+    check_reuse()
     rows = sweep(args.images, args.variants, args.repeats, card)
     write_csv(rows, args.out)
     print(f"wrote {args.out}")

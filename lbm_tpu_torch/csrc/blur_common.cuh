@@ -10,7 +10,8 @@
 
 namespace {
 
-// the most threads a block of B9, B8 or B13 takes: the caller names the count
+// the most threads a block of B9 takes (B8 and B13: kResidentMaxThreads):
+// the caller names the count
 constexpr int kMaxThreads = 1024;
 
 // refusals of the entry points (CUDA's own errors are positive)

@@ -27,7 +27,7 @@
 // pass is bound by memory. B9 divides the bytes per pass by k: the
 // operations would bind only beyond k ~ 20. B8 moves the image once per run,
 // so its bound is the operations of its passes; what it pays in practice is
-// one barrier across the grid per pass.
+// its exchanges of tile edges, one every k passes.
 //
 // Design.
 //   B10  one thread per column of a short run of rows: it keeps the three
@@ -53,10 +53,11 @@
 //        instructions, not by bytes.
 //   B8   the card has no fast memory that holds a whole image, so the image
 //        is spread over the shared memory of the SMs: ONE cooperative launch
-//        of at most one block per SM, each keeping its tile (plus a 1-cell
+//        of at most one block per SM, each keeping its tile (plus a k-cell
 //        halo, two buffers, and its part of the mask) in shared memory as
-//        float32 for the whole run, an exchange of tile edges through device
-//        memory and one grid barrier a pass. It is the V0 instance of the
+//        float32 for the whole run, k passes a block between two exchanges
+//        of tile edges through L2, and no grid barrier: a block polls its
+//        neighbours' tagged edge words. It is the V0 instance of the
 //        resident template of blur_resident.cuh, which has the design and
 //        which B13's variants share.
 //
@@ -256,23 +257,27 @@ int stencil_k_bf16(const void* img, const void* interior, void* out, int c,
 }
 
 // B8: out = num_passes passes over img, in one cooperative launch of
-// c * ceil(h/th) * ceil(w/tw) blocks of `threads` threads; out must not alias
-// img. xrow holds 2 * c * ceil(h/th) * 2 * w floats and xcol
-// 2 * c * ceil(w/tw) * 2 * h. Returns -1 when the blocks cannot all be
-// resident at once, -2 when the device has no cooperative launch, -3 on a
-// tile or thread count the kernel does not take.
+// c * ceil(h/th) * ceil(w/tw) blocks of `threads` threads, k passes a block
+// between two exchanges of tile edges; out must not alias img. xrow holds
+// 2 * c * ceil(h/th) * 2 * k * w exchange words (unsigned 64-bit) and xcol
+// 2 * c * ceil(w/tw) * 2 * k * h; no word of either may carry a tag above
+// tag0. Returns -1 when the blocks cannot all be resident at once, -2 when
+// the device has no cooperative launch, -3 on a tile, depth or thread count
+// the kernel does not take.
 int stencil_resident_f32(const void* img, const void* interior, void* out,
                          void* xrow, void* xcol, int c, int h, int w, int th,
-                         int tw, int num_passes, int threads, void* stream) {
+                         int tw, int num_passes, int k, unsigned tag0, int threads,
+                         void* stream) {
   return launch_resident<float, V0>(img, interior, out, xrow, xcol, c, h, w, th, tw,
-                                    0, 0, num_passes, threads,
+                                    0, 0, num_passes, k, tag0, threads,
                                     static_cast<cudaStream_t>(stream));
 }
 int stencil_resident_bf16(const void* img, const void* interior, void* out,
                           void* xrow, void* xcol, int c, int h, int w, int th,
-                          int tw, int num_passes, int threads, void* stream) {
+                          int tw, int num_passes, int k, unsigned tag0, int threads,
+                          void* stream) {
   return launch_resident<__nv_bfloat16, V0>(img, interior, out, xrow, xcol, c, h, w,
-                                            th, tw, 0, 0, num_passes, threads,
+                                            th, tw, 0, 0, num_passes, k, tag0, threads,
                                             static_cast<cudaStream_t>(stream));
 }
 

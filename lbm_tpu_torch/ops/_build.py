@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _D = ctypes.c_double
 # d2q9_kstep.cu and d2q9_manual.cu: ny .. accel_row, mode, omega, w1, w2, stream
 _D2Q9_SCALARS = [_I] * 13 + [_D, _D, _D, _P]
@@ -39,9 +40,10 @@ _D3Q19_SCALARS = [_I] * 14 + [_D] * 6 + [_P]
 _D3Q19_BLOCKED_SCALARS = [_I] * 15 + [_D] * 6 + [_P]
 # stencil.cu: image, interior, out, then c, h, w and each kernel's own ints
 _STENCIL_K = [_P] * 3 + [_I] * 7 + [_P]
-_STENCIL_RESIDENT = [_P] * 5 + [_I] * 7 + [_P]
-# blur_resident_opt.cu: image, interior, out, xrow, xcol, then c .. threads
-_BLUR_RESIDENT_OPT = [_P] * 5 + [_I] * 9 + [_P]
+# the resident entries: image, interior, out, xrow, xcol, then c .. num_passes,
+# k, tag0, threads, stream (blur_resident_opt.cu's take h0 and w0 too)
+_STENCIL_RESIDENT = [_P] * 5 + [_I] * 7 + [_U, _I, _P]
+_BLUR_RESIDENT_OPT = [_P] * 5 + [_I] * 9 + [_U, _I, _P]
 # argument types of every C entry point, by source (the file's stem)
 SIGNATURES = {
     "d2q9_kstep": {

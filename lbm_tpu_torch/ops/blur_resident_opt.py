@@ -21,13 +21,17 @@ pass is written:
 On the card the image does not fit one SM, so every variant is one instance
 of the resident template that B8 is an instance of too
 (csrc/blur_resident.cuh; the entries in csrc/blur_resident_opt.cu): one
-cooperative launch, one tile per SM in shared memory for the whole run, an
-exchange of tile edges and a grid barrier after each pass. v0 and v1 differ
+cooperative launch, one tile per SM with a halo `depth` cells deep in shared
+memory for the whole run, `depth` passes a block between two exchanges of
+tile edges, and no grid barrier: a block polls its neighbours' edge words,
+each tagged with its exchange (`exchange` keeps the words and the tags). The
+tile comes from `tiling`, the depth from `choose_depth`. v0 and v1 differ
 on the TPU only in how a shift is lowered; on the card both are the same
 index arithmetic, so they share one instance (`SPECS[...].instance`), which
 is B8's own: `stencil.resident_tiling` is v0's `tiling`.
 
-`build(variant, img, hw0)` returns (call, layout) as run.py's `build` does;
+`build(variant, img, hw0)` returns (call, layout) as run.py's `build` does
+(a harness may name the depth, to sweep it);
 call(n, img, interior) runs `n // 2` pairs of passes (run.py's `_pingpong`:
 an odd n runs n - 1 passes, where `stencil.blur_resident` raises), on the
 (C, h, w) image or, for layout "rank2", on its (h, w*C) form (`to_rank2`).
@@ -79,6 +83,13 @@ SPECS = {
 }
 # the widest row a block's index arithmetic takes, halo included (div_small)
 MAX_ROW = 1023
+# the deepest halo the kernel takes: passes a block per exchange (kMaxDepth)
+MAX_DEPTH = 8
+# What an exchange of tile edges costs a block, in cells of a pass: fits of
+# t(k) = t_cell * mean cells + t_exchange / k to ab_resident.py --probe
+# --depth 1..8 on an H100 (80GB HBM3, 700 W) give 2,180-3,320 (v0, v5, v6
+# at bricks, v6 at leaf; PERF.md section 6)
+EXCHANGE_CELLS = 3000
 
 # Launches of kernel B13, by variant; callers may reset the counts.
 launches = dict.fromkeys(VARIANTS, 0)
@@ -168,15 +179,19 @@ def halo_cols(variant: str, c: int) -> int:
     return c if SPECS[variant].rank2 else 1
 
 
-def resident_bytes(variant: str, tile: tuple[int, int], c: int = 1) -> int:
+def resident_bytes(variant: str, tile: tuple[int, int], c: int = 1, depth: int = 1) -> int:
     """Dynamic shared memory of one block: two state buffers of the tile
-    plus a halo of one row and `halo_cols` columns a side, and, except for
-    the ring variants, the tile's mask in the state's type (mirrors
-    resident_smem_bytes in csrc/blur_resident.cuh). `c` only matters for v2."""
+    plus a halo of `depth` rows and `depth` x `halo_cols` columns a side,
+    and, except for the ring variants, the mask in the state's type over the
+    tile and a halo one cell less deep, every cell a pass computes (mirrors
+    resident_smem_bytes in csrc/blur_resident.cuh). `c` only matters for
+    v2. At depth 1: the tile's mask, the bytes the tiling rule counts."""
     spec = SPECS[variant]
     th, tw = tile
-    plane = (th + 2) * (tw + 2 * halo_cols(variant, c))
-    return spec.state.itemsize * (2 * plane + (0 if spec.ring else th * tw))
+    hw = halo_cols(variant, c)
+    plane = (th + 2 * depth) * (tw + 2 * depth * hw)
+    mask = 0 if spec.ring else (th + 2 * depth - 2) * (tw + 2 * (depth - 1) * hw)
+    return spec.state.itemsize * (2 * plane + mask)
 
 
 def _tiles(variant: str, c: int, h: int, w: int, sms: int):
@@ -228,6 +243,100 @@ def needed_bytes(variant: str, c: int, h: int, w: int, sms: int = H100_SMS) -> i
     return resident_bytes(variant, tile, c)
 
 
+def _layout(variant: str, c: int, h: int, w: int) -> tuple[int, int, int]:
+    """(planes, rows, columns) the kernel sees: (C, h, w), or v2's one
+    (h, w*C) plane."""
+    return (1, h, w * c) if SPECS[variant].rank2 else (c, h, w)
+
+
+def max_depth(variant: str, c: int, h: int, w: int, tile: tuple[int, int],
+              smem: int = SMEM_PER_BLOCK) -> int:
+    """The deepest halo the kernel takes at this tile: at most MAX_DEPTH;
+    as many rows as the last tile row has and `halo_cols` x depth columns
+    within the last tile column (a halo comes from the next tile alone); the
+    index ranges of `_tiles`; the block's bytes within `smem`. 0 when even
+    depth 1 does not fit."""
+    hw = halo_cols(variant, c)
+    _, hh, ww = _layout(variant, c, h, w)
+    th, tw = tile
+    last_h, last_w = hh - (-(-hh // th) - 1) * th, ww - (-(-ww // tw) - 1) * tw
+    best = 0
+    for k in range(1, MAX_DEPTH + 1):
+        if (k > last_h or k * hw > last_w or tw + 2 * k * hw > MAX_ROW
+                or (th + 2 * k) * (tw + 2 * k * hw) >= 65536
+                or resident_bytes(variant, tile, c, k) > smem):
+            break
+        best = k
+    return best
+
+
+def depth_cost(variant: str, c: int, tile: tuple[int, int], depth: int) -> float:
+    """A pass's cost at `depth`, in cells: the mean region a block computes
+    over its group of passes (the tile and a halo that shrinks from depth -
+    1 cells to none) and its share of one exchange."""
+    th, tw = tile
+    hw = halo_cols(variant, c)
+    cells = sum((th + 2 * d) * (tw + 2 * d * hw) for d in range(depth))
+    return (cells + EXCHANGE_CELLS) / depth
+
+
+def choose_depth(variant: str, c: int, h: int, w: int, tile: tuple[int, int],
+                 smem: int = SMEM_PER_BLOCK) -> int:
+    """The passes a block runs between two exchanges at a tile the tiling
+    rule gave: of the depths the tile takes (`max_depth`), the one of the
+    least `depth_cost`; at least 1, which holds what the tiling rule
+    counted."""
+    deepest = max(1, max_depth(variant, c, h, w, tile, smem))
+    return min(range(1, deepest + 1), key=lambda k: depth_cost(variant, c, tile, k))
+
+
+def exchange_words(variant: str, c: int, h: int, w: int, tile: tuple[int, int],
+                   depth: int) -> tuple[int, int]:
+    """Exchange words (unsigned 64-bit) of a launch, rows and columns, in
+    the kernel's layout (csrc/blur_resident.cuh): two parities x planes x
+    tile rows x 2 sides x depth rows x the width, and two parities x planes
+    x tile columns x 2 sides x depth x `halo_cols` columns x the height."""
+    planes, hh, ww = _layout(variant, c, h, w)
+    th, tw = tile
+    k, hw = depth, halo_cols(variant, c)
+    return (2 * planes * -(-hh // th) * 2 * k * ww, 2 * planes * -(-ww // tw) * 2 * k * hw * hh)
+
+
+def exchanges(num_passes: int, depth: int) -> int:
+    """Exchanges of a launch: one between two groups of `depth` passes."""
+    return max(0, -(-int(num_passes) // depth) - 1)
+
+
+# the tags of an exchange word are 32-bit; 0 is a word never written
+TAG_LIMIT = 2**32 - 1
+# Exchange words by (device, stream), with the last tag given out on them.
+_EXCHANGE: dict = {}
+
+
+def exchange(device, stream: int, row_words: int, col_words: int,
+             count: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(xrow, xcol, tag0) for a launch on `stream` that makes `count`
+    exchanges: its tags are tag0 + 1 .. tag0 + count.
+
+    The kernel polls a word until its tag is the one it waits for, so no
+    word may carry such a tag before the launch writes it. The words of a
+    stream are kept from launch to launch and zeroed when made (tag 0 is
+    never given out), and each launch continues the count of tags where the
+    last one on them stopped: a word left by an earlier launch, whatever its
+    layout, carries a lower tag. Before the count would pass 32 bits the
+    words are zeroed again, in stream order. Launches on one stream run in
+    turn, so they may share the words; another stream gets its own."""
+    key = (str(torch.device(device)), stream)
+    words, used = _EXCHANGE.get(key, (None, 0))
+    if words is None or words.numel() < row_words + col_words:
+        words, used = torch.zeros(row_words + col_words, dtype=torch.int64, device=device), 0
+    elif used + count > TAG_LIMIT:
+        words.zero_()
+        used = 0
+    _EXCHANGE[key] = (words, used + count)
+    return words[:row_words], words[row_words:row_words + col_words], used
+
+
 # ------------------------------------------------------------------ kernel
 
 class Resident:
@@ -235,24 +344,23 @@ class Resident:
     run.py's kernel: call(n, img, interior)."""
 
     def __init__(self, variant: str, shape: tuple[int, int, int], hw0: tuple[int, int],
-                 tile: tuple[int, int]):
+                 tile: tuple[int, int], depth: int):
         self.variant, self.spec = variant, SPECS[variant]
         self.c, self.h, self.w = shape
         self.hw0 = tuple(int(v) for v in hw0)
-        self.tile = tile
+        self.tile, self.depth = tile, depth
         self.layout = "rank2" if self.spec.rank2 else None
         self.shape = (self.h, self.w * self.c) if self.spec.rank2 else tuple(shape)
-        self.block_bytes = resident_bytes(variant, tile, self.c)
+        self.block_bytes = resident_bytes(variant, tile, self.c, depth)
         th, tw = tile
-        # the grid (planes, tile rows, tile columns) and the column halo
+        # the grid (planes, tile rows, tile columns)
         self.grid = (1 if self.spec.rank2 else self.c, -(-self.shape[-2] // th),
                      -(-self.shape[-1] // tw))
-        self.halo = halo_cols(variant, self.c)
         self.blocks = self.grid[0] * self.grid[1] * self.grid[2]
 
     def __repr__(self):
         return (f"Resident({self.variant}, {self.c}x{self.h}x{self.w}, hw0={self.hw0}, "
-                f"tile={self.tile})")
+                f"tile={self.tile}, depth={self.depth})")
 
     def plain(self, n: int, img: torch.Tensor, interior: torch.Tensor) -> torch.Tensor:
         self._check(img, interior)
@@ -268,20 +376,19 @@ class Resident:
 
         th, tw = self.tile
         hh, ww = self.shape[-2], self.shape[-1]
-        planes, nty, ntx = self.grid
-        # the tiles' edge rows and columns, two copies alternating by pass
-        xrow = torch.empty(2 * planes * nty * 2 * ww, dtype=self.spec.state, device=img.device)
-        xcol = torch.empty(2 * planes * ntx * 2 * self.halo * hh, dtype=self.spec.state,
-                           device=img.device)
+        passes = 2 * (int(n) // 2)
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        xrow, xcol, tag0 = exchange(
+            img.device, stream, *exchange_words(self.variant, self.c, self.h, self.w, self.tile,
+                                                self.depth), exchanges(passes, self.depth))
         out = torch.empty_like(img)
         suffix = "f32" if img.dtype == F32 else "bf16"
         entry = getattr(_build.load("blur_resident_opt"),
                         f"blur_resident_opt_{self.spec.instance}_{suffix}")
         launches[self.variant] += 1
         rc = entry(img.data_ptr(), interior.data_ptr(), out.data_ptr(), xrow.data_ptr(),
-                   xcol.data_ptr(), self.c, hh, ww, th, tw, *self.hw0,
-                   2 * (int(n) // 2), RESIDENT_THREADS,
-                   torch.cuda.current_stream(img.device).cuda_stream)
+                   xcol.data_ptr(), self.c, hh, ww, th, tw, *self.hw0, passes,
+                   self.depth, tag0, RESIDENT_THREADS, stream)
         if rc != 0:
             raise RuntimeError(f"blur_resident_opt ({self!r}): "
                                + (REFUSALS.get(rc) or f"CUDA error {rc} at launch"))
@@ -300,12 +407,14 @@ class Resident:
             raise ValueError("image and interior must be contiguous")
 
 
-def build(variant: str, img: torch.Tensor, hw0: tuple[int, int]):
+def build(variant: str, img: torch.Tensor, hw0: tuple[int, int], depth: int | None = None):
     """run.py's `build`: (call, layout) for a (C, h, w) image whose interior
     is rows 1..h0 and columns 1..w0 (the ring variants zero the rest). The
     call takes the image in the layout: (C, h, w), or (h, w*C) for "rank2".
     Raises ValueError when the variant's tiles cannot be resident on the
-    image's device (the H100's 132 SMs x 232,448 B for a CPU tensor)."""
+    image's device (the H100's 132 SMs x 232,448 B for a CPU tensor).
+    `depth`, the passes a block runs between two exchanges, is the rule's
+    (`choose_depth`) unless a harness names one the tile takes (`max_depth`)."""
     if variant not in SPECS:
         raise ValueError(f"unknown variant {variant!r}; choose from {VARIANTS}")
     if img.dim() != 3:
@@ -318,5 +427,11 @@ def build(variant: str, img: torch.Tensor, hw0: tuple[int, int]):
             f"{variant}: a {c}x{h}x{w} image needs {needed_bytes(variant, c, h, w, sms):,} B "
             f"of shared memory a block with one tile per SM, more than the {smem:,} B a "
             f"block may use on this device ({sms} SMs)")
-    call = Resident(variant, (c, h, w), hw0, tile)
+    deepest = max_depth(variant, c, h, w, tile, smem)
+    if depth is None:
+        depth = choose_depth(variant, c, h, w, tile, smem)
+    elif not 1 <= depth <= deepest:
+        raise ValueError(f"{variant}: depth {depth} at tile {tile} of a {c}x{h}x{w} image; "
+                         f"the tile takes 1..{deepest}")
+    call = Resident(variant, (c, h, w), hw0, tile, depth)
     return call, call.layout

@@ -237,14 +237,15 @@ def blur_k(img: torch.Tensor, interior: torch.Tensor, *, k_passes: int,
     return out
 
 
-def resident_smem_bytes(tile_h: int, tile_w: int) -> int:
+def resident_smem_bytes(tile_h: int, tile_w: int, depth: int = 1) -> int:
     """Dynamic shared memory of one block of B8: two float32 buffers of the
-    tile plus a 1-cell halo, and the tile's mask. B8 is the v0 instance of
-    the resident template (csrc/blur_resident.cuh), so this is
+    tile plus a `depth`-cell halo, and the mask over a halo one cell less
+    deep (at depth 1, the tile's). B8 is the v0 instance of the resident
+    template (csrc/blur_resident.cuh), so this is
     `blur_resident_opt.resident_bytes` of v0."""
     from .blur_resident_opt import resident_bytes
 
-    return resident_bytes("v0-roll", (tile_h, tile_w))
+    return resident_bytes("v0-roll", (tile_h, tile_w), 1, depth)
 
 
 def resident_tiling(c: int, h: int, w: int, sms: int = H100_SMS,
@@ -298,16 +299,20 @@ def blur_resident(img: torch.Tensor, interior: torch.Tensor, *,
     if img.device.type == "cpu":
         return blur_resident_plain(img, interior, num_passes=num_passes)
     _check(img, interior)
+    from .blur_resident_opt import choose_depth, exchange, exchange_words, exchanges
+
     th, tw = tile
-    nty, ntx = -(-h // th), -(-w // tw)
-    # the tiles' edge rows and columns, two copies alternating by pass
-    xrow = torch.empty(2 * c * nty * 2 * w, dtype=torch.float32, device=img.device)
-    xcol = torch.empty(2 * c * ntx * 2 * h, dtype=torch.float32, device=img.device)
+    k = choose_depth("v0-roll", c, h, w, tile, smem)
+    stream = _stream(img)
+    xrow, xcol, tag0 = exchange(img.device, stream,
+                                *exchange_words("v0-roll", c, h, w, tile, k),
+                                exchanges(num_passes, k))
     out = torch.empty_like(img)
     launches["blur_resident"] += 1
     rc = _entry(img, "stencil_resident")(
         img.data_ptr(), interior.data_ptr(), out.data_ptr(), xrow.data_ptr(),
-        xcol.data_ptr(), c, h, w, th, tw, int(num_passes), RESIDENT_THREADS, _stream(img))
+        xcol.data_ptr(), c, h, w, th, tw, int(num_passes), k, tag0,
+        RESIDENT_THREADS, stream)
     _check_rc(rc, "stencil_resident")
     return out
 

@@ -260,3 +260,5 @@ def test_resident_tiling_follows_the_device():
 def test_shared_memory_formulas():
     assert stencil.blur_k_smem_bytes(32, 128, 4) == 3 * 40 * 136 * 4
     assert stencil.resident_smem_bytes(40, 128) == (2 * 42 * 130 + 40 * 128) * 4
+    # a halo of k cells: the buffers k deep, the mask k - 1
+    assert stencil.resident_smem_bytes(40, 128, 3) == (2 * 46 * 134 + 44 * 132) * 4

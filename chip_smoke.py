@@ -9,15 +9,19 @@ Phases, each of which must pass or the script exits non-zero:
   1. prints the card's name and power limit; builds the CUDA kernels from
      the eight sources of lbm_tpu_torch/csrc/ with nvcc (one process per
      source, all started together) and prints the build time; prints what
-     `nvcc -Xptxas -v` says of the two tile-copy sources (B12 and B11, on
-     csrc/tile_copy.cuh);
+     `nvcc -Xptxas -v` says of the three sources on TMA (B12 and B11, on
+     csrc/tile_copy.cuh, and d2q9_kstep.cu, whose box path moves B1's and
+     B2's regions by TMA) and the blocks an SM of B1 and B2 on each path at
+     16x32, K=4 (three in float32, or it fails);
   2. D2Q9 kernels vs plain version at 1024x1024: for kernels B2 (d2q9_kstep),
      B1 (d2q9_kstep_inplace) and B3 (d2q9_kstep_manual, the pipelined one),
      at K = 1..4, in float64 and float32, plus one case with a ghost window
      (row_offset, valid rows and columns strictly inside, global_ny != ny):
      one stepk with the kernel and one with stepk_plain on the card, from a
      numpy-seeded state. B1 and B3 must be bit-equal to B2, also over three
-     passes of `run` (where B1 chains its boundary snapshot); the same on
+     passes of `run` (where B1 chains its boundary snapshot); each case
+     prints the path B1 and B2 took (box, with the tiles whose regions the
+     threads patch, or thread: K = 1..3 in float32); the same on
      three grids whose width is not a multiple of 32 (narrower tiles) and on
      64x1001 and 72x130, which no tile divides (edge tiles). The diagnostic
      modes: stream_only of B1, B2 and B3 bit-equal to the plain version's
@@ -28,8 +32,9 @@ Phases, each of which must pass or the script exits non-zero:
      device ms and its host's enqueue µs a pass) and `copy_`;
   3. the 2-D main path: the flagship run (1024x1024, 20,000 steps, float32)
      through `lbm_tpu_torch.cli.lbm --engine auto`, which must pick
-     cuda-inplace (B1), launch it and never call the plain engine; then the
-     same run with `--engine cuda` (B2) and `--engine cuda-manual` (B3). Each
+     cuda-inplace (B1), launch it on the box path and never call the plain
+     engine; then the same run with `--engine cuda` (B2, box path too) and
+     `--engine cuda-manual` (B3). Each
      final_state.dat is held to check/1024x1024.final_state.dat.gz by the
      checker's per-cell rule (verify/check.py: column 5, 1%), and the first
      100 av_vels to a 100-step run of the plain engine on the card (4e-4).
@@ -299,17 +304,49 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_ptxas():
-    """What nvcc -Xptxas -v says of the two sources on the tile copy
-    (registers, shared memory, spills of each kernel)."""
+def phase_ptxas(d2q9_kstep):
+    """What nvcc -Xptxas -v says of the three sources on the tile copy
+    (registers, shared memory, spills of each kernel; d2q9_kstep.cu's box
+    path, kstep_box_kernel, moves its regions by TMA), and the blocks an SM
+    of B1 and B2 on each path at the flagship's 16x32, K=4: three on the box
+    path in float32, as on the thread path."""
     harness = load_harness("ab_copy")
     t0 = time.perf_counter()
     try:
-        for source in ("copy_floor", "overlap_probe"):
+        for source in ("copy_floor", "overlap_probe", "d2q9_kstep"):
             harness.ptxas_report(source)
     except SystemExit as err:
         raise Failure(f"nvcc -Xptxas -v failed: {err}") from err
     print(f"ptxas reports in {time.perf_counter() - t0:.1f} s")
+    for itemsize in (4, 8):
+        for in_place, name in ((False, "B2"), (True, "B1")):
+            blocks = {path: d2q9_kstep.blocks_per_sm(in_place, path, (16, 32), 4, itemsize)
+                      for path in d2q9_kstep.PATHS}
+            smem = {"thread": d2q9_kstep.smem_bytes(16, 32, 4, itemsize),
+                    "box": d2q9_kstep.box_smem_bytes(16, 32, 4, itemsize)}
+            print(f"occupancy {name} 16x32 K=4 itemsize {itemsize}: blocks an SM {blocks}, "
+                  f"shared memory a block {smem} B")
+            if itemsize == 4:
+                check(blocks["box"] >= 3 and blocks["thread"] >= 3,
+                      f"{name}: fewer than three blocks an SM at 16x32 K=4 f32: {blocks}")
+
+
+def path_line(mods, grid=None) -> str:
+    """The path each of B2 and B1 took in its last launch; for a box launch
+    on grid = (ny, nx, tile), how many tiles the boxes fill alone: B2's tiles
+    whose region does not wrap, none of B1's (its side columns come from the
+    snapshot)."""
+    parts = []
+    for name, mod, in_place in (("B2", mods[0], False), ("B1", mods[1], True)):
+        text = f"{name} {mod.last_path}"
+        if grid is not None and mod.last_path == "box":
+            ny, nx, (th, tw) = grid
+            nty, ntx = ny // th, nx // tw
+            alone = 0 if in_place else max(0, nty - 2) * max(0, ntx - 2)
+            text += f" ({alone} of {nty * ntx} tiles by boxes alone, {nty * ntx - alone} " \
+                    "with strips)"
+        parts.append(text)
+    return "paths " + ", ".join(parts)
 
 
 def phase_parity(torch, mods, k_main):
@@ -353,7 +390,9 @@ def phase_parity(torch, mods, k_main):
                   f"B1 is not bit-equal to B2 ({dname} K={k} {label})")
             check(torch.equal(b3_f, b2_f) and torch.equal(b3_tot, b2_tot),
                   f"B3 is not bit-equal to B2 ({dname} K={k} {label})")
-            print(f"parity B1 == B2 == B3 bit for bit ({dname} K={k} {label})")
+            grid = (N, N, d2q9_kstep.choose_config(N, N, dtype)[:2])
+            print(f"parity B1 == B2 == B3 bit for bit ({dname} K={k} {label}); "
+                  f"{path_line(mods, grid)}")
         # several passes of run: B1 hands each pass its boundary snapshot
         run_kw = dict(num_steps=3 * k_main, k_steps=k_main, accel_row=N - 2, **aw)
         b2_f, b2_tot = d2q9_kstep.run(f, mask, **run_kw)
@@ -363,7 +402,8 @@ def phase_parity(torch, mods, k_main):
         check(torch.equal(b1_f, b2_f) and torch.equal(b1_tot, b2_tot)
               and torch.equal(b3_f, b2_f) and torch.equal(b3_tot, b2_tot),
               f"B1 or B3 run is not bit-equal to B2 run ({dname}, 3 passes of K={k_main})")
-        print(f"parity B1 run == B2 run == B3 run bit for bit ({dname}, 3 passes of K={k_main})")
+        print(f"parity B1 run == B2 run == B3 run bit for bit ({dname}, 3 passes of K={k_main}); "
+              f"{path_line(mods)}")
     return abs_err
 
 
@@ -394,7 +434,8 @@ def phase_narrow_tiles(torch, mods, k_main):
             torch.cuda.synchronize()
             ef, et = rel_err(b2_f, ref_f), rel_err(b2_tot, ref_tot)
             print(f"parity {ny}x{nx} tile {th}x{tw} {dname} K={k_main}: state max rel err "
-                  f"{ef:.3e}, Sum|u| max rel err {et:.3e}; B1 == B2 == B3 (one pass, three)")
+                  f"{ef:.3e}, Sum|u| max rel err {et:.3e}; B1 == B2 == B3 (one pass, three); "
+                  f"{path_line(mods)}")
             check(np.isfinite(ef) and ef <= BARS[dname] and np.isfinite(et) and et <= BARS[dname],
                   f"{ny}x{nx} {dname}: kernel B2 disagrees with the plain version")
             for name, got, run in (("B1", (b1_f, b1_tot), r1), ("B3", (b3_f, b3_tot), r3)):
@@ -433,14 +474,16 @@ def phase_modes(torch, mods, copy_floor):
             got_f, got_tot = mod.stepk(f.clone(), mask, mode="stream_only", **kw)
             copy_f, _ = mod.stepk(f.clone(), mask, mode="copy", **kw)
             torch.cuda.synchronize()
+            path = getattr(mod, "last_path", None) or "B3's own pipeline"
             et = rel_err(got_tot, ref_tot)
             check(torch.equal(got_f, ref_f), f"{name} stream_only {ny}x{nx} {dname}: state "
                                              "differs from the plain version")
             check(et <= BARS[dname], f"{name} stream_only {ny}x{nx}: Sum|u| rel err {et}")
             check(torch.equal(copy_f, f), f"{name} copy {ny}x{nx} {dname}: state differs "
                                           "from the input")
-            print(f"modes {name} {ny}x{nx} {dname} K=4: stream_only state bit-equal to the plain "
-                  f"version (Sum|u| rel err {et:.3e}); copy returns its input")
+            print(f"modes {name} {ny}x{nx} {dname} K=4 ({path} path): stream_only state "
+                  f"bit-equal to the plain version (Sum|u| rel err {et:.3e}); copy returns its "
+                  "input")
         for by, bx in (tile, (16, nx), (5, 7)):
             out = copy_floor.run_copy(f, 3, by, bx)
             torch.cuda.synchronize()
@@ -616,9 +659,14 @@ def phase_main_path(torch, mods, golden, mask):
             mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
             # launches count the warm-up run and the timed run, which are equal
             per_launch_ms = seconds / (launches / 2) * 1e3
+            path = getattr(mod, "last_path", None)
+            if mod is not d2q9_kstep_manual:
+                # the flagship shape moves its regions by TMA
+                check(path == "box", f"--engine {engine}: {kernel} took the {path} path")
             print(f"main path {kernel}: {launches} launches, {seconds:.6f} s timed, "
-                  f"{mlups} MLUPS, {per_launch_ms:.4f} ms per launch in the timed run")
-            results[kernel] = (launches, seconds, mlups)
+                  f"{mlups} MLUPS, {per_launch_ms:.4f} ms per launch in the timed run"
+                  + (f", {path} path" if path else ""))
+            results[kernel] = (launches, seconds, mlups, path)
 
             sim = np.loadtxt(out / "final_state.dat", usecols=(0, 1, 4, 5))
             check(sim.shape == (N * N, 4), f"final_state.dat has shape {sim.shape}")
@@ -1017,9 +1065,10 @@ def phase_any_width(torch, mods):
                   f"{ny}x{nx} --engine {engine}: not through its kernel alone")
             e_av = float(np.abs(res.av_vels - plain.av_vels).max() / np.abs(plain.av_vels).max())
             e_f = float(np.abs(res.f_final - plain.f_final).max() / np.abs(plain.f_final).max())
-            print(f"{ny}x{nx} {dname} --engine {engine} ({res.engine}, {mod.launches} launches): "
-                  f"av_vels rel err {e_av:.3e}, final state {e_f:.3e} vs the plain engine "
-                  f"(bar {bar})")
+            path = getattr(mod, "last_path", None) or "B3's own pipeline"
+            print(f"{ny}x{nx} {dname} --engine {engine} ({res.engine}, {mod.launches} launches, "
+                  f"{path} path): av_vels rel err {e_av:.3e}, final state {e_f:.3e} vs the plain "
+                  f"engine (bar {bar})")
             check(np.isfinite(e_av) and e_av <= bar and np.isfinite(e_f) and e_f <= bar,
                   f"{ny}x{nx} {dname} --engine {engine}: outside the bar of the plain engine")
 
@@ -1872,7 +1921,7 @@ def main() -> int:
             _build.load(name)
             print(f"built {lib_path.relative_to(REPO)}")
         print(f"built and loaded the kernels in {time.perf_counter() - t0:.1f} s")
-        phase_ptxas()
+        phase_ptxas(d2q9_kstep)
 
         th, tw, k_main = d2q9_kstep.choose_config(N, N, torch.float32)
         print(f"choose_config(1024, 1024, float32) = tile {th}x{tw}, K={k_main}")
@@ -1926,6 +1975,7 @@ def main() -> int:
         "mlups_4096": paths_4096[name][2], "breakdown_launches": bd_launches[name],
         "breakdown_us_per_step": bd_steps[{"d2q9_kstep": "B2", "d2q9_kstep_inplace": "B1",
                                            "d2q9_kstep_manual": "B3"}[name]],
+        **({"path": paths[name][3]} if paths[name][3] else {}),
         **({"grid": occupancy} if name == "d2q9_kstep_manual" else {}),
     } for name, replaces in KERNELS.items()]
     kernels.append({

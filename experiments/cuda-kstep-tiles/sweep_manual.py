@@ -11,7 +11,8 @@ this file (or --out).
 
 `--probe` is the short first call after a change to the 2-D kernels: it
 prints what `nvcc -Xptxas -v` says of csrc/d2q9_kstep.cu, csrc/d2q9_manual.cu
-and csrc/copy_floor.cu (registers, spills), then checks, on grids whose
+and csrc/copy_floor.cu (registers, spills) and the blocks an SM of B1 and B2
+on each path at 16x32, K=4, then checks, on grids whose
 sides no tile divides as on 1024^2, in both types and at K = 1..4: B2 against
 `stepk_plain`, B1 and B3 against B2 bit for bit (one pass and three passes of
 `run`), the stream_only mode of all three bit-equal to the plain version's,
@@ -46,7 +47,8 @@ TILES = ((8, 32), (8, 64), (16, 32), (16, 64), (32, 32), (8, 128), (16, 16))
 KS = (1, 2, 4, 8)
 KW = dict(omega=1.85, accel_w1=0.1 * 0.01 / 9, accel_w2=0.1 * 0.01 / 36)
 BARS = {torch.float64: 1e-12, torch.float32: 1e-5}
-PROBE_SHAPES = ((1024, 1024), (64, 1001), (72, 130), (12, 128), (1000, 1008), (33, 37))
+PROBE_SHAPES = ((1024, 1024), (64, 1001), (72, 130), (12, 128), (1000, 1008), (33, 37), (16, 32),
+                (32, 64))
 
 
 def card() -> str:
@@ -87,6 +89,11 @@ def ptxas_report() -> None:
 
 def probe() -> int:
     ptxas_report()
+    for itemsize in (4, 8):
+        for in_place, name in ((False, "B2"), (True, "B1")):
+            print(f"{name} 16x32 K=4 itemsize {itemsize}: blocks an SM",
+                  {path: d2q9_kstep.blocks_per_sm(in_place, path, (16, 32), 4, itemsize)
+                   for path in d2q9_kstep.PATHS}, flush=True)
     failures = []
 
     def check(cond, what):
@@ -110,7 +117,8 @@ def probe() -> int:
                 es, et = rel(b2[0], ref[0]), rel(b2[1], ref[1])
                 eq1 = torch.equal(b1[0], b2[0]) and torch.equal(b1[1], b2[1])
                 eq3 = torch.equal(b3[0], b2[0]) and torch.equal(b3[1], b2[1])
-                print(f"probe {what}: B2 vs plain state {es:.3e} Sum|u| {et:.3e}; "
+                print(f"probe {what}: paths B2 {d2q9_kstep.last_path}, B1 "
+                      f"{d2q9_kstep_inplace.last_path}; B2 vs plain state {es:.3e} Sum|u| {et:.3e}; "
                       f"B1 == B2 {eq1}; B3 == B2 {eq3}; B3 - B2 max abs "
                       f"{float((b3[0] - b2[0]).abs().max()):.3e}", flush=True)
                 check(es <= BARS[dtype] and et <= BARS[dtype], f"{what}: B2 vs plain")

@@ -45,8 +45,33 @@
 //     copies nothing more. Being in place saves the second lattice in
 //     memory, not traffic: the ring adds (2K/tile_h + 2K/tile_w) of the
 //     lattice, written once and read once per pass.
-//   * both kernels share the load-compute-store code and the reduction
-//     order, so for the same tiles B1 is bit-identical to B2.
+//   * both kernels share the step code and the reduction order, so for the
+//     same tiles B1 is bit-identical to B2.
+// Two ways to move a region, chosen per launch by the wrapper from the shape
+// (d2q9_kstep.choose_path; the launch refuses a path that the layout does
+// not allow):
+//   * the box path (kstep_box_kernel): the Tensor Memory Accelerator moves
+//     the region in and the tile out, so the threads spend no instruction on
+//     the address of a value that a box can place. One thread issues the
+//     region's boxes on an mbarrier; meanwhile the threads load the mask and,
+//     into registers, the strips that no box can place; once the boxes have
+//     landed they store those strips. B2's region is one (9, rh, rw) box of
+//     f; its strips are the K rows or columns that wrap around the grid
+//     (TMA fills them with zeros), so a tile away from the grid's edges has
+//     none. B1's region is three boxes a plane: its top K rows from hband,
+//     its interior rows (tw + 2K wide) from f and its bottom K rows from
+//     hband (hband holds whole rows, corners included); the threads then
+//     overwrite the 2K columns beside the tile from vband, and at the grid's
+//     left and right edge the K x K corners of the hband rows, which wrap.
+//     The last step writes the tile dense, (9, th, tw), into the buffer the
+//     step before left free, and one box stores it; B1's ring goes from the
+//     same dense tile to next_hband as (K, tw) boxes and to next_vband by
+//     the threads. It needs no edge tiles, rows of a multiple of 16 bytes, a
+//     region whose first column lies on 16 bytes (K values a multiple of 16
+//     bytes) and box offsets in shared memory of a multiple of 128 bytes
+//     (B1);
+//   * the thread path (kstep_kernel), any other shape: the threads load every
+//     value of the region (cell_source) and store every value of the tile.
 // The library is compiled with -fmad=false: every product, sum and division
 // rounds on its own, as in collide_fields. The plain PyTorch version on CUDA
 // still differs by about 1e-6 relative in float32 (1e-15 in float64): PyTorch
@@ -57,7 +82,10 @@
 // given stream and returning cudaGetLastError() after every launch. The
 // kernels allocate nothing; the caller passes every buffer.
 
+#include <string.h>
+
 #include "d2q9_step.cuh"
+#include "tile_copy.cuh"
 
 namespace {
 
@@ -274,6 +302,255 @@ kstep_kernel(const T* f, const uint8_t* __restrict__ mask, T* out,
   if (kInPlace && next_hband != nullptr) write_ring<T, kEdge>(src, next_hband, next_vband, t, g);
 }
 
+// ----------------------------------------------------------- box path ----
+
+enum Path { kThreadPath = 0, kBoxPath = 1 };  // d2q9_kstep.PATHS
+
+// The tensor maps of a box-path launch, one __grid_constant__ parameter.
+struct Maps {
+  CUtensorMap in;         // f as (9, ny, nx): B2 box (9, rh, rw), B1 box (1, th, rw)
+  CUtensorMap out;        // out (B2) or f (B1), box (9, th, tw)
+  CUtensorMap band;       // B1: hband as (nty * 9, 2K, nx), box (1, K, rw)
+  CUtensorMap next_band;  // B1: next_hband, box (1, K, tw)
+};
+
+__host__ __device__ inline int round_up(int x, int a) { return (x + a - 1) / a * a; }
+
+// Byte offsets of the box path's shared memory from its 128-byte aligned
+// base: the region buffer a at 0, the buffer b, the mbarrier, the reduction
+// scratch, the mask and the row and column flags; `total` counts the slack
+// of the alignment too (mirrored by d2q9_kstep.box_smem_bytes).
+struct BoxSmem {
+  int b, bar, red, m, total;
+};
+
+__host__ __device__ inline BoxSmem box_smem(const Tiles& t, int elem) {
+  const int rh = t.th + 2 * t.k, rw = t.tw + 2 * t.k, state = 9 * rh * rw * elem;
+  BoxSmem s;
+  s.b = round_up(state, 128);
+  s.bar = s.b + round_up(state, 16);
+  s.red = s.bar + 16;
+  s.m = s.red + 2 * kWarps * elem;
+  s.total = 128 + s.m + rh * rw + rh + rw;
+  return s;
+}
+
+// The cells of a region that no box places, as two pieces (region rows and
+// columns): A, rows [0, a_top) and [rh - a_bot, rh) x columns [0, a_l) and
+// [rw - a_r, rw); B, rows [b_lo, b_hi) x columns [0, b_l) and [rw - b_r, rw).
+// B2: A the rows that wrap (all columns), B the columns that wrap (the rows
+// between). B1: A the corners of the hband rows that wrap, B the 2K columns
+// beside the tile, from vband. (Mirrored by region_plan in
+// tests/test_torch_d2q9_region_plan.py.)
+struct Strips {
+  int a_top, a_bot, a_l, a_r, b_lo, b_hi, b_l, b_r;
+};
+
+template <bool kInPlace>
+__device__ __forceinline__ Strips strips_of(const Tiles& t, const Region& g) {
+  const int k = t.k;
+  const int lft = max(0, k - g.c0), rgt = max(0, g.c0 + g.tw + k - t.nx);
+  if (kInPlace) return Strips{k, k, lft, rgt, k, k + g.th, k, k};
+  const int top = max(0, k - g.r0), bot = max(0, g.r0 + g.th + k - t.ny);
+  return Strips{top, bot, g.rw, 0, top, g.rh - bot, lft, rgt};
+}
+
+__device__ __forceinline__ int strip_cells(const Strips& s) {
+  return (s.a_top + s.a_bot) * (s.a_l + s.a_r) + (s.b_hi - s.b_lo) * (s.b_l + s.b_r);
+}
+
+// Loads the nine values of strip cell i into v from where cell_source reads
+// them; returns the cell's index in a plane of the region.
+template <typename T, bool kInPlace>
+__device__ __forceinline__ int load_strip_cell(const T* f, const T* hband, const T* vband,
+                                               const Tiles& t, const Region& g,
+                                               const Strips& s, int i, T (&v)[9]) {
+  const int wa = s.a_l + s.a_r, na = (s.a_top + s.a_bot) * wa;
+  int r, c;
+  if (i < na) {
+    const int rr = i / wa, cc = i - rr * wa;
+    r = rr < s.a_top ? rr : g.rh - s.a_bot + (rr - s.a_top);
+    c = cc < s.a_l ? cc : g.rw - s.a_r + (cc - s.a_l);
+  } else {
+    const int wb = s.b_l + s.b_r, rr = (i - na) / wb, cc = i - na - rr * wb;
+    r = s.b_lo + rr;
+    c = cc < s.b_l ? cc : g.rw - s.b_r + (cc - s.b_l);
+  }
+  const int gr = wrap(g.r0 - t.k + r, t.ny), gc = wrap(g.c0 - t.k + c, t.nx);
+  size_t stride;
+  const T* src = cell_source<T, kInPlace>(f, hband, vband, t, g, r, c, gr, gc, stride);
+#pragma unroll
+  for (int q = 0; q < 9; ++q) v[q] = src[q * stride];
+  return r * g.rw + c;
+}
+
+// B1's ring columns for the next pass from the dense (9, th, tw) tile, in
+// the layout cell_source reads: the left K columns to the tile's own vertical
+// boundary, the right K to the next (its rows go by boxes).
+template <typename T>
+__device__ __forceinline__ void write_ring_cols(const T* tile, T* next_vband, const Tiles& t,
+                                                const Region& g) {
+  const int k = t.k, two_k = 2 * k, tile_plane = g.th * g.tw;
+  const float inv_two_k = 1.0f / two_k;
+  for (int idx = threadIdx.x; idx < g.th * two_k; idx += kThreads) {
+    const int r = div_small(idx, inv_two_k);
+    const int cc = idx - r * two_k;
+    const bool left = cc < k;
+    const int ic = left ? cc : g.tw - two_k + cc;  // tile column
+    const int b = left ? g.tx : (g.tx + 1) % t.ntx();
+    const int i = left ? k + cc : cc - k;
+    T* out = next_vband + ((size_t)b * 9 * t.ny + g.r0 + r) * two_k + i;
+#pragma unroll
+    for (int q = 0; q < 9; ++q)
+      out[(size_t)q * t.ny * two_k] = tile[q * tile_plane + r * g.tw + ic];
+  }
+}
+
+template <typename T, bool kInPlace, int kMode>
+__global__ void __launch_bounds__(kThreads)
+kstep_box_kernel(const __grid_constant__ Maps maps, const T* f, const uint8_t* __restrict__ mask,
+                 T* out, const T* __restrict__ hband, const T* __restrict__ vband,
+                 T* __restrict__ next_hband, T* __restrict__ next_vband, T* __restrict__ partials,
+                 Tiles t, Window win, int accel_row, Coef<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int k = t.k;
+  const BoxSmem at = box_smem(t, sizeof(T));
+  unsigned char* base = tile_copy::align128<unsigned char>(smem_raw);
+  T* buf_a = reinterpret_cast<T*>(base);
+  T* buf_b = reinterpret_cast<T*>(base + at.b);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + at.bar);
+  T* red = reinterpret_cast<T*>(base + at.red);  // 2 * kWarps, alternating by step parity
+  uint8_t* m = base + at.m;
+  uint8_t* row_flag = m + t.full_plane();
+  uint8_t* col_flag = row_flag + t.th + 2 * k;
+
+  const int tid = threadIdx.x;
+  const Region g = region_of<false>(t, blockIdx.y, blockIdx.x);
+  const int ntiles = gridDim.x * gridDim.y;
+  const int bid = blockIdx.y * gridDim.x + blockIdx.x;
+  const int below = (g.ty + 1) % t.nty();  // the boundary under the tile
+
+  if (tid == 0) {
+    tile_copy::mbar_init(bar, 1);
+    tile_copy::mbar_expect_tx(bar, (uint32_t)(9 * g.plane * sizeof(T)));
+    if (kInPlace) {
+      for (int q = 0; q < 9; ++q) {
+        T* plane = buf_a + q * g.plane;
+        tile_copy::box_load(&maps.band, plane, bar, g.c0 - k, 0, g.ty * 9 + q);
+        // The interior rows come rw wide, not tw: a box lands dense, so only
+        // one as wide as the region keeps its row stride, and a tw-wide box
+        // would land at a shared offset off 128 bytes. Its 2K outer columns
+        // are the neighbouring tiles' cells of f, which their blocks may be
+        // storing in this same launch: a race whose values are never used,
+        // since the strips from vband overwrite those columns after the wait
+        // and before any step reads them.
+        tile_copy::box_load(&maps.in, plane + k * g.rw, bar, g.c0 - k, g.r0, q);
+        tile_copy::box_load(&maps.band, plane + (k + g.th) * g.rw, bar, g.c0 - k, k,
+                            below * 9 + q);
+      }
+    } else {
+      tile_copy::box_load(&maps.in, buf_a, bar, g.c0 - k, g.r0 - k, 0);
+    }
+  }
+
+  // while the boxes are in flight: the flags, the mask and the first strip
+  // cell of each thread
+  set_flags(t, g, win, accel_row, row_flag, col_flag);
+  const bool wraps = g.r0 < k || g.r0 + g.th + k > t.ny || g.c0 < k || g.c0 + g.tw + k > t.nx;
+  if (!wraps && (t.nx | k | g.rw) % 4 == 0 && reinterpret_cast<uintptr_t>(mask) % 4 == 0) {
+    // four mask bytes a load: region rows and their first column on 4 bytes
+    const int words = g.rw / 4;
+    const float inv_words = 1.0f / words;
+    for (int idx = tid; idx < g.rh * words; idx += kThreads) {
+      const int r = div_small(idx, inv_words);
+      const int w = idx - r * words;
+      reinterpret_cast<uint32_t*>(m + r * g.rw)[w] = *reinterpret_cast<const uint32_t*>(
+          mask + (size_t)(g.r0 - k + r) * t.nx + (g.c0 - k) + 4 * w);
+    }
+  } else {
+    const float inv_rw = 1.0f / g.rw;
+    for (int idx = tid; idx < g.plane; idx += kThreads) {
+      const int r = div_small(idx, inv_rw);
+      const int c = idx - r * g.rw;
+      m[idx] = mask[(size_t)wrap(g.r0 - k + r, t.ny) * t.nx + wrap(g.c0 - k + c, t.nx)];
+    }
+  }
+  const Strips s = strips_of<kInPlace>(t, g);
+  const int nstrip = strip_cells(s);
+  T v[9];
+  const int first =
+      tid < nstrip ? load_strip_cell<T, kInPlace>(f, hband, vband, t, g, s, tid, v) : -1;
+  __syncthreads();  // the mbarrier is initialised before anyone waits on it
+  tile_copy::mbar_wait(bar, 0);
+  if (first >= 0) {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) buf_a[q * g.plane + first] = v[q];
+  }
+  for (int i = tid + kThreads; i < nstrip; i += kThreads) {
+    const int cell = load_strip_cell<T, kInPlace>(f, hband, vband, t, g, s, i, v);
+#pragma unroll
+    for (int q = 0; q < 9; ++q) buf_a[q * g.plane + cell] = v[q];
+  }
+  __syncthreads();
+
+  // K steps; the last writes the tile dense, (9, th, tw), into the free buffer
+  const int tile_plane = g.th * g.tw;
+  T* src = buf_a;
+  T* dst = buf_b;
+  if constexpr (kMode == kCopy) {
+    const float inv_tw = 1.0f / g.tw;
+    for (int idx = tid; idx < tile_plane; idx += kThreads) {
+      const int r = div_small(idx, inv_tw);
+      const int c = idx - r * g.tw;
+#pragma unroll
+      for (int q = 0; q < 9; ++q)
+        dst[q * tile_plane + idx] = src[q * g.plane + (r + k) * g.rw + (c + k)];
+    }
+    src = dst;
+    tile_copy::fence_proxy_async();
+    if (tid == 0)
+      for (int j = 0; j < k; ++j) partials[(size_t)j * ntiles + bid] = T(0);
+    __syncthreads();
+  } else {
+    const Tiles dense{g.th, g.tw, t.th, t.tw, k};  // the tile as a (9, th, tw) "grid"
+    Region at_origin = g;
+    at_origin.r0 = at_origin.c0 = 0;
+    for (int j = 1; j <= k; ++j) {
+      T acc;
+      if (j < k) {
+        acc = step_region<T, kMode, false>(src, dst, m, row_flag, col_flag, t, g, j, p);
+      } else {
+        acc = step_region<T, kMode, true>(src, dst, m, row_flag, col_flag, dense, at_origin, j,
+                                          p);
+        tile_copy::fence_proxy_async();  // the dense tile, before the box store reads it
+      }
+      // the barrier inside block_sum also orders this step's writes of dst
+      // before the next step's reads (and the box store)
+      const T tot = block_sum<T>(acc, red + (j & 1) * kWarps);
+      if (tid == 0) partials[(size_t)(j - 1) * ntiles + bid] = tot;
+      T* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+  }
+
+  const bool ring = kInPlace && next_vband != nullptr;
+  if (tid == 0) {
+    tile_copy::box_store(&maps.out, src, g.c0, g.r0, 0);
+    if (ring) {
+      // the top K rows to the tile's own boundary, the bottom K to the next
+      for (int q = 0; q < 9; ++q) {
+        const T* plane = src + q * tile_plane;
+        tile_copy::box_store(&maps.next_band, plane, g.c0, k, g.ty * 9 + q);
+        tile_copy::box_store(&maps.next_band, plane + (g.th - k) * g.tw, g.c0, 0, below * 9 + q);
+      }
+    }
+    tile_copy::bulk_commit();
+  }
+  if (ring) write_ring_cols<T>(src, next_vband, t, g);
+  if (tid == 0) tile_copy::bulk_wait_read<0>();  // the stores have read the tile
+}
+
 // In-place snapshot, rows: hband row (b*9 + q)*2k + i is row
 // (b*th - k + i) mod ny of plane q (see cell_source).
 template <typename T>
@@ -316,6 +593,39 @@ size_t smem_bytes(const Tiles& t, size_t itemsize) {
   return 2 * 9 * rh * rw * itemsize + 2 * kWarps * itemsize + rh * rw + rh + rw;
 }
 
+// Shared memory a block may use on Hopper (d2q9_kstep.SMEM_PER_BLOCK).
+constexpr size_t kSmemPerBlock = 232448;
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Whether the box path takes this launch (mirrored by d2q9_kstep.choose_path):
+// no edge tiles; rows of f, box rows and tile rows of a multiple of 16 bytes;
+// a region's first column (c0 - K) on 16 bytes, so K values a multiple of 16
+// bytes (an H100 traps on a box load that starts 8 bytes off); boxes of at
+// most 256 a side; 16-byte aligned buffers; in place, every box that lands in
+// or leaves from the middle of a plane at a multiple of 128 bytes; the block
+// in shared memory.
+bool box_fits(const Tiles& t, int elem, bool in_place, const void* f, const void* out,
+              const void* hband, const void* next_hband) {
+  const int rh = t.th + 2 * t.k, rw = t.tw + 2 * t.k;
+  bool ok = !has_edges(t) && t.th >= t.k && t.tw >= t.k && rh <= 256 && rw <= 256 &&
+            (t.k * elem) % 16 == 0 && (t.tw * elem) % 16 == 0 && ((size_t)t.nx * elem) % 16 == 0 &&
+            aligned16(f) && aligned16(out) && (size_t)box_smem(t, elem).total <= kSmemPerBlock;
+  if (in_place)
+    ok = ok && (rh * rw * elem) % 128 == 0 && (t.k * rw * elem) % 128 == 0 &&
+         (t.th * rw * elem) % 128 == 0 && (t.th * t.tw * elem) % 128 == 0 &&
+         ((t.th - t.k) * t.tw * elem) % 128 == 0 && aligned16(hband) &&
+         (next_hband == nullptr || aligned16(next_hband));
+  return ok;
+}
+
+template <typename T>
+int sum_partials(const void* partials, void* tot, Tiles t, cudaStream_t stream) {
+  sum_partials_kernel<T><<<t.k, kThreads, 0, stream>>>(
+      static_cast<const T*>(partials), t.ntx() * t.nty(), static_cast<T*>(tot));
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kInPlace, int kMode, bool kEdge>
 int launch_edge(const void* f, const void* mask, void* out, const void* hband,
                 const void* vband, void* next_hband, void* next_vband,
@@ -337,18 +647,62 @@ int launch_edge(const void* f, const void* mask, void* out, const void* hband,
       accel_row, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<T><<<t.k, kThreads, 0, stream>>>(
-      static_cast<const T*>(partials), (int)(grid.x * grid.y),
-      static_cast<T*>(tot));
-  return (int)cudaGetLastError();
+  return sum_partials<T>(partials, tot, t, stream);
+}
+
+// The tensor maps of a box-path launch, each encoded once per pointer and
+// shape (tile_copy::encode_map); an encoding that fails returns its error.
+int encode_maps(Maps& maps, const Tiles& t, int elem, bool in_place, const void* f,
+                const void* out, const void* hband, const void* next_hband) {
+  memset(&maps, 0, sizeof maps);
+  const int rh = t.th + 2 * t.k, rw = t.tw + 2 * t.k, bands = t.nty() * 9;
+  using tile_copy::encode_map;
+  int rc = encode_map(&maps.out, {out, elem, 9, t.ny, t.nx, 9, t.th, t.tw});
+  if (rc) return rc;
+  if (!in_place) return encode_map(&maps.in, {f, elem, 9, t.ny, t.nx, 9, rh, rw});
+  rc = encode_map(&maps.in, {f, elem, 9, t.ny, t.nx, 1, t.th, rw});
+  if (!rc) rc = encode_map(&maps.band, {hband, elem, bands, 2 * t.k, t.nx, 1, t.k, rw});
+  if (!rc && next_hband != nullptr)
+    rc = encode_map(&maps.next_band, {next_hband, elem, bands, 2 * t.k, t.nx, 1, t.k, t.tw});
+  return rc;
+}
+
+template <typename T, bool kInPlace, int kMode>
+int launch_box(const void* f, const void* mask, void* out, const void* hband,
+               const void* vband, void* next_hband, void* next_vband,
+               void* partials, void* tot, Tiles t, Window win,
+               int accel_row, double omega, double w1, double w2,
+               cudaStream_t stream) {
+  constexpr int E = sizeof(T);
+  if (!box_fits(t, E, kInPlace, f, out, hband, next_hband)) return (int)cudaErrorInvalidValue;
+  Maps maps;
+  int rc = encode_maps(maps, t, E, kInPlace, f, out, hband, next_hband);
+  if (rc) return rc;
+  const Coef<T> p{T(omega), T(1.0 - omega), T(w1), T(w2)};
+  const size_t smem = box_smem(t, E).total;
+  cudaError_t err = cudaFuncSetAttribute(kstep_box_kernel<T, kInPlace, kMode>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kstep_box_kernel<T, kInPlace, kMode><<<dim3(t.ntx(), t.nty()), kThreads, smem, stream>>>(
+      maps, static_cast<const T*>(f), static_cast<const uint8_t*>(mask), static_cast<T*>(out),
+      static_cast<const T*>(hband), static_cast<const T*>(vband), static_cast<T*>(next_hband),
+      static_cast<T*>(next_vband), static_cast<T*>(partials), t, win, accel_row, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return sum_partials<T>(partials, tot, t, stream);
 }
 
 template <typename T, bool kInPlace, int kMode>
 int launch_mode(const void* f, const void* mask, void* out, const void* hband,
                 const void* vband, void* next_hband, void* next_vband,
                 void* partials, void* tot, Tiles t, Window win,
-                int accel_row, double omega, double w1, double w2,
+                int accel_row, int path, double omega, double w1, double w2,
                 cudaStream_t stream) {
+  if (path == kBoxPath)
+    return launch_box<T, kInPlace, kMode>(f, mask, out, hband, vband, next_hband, next_vband,
+                                          partials, tot, t, win, accel_row, omega, w1, w2,
+                                          stream);
+  if (path != kThreadPath) return (int)cudaErrorInvalidValue;
   return has_edges(t)
       ? launch_edge<T, kInPlace, kMode, true>(f, mask, out, hband, vband, next_hband, next_vband,
                                               partials, tot, t, win, accel_row, omega, w1, w2,
@@ -361,21 +715,21 @@ int launch_mode(const void* f, const void* mask, void* out, const void* hband,
 template <typename T, bool kInPlace>
 int launch(const void* f, const void* mask, void* out, const void* hband,
            const void* vband, void* next_hband, void* next_vband,
-           void* partials, void* tot, Tiles t, Window win,
+           void* partials, void* tot, int path, Tiles t, Window win,
            int accel_row, int mode, double omega, double w1, double w2,
            cudaStream_t stream) {
   switch (mode) {
     case kFull:
       return launch_mode<T, kInPlace, kFull>(f, mask, out, hband, vband, next_hband,
-                                             next_vband, partials, tot, t, win, accel_row,
+                                             next_vband, partials, tot, t, win, accel_row, path,
                                              omega, w1, w2, stream);
     case kStreamOnly:
       return launch_mode<T, kInPlace, kStreamOnly>(f, mask, out, hband, vband, next_hband,
                                                    next_vband, partials, tot, t, win,
-                                                   accel_row, omega, w1, w2, stream);
+                                                   accel_row, path, omega, w1, w2, stream);
     case kCopy:
       return launch_mode<T, kInPlace, kCopy>(f, mask, out, hband, vband, next_hband,
-                                             next_vband, partials, tot, t, win, accel_row,
+                                             next_vband, partials, tot, t, win, accel_row, path,
                                              omega, w1, w2, stream);
   }
   return (int)cudaErrorInvalidValue;
@@ -384,7 +738,7 @@ int launch(const void* f, const void* mask, void* out, const void* hband,
 template <typename T>
 int launch_inplace(void* f, const void* mask, void* hband, void* vband,
                    int take_snapshot, void* next_hband, void* next_vband,
-                   void* partials, void* tot, Tiles t, Window win,
+                   void* partials, void* tot, int path, Tiles t, Window win,
                    int accel_row, int mode, double omega, double w1, double w2,
                    cudaStream_t stream) {
   if (take_snapshot) {
@@ -400,7 +754,25 @@ int launch_inplace(void* f, const void* mask, void* hband, void* vband,
     if (err != cudaSuccess) return (int)err;
   }
   return launch<T, true>(f, mask, f, hband, vband, next_hband, next_vband,
-                         partials, tot, t, win, accel_row, mode, omega, w1, w2, stream);
+                         partials, tot, path, t, win, accel_row, mode, omega, w1, w2, stream);
+}
+
+// Blocks of the full-mode kernel of `path` resident on one SM of the current
+// device for this tile and K; 0 on an error.
+template <typename T, bool kInPlace>
+int blocks_per_sm(int path, Tiles t) {
+  const void* kernel = path == kBoxPath
+                           ? (const void*)kstep_box_kernel<T, kInPlace, kFull>
+                           : (const void*)kstep_kernel<T, kInPlace, kFull, false>;
+  const size_t smem = path == kBoxPath ? (size_t)box_smem(t, sizeof(T)).total
+                                       : smem_bytes(t, sizeof(T));
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
+          cudaSuccess)
+    return 0;
+  return per_sm;
 }
 
 }  // namespace
@@ -408,17 +780,17 @@ int launch_inplace(void* f, const void* mask, void* hband, void* vband,
 extern "C" {
 
 // B2: out = K steps of f (out must not alias f); tot[K] per-step Sum|u|;
-// partials holds K * ceil(ny/th) * ceil(nx/tw) values of scratch. mode is a
-// d2q9::Mode.
+// partials holds K * ceil(ny/th) * ceil(nx/tw) values of scratch. path is a
+// Path (d2q9_kstep.PATHS), mode a d2q9::Mode.
 int d2q9_kstep_f32(const void* f, const void* mask, void* out, void* partials,
-                   void* tot, D2Q9_ARGS) {
+                   void* tot, int path, D2Q9_ARGS) {
   return launch<float, false>(f, mask, out, nullptr, nullptr, nullptr, nullptr,
-                              partials, tot, D2Q9_PASS);
+                              partials, tot, path, D2Q9_PASS);
 }
 int d2q9_kstep_f64(const void* f, const void* mask, void* out, void* partials,
-                   void* tot, D2Q9_ARGS) {
+                   void* tot, int path, D2Q9_ARGS) {
   return launch<double, false>(f, mask, out, nullptr, nullptr, nullptr, nullptr,
-                               partials, tot, D2Q9_PASS);
+                               partials, tot, path, D2Q9_PASS);
 }
 
 // B1: f = K steps of f, in place. hband/vband hold the boundary snapshot:
@@ -430,15 +802,24 @@ int d2q9_kstep_f64(const void* f, const void* mask, void* out, void* partials,
 // holds K * ceil(ny/th) * ceil(nx/tw) values.
 int d2q9_kstep_inplace_f32(void* f, const void* mask, void* hband, void* vband,
                            int take_snapshot, void* next_hband, void* next_vband,
-                           void* partials, void* tot, D2Q9_ARGS) {
+                           void* partials, void* tot, int path, D2Q9_ARGS) {
   return launch_inplace<float>(f, mask, hband, vband, take_snapshot, next_hband,
-                               next_vband, partials, tot, D2Q9_PASS);
+                               next_vband, partials, tot, path, D2Q9_PASS);
 }
 int d2q9_kstep_inplace_f64(void* f, const void* mask, void* hband, void* vband,
                            int take_snapshot, void* next_hband, void* next_vband,
-                           void* partials, void* tot, D2Q9_ARGS) {
+                           void* partials, void* tot, int path, D2Q9_ARGS) {
   return launch_inplace<double>(f, mask, hband, vband, take_snapshot, next_hband,
-                                next_vband, partials, tot, D2Q9_PASS);
+                                next_vband, partials, tot, path, D2Q9_PASS);
+}
+
+// Blocks of B1 (in_place) or B2 in full mode on `path` that one SM of the
+// current device holds at this tile and K, itemsize 4 or 8; 0 on an error.
+int d2q9_kstep_blocks(int itemsize, int in_place, int path, int th, int tw, int k) {
+  const Tiles t{th, tw, th, tw, k};
+  if (itemsize == 8)
+    return in_place ? blocks_per_sm<double, true>(path, t) : blocks_per_sm<double, false>(path, t);
+  return in_place ? blocks_per_sm<float, true>(path, t) : blocks_per_sm<float, false>(path, t);
 }
 
 }  // extern "C"

@@ -46,11 +46,12 @@ _STENCIL_RESIDENT = [_P] * 5 + [_I] * 7 + [_U, _I, _P]
 _BLUR_RESIDENT_OPT = [_P] * 5 + [_I] * 9 + [_U, _I, _P]
 # argument types of every C entry point, by source (the file's stem)
 SIGNATURES = {
-    "d2q9_kstep": {
-        "d2q9_kstep_f32": [_P] * 5 + _D2Q9_SCALARS,
-        "d2q9_kstep_f64": [_P] * 5 + _D2Q9_SCALARS,
-        "d2q9_kstep_inplace_f32": [_P] * 4 + [_I] + [_P] * 4 + _D2Q9_SCALARS,
-        "d2q9_kstep_inplace_f64": [_P] * 4 + [_I] + [_P] * 4 + _D2Q9_SCALARS,
+    "d2q9_kstep": {  # ... partials, tot, path, then the scalars
+        "d2q9_kstep_f32": [_P] * 5 + [_I] + _D2Q9_SCALARS,
+        "d2q9_kstep_f64": [_P] * 5 + [_I] + _D2Q9_SCALARS,
+        "d2q9_kstep_inplace_f32": [_P] * 4 + [_I] + [_P] * 4 + [_I] + _D2Q9_SCALARS,
+        "d2q9_kstep_inplace_f64": [_P] * 4 + [_I] + [_P] * 4 + [_I] + _D2Q9_SCALARS,
+        "d2q9_kstep_blocks": [_I] * 6,
     },
     "d2q9_manual": {
         "d2q9_manual_f32": [_P] * 5 + _D2Q9_SCALARS,

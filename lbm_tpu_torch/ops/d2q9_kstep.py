@@ -25,6 +25,16 @@ Contract of `stepk` (shared with `d2q9_kstep_inplace.stepk` and
   * on a CUDA tensor the kernel is launched, or the call raises; on a CPU
     tensor the plain version `stepk_plain` runs. There is no other route.
 
+B1 and B2 move a tile's region in one of two ways (`PATHS`), which
+`choose_path` picks per launch from the shape and the buffers' alignment:
+"box", where the Tensor Memory Accelerator brings the region in and takes
+the tile out in boxes and the threads patch only the strips no box can place,
+or "thread",
+every value by the threads, for the shapes TMA cannot take (edge tiles; K
+values, rows or tile rows that are not whole 16-byte pieces, e.g. K = 1..3
+in float32; box offsets off 128 bytes in place). The launch reports it in
+`last_path`; a box launch whose tensor map does not encode raises.
+
 `stepk_plain` is the plain PyTorch version: K steps of `d2q9` on the whole
 periodic array. It agrees with the kernel on every cell whenever
 global_ny == ny, or the accelerated row lies more than K rows from the
@@ -41,6 +51,8 @@ from . import d2q9
 
 # Launches of kernel B2 (one per K-step pass); callers may reset it.
 launches = 0
+# The path of the last launch of B2 ("box" or "thread").
+last_path = None
 
 MAX_STEPS_PER_PASS = 8
 # Shared memory a block may use on Hopper (H100/H200), in bytes.
@@ -59,6 +71,9 @@ TILE_CANDIDATES = ((16, 32), (8, 32), (16, 16), (8, 16), (8, 8))
 PREFERRED_K = 4
 # the diagnostic modes of the kernels, by their index in the C entry points
 MODES = ("full", "stream_only", "copy")
+# how a launch moves its regions, by index in the C entry points (Path)
+PATHS = ("thread", "box")
+MAX_BOX = 256  # TMA's longest side of a box, in values
 
 
 def smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int:
@@ -67,6 +82,58 @@ def smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int:
     flags (mirrors smem_bytes in csrc/d2q9_kstep.cu)."""
     rh, rw = tile_h + 2 * k_steps, tile_w + 2 * k_steps
     return 2 * 9 * rh * rw * itemsize + 2 * WARPS_PER_BLOCK * itemsize + rh * rw + rh + rw
+
+
+def _round_up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def box_smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block on the box path: `smem_bytes` with
+    each state buffer on 128 bytes (TMA's boxes), the mbarrier, and 128 bytes
+    of slack to align the base (mirrors box_smem in csrc/d2q9_kstep.cu)."""
+    rh, rw = tile_h + 2 * k_steps, tile_w + 2 * k_steps
+    state = 9 * rh * rw * itemsize
+    return (128 + _round_up(state, 128) + _round_up(state, 16) + 16
+            + 2 * WARPS_PER_BLOCK * itemsize + rh * rw + rh + rw)
+
+
+def choose_path(ny: int, nx: int, tile, k_steps: int, itemsize: int, in_place: bool,
+                aligned: bool = True) -> str:
+    """"box" where TMA can move this launch's regions, else "thread"
+    (mirrors box_fits in csrc/d2q9_kstep.cu): no edge tiles; the rows of the
+    state (nx) and of the tile (tw), and K values, whole 16-byte pieces, so
+    that a region (tw + 2K wide) starts on 16 bytes (an H100 traps on a box
+    load at a column 8 bytes off); sides of at most MAX_BOX; every buffer on
+    16 bytes (`aligned`); the block in shared memory. In place (B1) a region
+    arrives in three boxes a plane and the ring leaves in two, so each of
+    their offsets in shared memory must be a multiple of 128 bytes: a plane,
+    K and th region rows, a tile plane and th - K tile rows."""
+    th, tw = tile
+    k, e = k_steps, itemsize
+    rh, rw = th + 2 * k, tw + 2 * k
+    fits = (ny % th == 0 and nx % tw == 0 and min(th, tw) >= k and max(rh, rw) <= MAX_BOX
+            and (k * e) % 16 == 0 and (tw * e) % 16 == 0 and (nx * e) % 16 == 0 and aligned
+            and box_smem_bytes(th, tw, k, e) <= SMEM_PER_BLOCK)
+    if in_place:
+        fits = fits and all(b % 128 == 0 for b in (rh * rw * e, k * rw * e, th * rw * e,
+                                                   th * tw * e, (th - k) * tw * e))
+    return "box" if fits else "thread"
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on 16 bytes (TMA's rule)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def blocks_per_sm(in_place: bool, path: str, tile, k_steps: int, itemsize: int) -> int:
+    """Blocks of B1 (`in_place`) or B2 in full mode on `path` that one SM of
+    the current card holds at this tile and K (the card's occupancy
+    calculator; 0 on an error)."""
+    from . import _build
+
+    return _build.load("d2q9_kstep").d2q9_kstep_blocks(itemsize, int(in_place),
+                                                      PATHS.index(path), *tile, k_steps)
 
 
 def choose_tile(h: int, w: int, itemsize: int, k_steps: int,
@@ -222,12 +289,20 @@ def _entry(f: torch.Tensor, name: str, source: str = "d2q9_kstep"):
     return getattr(_build.load(source), f"{name}_{suffix}")
 
 
-def _launch(f, mask_u8, out, partials, tot, scalars):
-    global launches
+def launch_path(f: torch.Tensor, tile, k_steps: int, in_place: bool, *buffers) -> str:
+    """The path of a CUDA launch on state f and `buffers` (choose_path)."""
+    _, ny, nx = f.shape
+    return choose_path(ny, nx, tile, k_steps, f.element_size(), in_place,
+                       aligned16(f, *buffers))
+
+
+def _launch(f, mask_u8, out, partials, tot, path, scalars):
+    global launches, last_path
     launches += 1
+    last_path = path
     rc = _entry(f, "d2q9_kstep")(f.data_ptr(), mask_u8.data_ptr(), out.data_ptr(),
-                                 partials.data_ptr(), tot.data_ptr(), *scalars)
-    check_rc(rc, "d2q9_kstep")
+                                 partials.data_ptr(), tot.data_ptr(), PATHS.index(path), *scalars)
+    check_rc(rc, f"d2q9_kstep ({path} path)")
 
 
 def stepk(
@@ -254,13 +329,13 @@ def stepk(
         return stepk_plain(f, mask, k_steps=k_steps, omega=omega, accel_w1=accel_w1,
                            accel_w2=accel_w2, accel_row=accel_row, **window)
     mask_u8 = obstacle_u8(mask)
-    _, ntiles, scalars = kernel_args(
+    tile, ntiles, scalars = kernel_args(
         f, mask_u8, k_steps=k_steps, tile=tile, omega=omega, accel_w1=accel_w1,
         accel_w2=accel_w2, accel_row=accel_row, **window)
     out = torch.empty_like(f)
     partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
-    _launch(f, mask_u8, out, partials, tot, scalars)
+    _launch(f, mask_u8, out, partials, tot, launch_path(f, tile, k_steps, False, out), scalars)
     return out, tot
 
 
@@ -304,12 +379,13 @@ def run(
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
     mask_u8 = obstacle_u8(mask)
-    _, ntiles, scalars = kernel_args(f, mask_u8, k_steps=k_steps, tile=tile, mode=mode, **kw)
+    tile, ntiles, scalars = kernel_args(f, mask_u8, k_steps=k_steps, tile=tile, mode=mode, **kw)
     bufs = (torch.empty_like(f), torch.empty_like(f))
+    path = launch_path(f, tile, k_steps, False, *bufs)
     partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     for i in range(num_steps // k_steps):
         out = bufs[i % 2]
-        _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], scalars)
+        _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars)
         f = out
     return f, tots
 

@@ -24,6 +24,8 @@ from . import d2q9_kstep
 
 # Launches of kernel B1 (one per K-step pass); callers may reset it.
 launches = 0
+# The path of the last launch of B1 ("box" or "thread").
+last_path = None
 
 
 def snapshot_shapes(ny: int, nx: int, tile: tuple[int, int], k_steps: int):
@@ -34,17 +36,19 @@ def snapshot_shapes(ny: int, nx: int, tile: tuple[int, int], k_steps: int):
     return (-(-ny // th), 9, 2 * k_steps, nx), (-(-nx // tw), 9, ny, 2 * k_steps)
 
 
-def _launch(f, mask_u8, snap, take_snapshot, next_snap, partials, tot, scalars):
-    """One pass. snap = (hband, vband) holds the boundary snapshot, filled
-    from f first when take_snapshot; next_snap receives the snapshot for the
-    next pass, or is None."""
-    global launches
+def _launch(f, mask_u8, snap, take_snapshot, next_snap, partials, tot, path, scalars):
+    """One pass on `path`. snap = (hband, vband) holds the boundary snapshot,
+    filled from f first when take_snapshot; next_snap receives the snapshot
+    for the next pass, or is None."""
+    global launches, last_path
     launches += 1
+    last_path = path
     nh, nv = (0, 0) if next_snap is None else (next_snap[0].data_ptr(), next_snap[1].data_ptr())
     rc = d2q9_kstep._entry(f, "d2q9_kstep_inplace")(
         f.data_ptr(), mask_u8.data_ptr(), snap[0].data_ptr(), snap[1].data_ptr(),
-        int(take_snapshot), nh, nv, partials.data_ptr(), tot.data_ptr(), *scalars)
-    d2q9_kstep.check_rc(rc, "d2q9_kstep_inplace")
+        int(take_snapshot), nh, nv, partials.data_ptr(), tot.data_ptr(),
+        d2q9_kstep.PATHS.index(path), *scalars)
+    d2q9_kstep.check_rc(rc, f"d2q9_kstep_inplace ({path} path)")
 
 
 def _snapshot(f, tile, k_steps):
@@ -83,7 +87,9 @@ def stepk(
     tile, ntiles, scalars = d2q9_kstep.kernel_args(f, mask_u8, tile=tile, **kw)
     partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
-    _launch(f, mask_u8, _snapshot(f, tile, k_steps), True, None, partials, tot, scalars)
+    snap = _snapshot(f, tile, k_steps)
+    _launch(f, mask_u8, snap, True, None, partials, tot,
+            d2q9_kstep.launch_path(f, tile, k_steps, True, *snap), scalars)
     return f, tot
 
 
@@ -122,10 +128,11 @@ def run(
     tile, ntiles, scalars = d2q9_kstep.kernel_args(f, mask_u8, k_steps=k_steps, tile=tile,
                                                    mode=mode, **kw)
     snaps = (_snapshot(f, tile, k_steps), _snapshot(f, tile, k_steps))
+    path = d2q9_kstep.launch_path(f, tile, k_steps, True, *snaps[0], *snaps[1])
     partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     for i in range(num_steps // k_steps):
         _launch(f, mask_u8, snaps[i % 2], i == 0, snaps[(i + 1) % 2], partials,
-                tots[i * k_steps:(i + 1) * k_steps], scalars)
+                tots[i * k_steps:(i + 1) * k_steps], path, scalars)
     return f, tots
 
 

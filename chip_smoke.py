@@ -9,19 +9,21 @@ Phases, each of which must pass or the script exits non-zero:
   1. prints the card's name and power limit; builds the CUDA kernels from
      the eight sources of lbm_tpu_torch/csrc/ with nvcc (one process per
      source, all started together) and prints the build time; prints what
-     `nvcc -Xptxas -v` says of the three sources on TMA (B12 and B11, on
-     csrc/tile_copy.cuh, and d2q9_kstep.cu, whose box path moves B1's and
-     B2's regions by TMA) and the blocks an SM of B1 and B2 on each path at
-     16x32, K=4 (three in float32, or it fails);
+     `nvcc -Xptxas -v` says of the four sources on TMA (B12 and B11, on
+     csrc/tile_copy.cuh, d2q9_kstep.cu and d2q9_manual.cu, whose box paths
+     move B1's, B2's and B3's regions by TMA) and the blocks an SM of B1, B2
+     and B3 on each path at 16x32, K=4 (three of B1 and B2 and two of B3 in
+     float32, or it fails);
   2. D2Q9 kernels vs plain version at 1024x1024: for kernels B2 (d2q9_kstep),
      B1 (d2q9_kstep_inplace) and B3 (d2q9_kstep_manual, the pipelined one),
-     at K = 1..4, in float64 and float32, plus one case with a ghost window
-     (row_offset, valid rows and columns strictly inside, global_ny != ny):
-     one stepk with the kernel and one with stepk_plain on the card, from a
-     numpy-seeded state. B1 and B3 must be bit-equal to B2, also over three
-     passes of `run` (where B1 chains its boundary snapshot); each case
-     prints the path B1 and B2 took (box, with the tiles whose regions the
-     threads patch, or thread: K = 1..3 in float32); the same on
+     at K = 1..8 (at B3's tile), in float64 and float32, plus one case with a
+     ghost window (row_offset, valid rows and columns strictly inside,
+     global_ny != ny): one stepk with the kernel and one with stepk_plain on
+     the card, from a numpy-seeded state. B1 and B3 must be bit-equal to B2,
+     also over three passes of `run` (where B1 chains its boundary
+     snapshot); each case prints the path B1, B2 and B3 took (box, with the
+     tiles whose regions the threads patch, or thread: K = 1..3 in float32),
+     and B3 must have run on both paths in each type; the same on
      three grids whose width is not a multiple of 32 (narrower tiles) and on
      64x1001 and 72x130, which no tile divides (edge tiles). The diagnostic
      modes: stream_only of B1, B2 and B3 bit-equal to the plain version's
@@ -31,10 +33,12 @@ Phases, each of which must pass or the script exits non-zero:
      and a state off 16 bytes (experiments/cuda-kstep-tiles/ab_copy.py). Timing of B1, B2, B3 (and its persistent grid), B12 (its
      device ms and its host's enqueue µs a pass) and `copy_`;
   3. the 2-D main path: the flagship run (1024x1024, 20,000 steps, float32)
-     through `lbm_tpu_torch.cli.lbm --engine auto`, which must pick
-     cuda-inplace (B1), launch it on the box path and never call the plain
-     engine; then the same run with `--engine cuda` (B2, box path too) and
-     `--engine cuda-manual` (B3). Each
+     through `lbm_tpu_torch.cli.lbm --engine auto`, which must pick the
+     engine `d2q9_kstep.choose_engine` names for the card's free memory
+     (cuda, B2), launch that kernel alone on the box path and never call the
+     plain engine; then the same run with `--engine cuda-inplace` (B1),
+     `--engine cuda` (B2) and `--engine cuda-manual` (B3), each on the box
+     path. Each
      final_state.dat is held to check/1024x1024.final_state.dat.gz by the
      checker's per-cell rule (verify/check.py: column 5, 1%), and the first
      100 av_vels to a 100-step run of the plain engine on the card (4e-4).
@@ -60,7 +64,8 @@ Phases, each of which must pass or the script exits non-zero:
      experiments/d3q19-drift/d3q19_16x64x128_6000.av_vels.dat, float32
      through both engines (max relative error over all steps <= 1.5e-3) and
      float64 through `cuda` (first 200 steps <= 1e-10);
-  7. checkpoint/resume on the card, 2-D (1024^2, B1 and B3) and 3-D
+  7. checkpoint/resume on the card, 2-D (1024^2: `--engine cuda-inplace`
+     (B1), `cuda-manual` (B3) and `auto`) and 3-D
      (64x128x256, B4): N steps with --checkpoint-every N/2, then 2N with
      --resume; av_vels and the final state must equal an uninterrupted 2N run
      bit for bit;
@@ -304,16 +309,18 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_ptxas(d2q9_kstep):
-    """What nvcc -Xptxas -v says of the three sources on the tile copy
-    (registers, shared memory, spills of each kernel; d2q9_kstep.cu's box
-    path, kstep_box_kernel, moves its regions by TMA), and the blocks an SM
-    of B1 and B2 on each path at the flagship's 16x32, K=4: three on the box
-    path in float32, as on the thread path."""
+def phase_ptxas(torch, d2q9_kstep, d2q9_kstep_manual):
+    """What nvcc -Xptxas -v says of the four sources on the tile copy
+    (registers, shared memory, spills of each kernel; the box paths of
+    d2q9_kstep.cu, kstep_box_kernel, and of d2q9_manual.cu,
+    manual_box_kernel, move their regions by TMA), and the blocks an SM of
+    B1, B2 and B3 on each path at the flagship's 16x32, K=4: in float32
+    three of B1 and B2 and two of B3 (whose three region buffers take twice
+    B2's two), on either path."""
     harness = load_harness("ab_copy")
     t0 = time.perf_counter()
     try:
-        for source in ("copy_floor", "overlap_probe", "d2q9_kstep"):
+        for source in ("copy_floor", "overlap_probe", "d2q9_kstep", "d2q9_manual"):
             harness.ptxas_report(source)
     except SystemExit as err:
         raise Failure(f"nvcc -Xptxas -v failed: {err}") from err
@@ -329,20 +336,34 @@ def phase_ptxas(d2q9_kstep):
             if itemsize == 4:
                 check(blocks["box"] >= 3 and blocks["thread"] >= 3,
                       f"{name}: fewer than three blocks an SM at 16x32 K=4 f32: {blocks}")
+        dtype = torch.float32 if itemsize == 4 else torch.float64
+        f = torch.empty((9, N, N), dtype=dtype, device="cuda")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        blocks = {path: d2q9_kstep_manual.grid_blocks(f, (16, 32), 4, path=path) / sms
+                  for path in d2q9_kstep_manual.PATHS}
+        smem = {"thread": d2q9_kstep_manual.smem_bytes(16, 32, 4, itemsize),
+                "box": d2q9_kstep_manual.box_smem_bytes(16, 32, 4, itemsize)}
+        print(f"occupancy B3 16x32 K=4 itemsize {itemsize}: blocks an SM {blocks}, "
+              f"shared memory a block {smem} B")
+        if itemsize == 4:
+            check(min(blocks.values()) >= 2,
+                  f"B3: fewer than two blocks an SM at 16x32 K=4 f32: {blocks}")
+        del f
 
 
-def path_line(mods, grid=None) -> str:
-    """The path each of B2 and B1 took in its last launch; for a box launch
-    on grid = (ny, nx, tile), how many tiles the boxes fill alone: B2's tiles
-    whose region does not wrap, none of B1's (its side columns come from the
-    snapshot)."""
+def path_line(mods, grid=None, k=1) -> str:
+    """The path each of B2, B1 and B3 took in its last launch; for a box
+    launch on grid = (ny, nx, tile) at K = k, how many tiles the boxes fill
+    alone: B2's and B3's tiles whose region does not wrap, none of B1's (its
+    side columns come from the snapshot)."""
     parts = []
-    for name, mod, in_place in (("B2", mods[0], False), ("B1", mods[1], True)):
+    for name, mod, in_place in (("B2", mods[0], False), ("B1", mods[1], True),
+                                ("B3", mods[2], False)):
         text = f"{name} {mod.last_path}"
         if grid is not None and mod.last_path == "box":
             ny, nx, (th, tw) = grid
             nty, ntx = ny // th, nx // tw
-            alone = 0 if in_place else max(0, nty - 2) * max(0, ntx - 2)
+            alone = 0 if in_place else max(0, nty - 2 * -(-k // th)) * max(0, ntx - 2 * -(-k // tw))
             text += f" ({alone} of {nty * ntx} tiles by boxes alone, {nty * ntx - alone} " \
                     "with strips)"
         parts.append(text)
@@ -361,18 +382,23 @@ def phase_parity(torch, mods, k_main):
     abs_err = {}
     for dname, dtype in (("float64", torch.float64), ("float32", torch.float32)):
         f, mask = state.to_torch(f_np, mask_np, device="cuda", dtype=dtype)
-        cases = [(k, "full", dict(accel_row=N - 2)) for k in sorted({1, 2, 3, 4, k_main})]
+        cases = [(k, "full", dict(accel_row=N - 2)) for k in range(1, 9)]
         cases.append((k_main, "window", window))
+        b3_paths = set()
         for k, label, extra in cases:
+            # B3's tile (16x16 at K=8 in float64, where its thread path's
+            # three buffers of 16x32 do not fit), so that all three compare
+            tile = d2q9_kstep_manual.choose_tile(N, N, f.element_size(), k)
             kw = dict(k_steps=k, **aw, **extra)
             ref_f, ref_tot = d2q9_kstep.stepk_plain(f, mask, **kw)
             torch.cuda.synchronize()
-            b2_f, b2_tot = d2q9_kstep.stepk(f, mask, **kw)
+            b2_f, b2_tot = d2q9_kstep.stepk(f, mask, tile=tile, **kw)
             torch.cuda.synchronize()
-            b1_f, b1_tot = d2q9_kstep_inplace.stepk(f.clone(), mask, **kw)
+            b1_f, b1_tot = d2q9_kstep_inplace.stepk(f.clone(), mask, tile=tile, **kw)
             torch.cuda.synchronize()
-            b3_f, b3_tot = d2q9_kstep_manual.stepk(f, mask, **kw)
+            b3_f, b3_tot = d2q9_kstep_manual.stepk(f, mask, tile=tile, **kw)
             torch.cuda.synchronize()
+            b3_paths.add(d2q9_kstep_manual.last_path)
             for name, kf, kt in (("d2q9_kstep", b2_f, b2_tot),
                                  ("d2q9_kstep_inplace", b1_f, b1_tot),
                                  ("d2q9_kstep_manual", b3_f, b3_tot)):
@@ -390,9 +416,10 @@ def phase_parity(torch, mods, k_main):
                   f"B1 is not bit-equal to B2 ({dname} K={k} {label})")
             check(torch.equal(b3_f, b2_f) and torch.equal(b3_tot, b2_tot),
                   f"B3 is not bit-equal to B2 ({dname} K={k} {label})")
-            grid = (N, N, d2q9_kstep.choose_config(N, N, dtype)[:2])
-            print(f"parity B1 == B2 == B3 bit for bit ({dname} K={k} {label}); "
-                  f"{path_line(mods, grid)}")
+            print(f"parity B1 == B2 == B3 bit for bit ({dname} K={k} {label}, tile "
+                  f"{tile[0]}x{tile[1]}); {path_line(mods, (N, N, tile), k)}")
+        check(b3_paths == set(d2q9_kstep_manual.PATHS),
+              f"B3 ran on {sorted(b3_paths)} only in {dname}, not on both paths")
         # several passes of run: B1 hands each pass its boundary snapshot
         run_kw = dict(num_steps=3 * k_main, k_steps=k_main, accel_row=N - 2, **aw)
         b2_f, b2_tot = d2q9_kstep.run(f, mask, **run_kw)
@@ -417,8 +444,10 @@ def phase_narrow_tiles(torch, mods, k_main):
     aw = dict(omega=1.85, accel_w1=0.1 * 0.01 / 9, accel_w2=0.1 * 0.01 / 36)
     for ny, nx in ((1024, 1008), (1000, 1008), (1024, 1000), (64, 1001), (72, 130)):
         th, tw, _ = d2q9_kstep.choose_config(ny, nx)
-        check(d2q9_kstep.choose_engine(ny, nx) == "cuda-inplace",
-              f"choose_engine({ny}, {nx}) is not cuda-inplace")
+        # every grid with sides of at least K, whatever its height mod 8,
+        # goes to the fastest kernel that fits the card's free memory
+        check(d2q9_kstep.choose_engine(ny, nx) == d2q9_kstep.AUTO_ENGINES[0],
+              f"choose_engine({ny}, {nx}) is not {d2q9_kstep.AUTO_ENGINES[0]}")
         f_np, mask_np = random_state(rng, ny, nx), random_mask(rng, ny, nx)
         for dname, dtype in (("float64", torch.float64), ("float32", torch.float32)):
             f, mask = state.to_torch(f_np, mask_np, device="cuda", dtype=dtype)
@@ -474,7 +503,7 @@ def phase_modes(torch, mods, copy_floor):
             got_f, got_tot = mod.stepk(f.clone(), mask, mode="stream_only", **kw)
             copy_f, _ = mod.stepk(f.clone(), mask, mode="copy", **kw)
             torch.cuda.synchronize()
-            path = getattr(mod, "last_path", None) or "B3's own pipeline"
+            path = mod.last_path
             et = rel_err(got_tot, ref_tot)
             check(torch.equal(got_f, ref_f), f"{name} stream_only {ny}x{nx} {dname}: state "
                                              "differs from the plain version")
@@ -537,10 +566,11 @@ def phase_timing(torch, mods, k_main, copy_floor):
         print(f"timing {name:19s}: {t:.4f} ms per K={k_main} launch "
               f"({cells * k_main / t / 1e3:.0f} MLUPS), bound {bound[0]:.4f} ms ({bound[1]}), "
               f"plain version {plain_ms:.4f} ms")
+    b3_path = d2q9_kstep_manual.choose_path(N, N, tile, k_main, itemsize)
+    smem = d2q9_kstep_manual.launch_smem(N, N)(*tile, k_main, itemsize)
     print(f"timing d2q9_kstep_manual: persistent grid of {blocks} blocks on {sms} SMs "
-          f"({blocks / sms:g} an SM, {d2q9_kstep_manual.smem_bytes(*tile, k_main, itemsize)} B "
-          f"of shared memory each), {ntiles} tiles of {tile[0]}x{tile[1]}: "
-          f"{ntiles / blocks:.2f} rounds")
+          f"({blocks / sms:g} an SM, {smem} B of shared memory each, {b3_path} path), {ntiles} "
+          f"tiles of {tile[0]}x{tile[1]}: {ntiles / blocks:.2f} rounds")
     # B12: a pass of out = in at the K-step tile; bytes 9 values in and out a cell
     passes_copy = 1000
     copy_ms = time_ms(torch, lambda: copy_floor.run_copy(f, passes_copy, *tile), 1) / passes_copy
@@ -567,7 +597,7 @@ def phase_timing(torch, mods, k_main, copy_floor):
                 block=list(tile), path=path, chunk=list(chunk), stages=stages,
                 blocks_per_sm=per_sm, host_enqueue_us=enqueue_us)
     occupancy = dict(blocks=blocks, blocks_per_sm=blocks / sms, tile=list(tile),
-                     rounds=ntiles / blocks)
+                     rounds=ntiles / blocks, path=b3_path, smem_bytes=smem)
     return ms, plain_ms, bound, copy, occupancy
 
 
@@ -614,8 +644,14 @@ def diff_pct(ref, sim):
         return 100.0 * (diff / (ref - diff))
 
 
+def engine_modules(mods):
+    """{2-D kernel engine: its wrapper module}."""
+    return {"cuda": mods[0], "cuda-inplace": mods[1], "cuda-manual": mods[2]}
+
+
 def phase_main_path(torch, mods, golden, mask):
-    """Phase 3. Returns {kernel: (launches, seconds, mlups)} of each path."""
+    """Phase 3. Returns {engine: (launches, seconds, mlups, path)} of each
+    run, and the engine that `auto` picked."""
     from lbm_tpu_torch.cli import lbm as cli
     from lbm_tpu_torch.core import io as lbm_io
     from lbm_tpu_torch.core.params import Obstacles, Params
@@ -625,6 +661,15 @@ def phase_main_path(torch, mods, golden, mask):
 
     results = {}
     avs = {}
+    # the engine the rule names for this card's free memory now; the CLI
+    # asks again when it runs
+    steps = FLAGSHIP["max_iters"]
+    picked = d2q9_kstep.choose_engine(N, N, torch.float32, num_steps=steps)
+    needs = {e: d2q9_kstep.simulate_bytes(e, N, N, torch.float32, steps)
+             for e in d2q9_kstep.AUTO_ENGINES}
+    print(f"main path: choose_engine(1024, 1024, float32) = {picked} (free device memory "
+          f"{d2q9_kstep.free_device_bytes()} B; the runs need {needs} B)")
+    by_engine = engine_modules(mods)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         params = Params(**FLAGSHIP)
@@ -632,10 +677,9 @@ def phase_main_path(torch, mods, golden, mask):
         params.to_file(tmp / "input_1024x1024.params")
         obstacles.to_file(tmp / "obstacles_1024x1024.dat")
         print(f"main path: flagship mask has {obstacles.num_blocked} blocked cells")
-        for engine, kernel, mod in (
-                ("auto", "d2q9_kstep_inplace", d2q9_kstep_inplace),
-                ("cuda", "d2q9_kstep", d2q9_kstep),
-                ("cuda-manual", "d2q9_kstep_manual", d2q9_kstep_manual)):
+        for engine in ("auto", "cuda-inplace", "cuda", "cuda-manual"):
+            mod = by_engine[picked if engine == "auto" else engine]
+            kernel = mod.__name__.rsplit(".", 1)[1]
             out = tmp / engine
             argv = ["--params", str(tmp / "input_1024x1024.params"),
                     "--obstacles", str(tmp / "obstacles_1024x1024.dat"),
@@ -653,20 +697,19 @@ def phase_main_path(torch, mods, golden, mask):
             check(plain.calls == 0,
                   f"--engine {engine}: the plain engine ran {plain.calls} collisions")
             if engine == "auto":
-                check(re.search(r"^engine:\s+cuda-inplace$", text, re.M) is not None,
-                      "--engine auto did not choose cuda-inplace")
+                check(re.search(rf"^engine:\s+{picked}$", text, re.M) is not None,
+                      f"--engine auto did not choose {picked}")
             seconds = float(re.search(r"Total compute time:\s+([0-9.eE+-]+)", text).group(1))
             mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
             # launches count the warm-up run and the timed run, which are equal
             per_launch_ms = seconds / (launches / 2) * 1e3
-            path = getattr(mod, "last_path", None)
-            if mod is not d2q9_kstep_manual:
-                # the flagship shape moves its regions by TMA
-                check(path == "box", f"--engine {engine}: {kernel} took the {path} path")
-            print(f"main path {kernel}: {launches} launches, {seconds:.6f} s timed, "
-                  f"{mlups} MLUPS, {per_launch_ms:.4f} ms per launch in the timed run"
-                  + (f", {path} path" if path else ""))
-            results[kernel] = (launches, seconds, mlups, path)
+            path = mod.last_path
+            # the flagship shape moves its regions by TMA
+            check(path == "box", f"--engine {engine}: {kernel} took the {path} path")
+            print(f"main path --engine {engine} ({kernel}): {launches} launches, {seconds:.6f} s "
+                  f"timed, {mlups} MLUPS, {per_launch_ms:.4f} ms per launch in the timed run, "
+                  f"{path} path")
+            results[engine] = (launches, seconds, mlups, path)
 
             sim = np.loadtxt(out / "final_state.dat", usecols=(0, 1, 4, 5))
             check(sim.shape == (N * N, 4), f"final_state.dat has shape {sim.shape}")
@@ -684,16 +727,16 @@ def phase_main_path(torch, mods, golden, mask):
             av = lbm_io.read_av_vels(out / "av_vels.dat")
             check(av.shape == (FLAGSHIP["max_iters"],) and np.isfinite(av).all(),
                   f"--engine {engine}: av_vels.dat is malformed")
-            avs[kernel] = av
+            avs[engine] = av
 
     plain = lbm_model.run_simulation(Params(**FLAGSHIP), Obstacles(mask), dtype=torch.float32,
                                      engine="torch", num_steps=100, device="cuda")
-    for kernel, av in avs.items():
+    for engine, av in avs.items():
         err = float(np.max(np.abs(av[:100] - plain.av_vels) / np.abs(plain.av_vels)))
-        print(f"av_vels[:100] of {kernel} vs the plain engine on the card: max rel err "
+        print(f"av_vels[:100] of --engine {engine} vs the plain engine on the card: max rel err "
               f"{err:.3e} (bar {AV_VELS_BAR})")
-        check(err <= AV_VELS_BAR, f"{kernel}: av_vels prefix rel err {err} > {AV_VELS_BAR}")
-    return results
+        check(err <= AV_VELS_BAR, f"{engine}: av_vels prefix rel err {err} > {AV_VELS_BAR}")
+    return results, picked
 
 
 def random_state_3d(rng, nz, ny, nx, density=0.1):
@@ -885,75 +928,53 @@ def phase_golden_3d(torch):
 
 def phase_checkpoint(torch, mods, mods3, mask):
     """Phase 7: chunked + resumed runs equal uninterrupted ones bit for bit.
-    Returns {kernel: launches of the chunked and resumed runs}."""
+    Returns {engine: launches of the chunked and resumed runs} (2-D by
+    engine name, 3-D by kernel)."""
     from lbm_tpu_torch.cli import lbm as cli
     from lbm_tpu_torch.cli import lbm3d as cli3
     from lbm_tpu_torch.core.params import Obstacles, Params
     from lbm_tpu_torch.models import lbm as lbm_model
     from lbm_tpu_torch.ops import d3q19
-    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
+    d2q9_kstep = mods[0]
     d3q19_kstep, d3q19_kstep_inplace = mods3
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        # 2-D, kernel B1: 2000 steps in chunks of 1000, then on to 4000
-        n = 2000
+        # 2-D: B1 (--engine cuda-inplace) and `auto` 2000 steps in chunks of
+        # 1000, then on to 4000; B3 (--engine cuda-manual) 1000 in chunks of 500
         params, obstacles = Params(**FLAGSHIP), Obstacles(mask)
         params.to_file(tmp / "input.params")
         obstacles.to_file(tmp / "obstacles.dat")
-        base = ["--params", str(tmp / "input.params"), "--obstacles", str(tmp / "obstacles.dat"),
-                "--engine", "auto", "--out-dir", str(tmp / "ck2d"),
-                "--checkpoint-every", str(n // 2)]
-        for m in mods:
-            m.launches = 0
-        for argv in (base + ["--num-steps", str(n)],
-                     base + ["--num-steps", str(2 * n), "--resume"]):
-            rc, text = run_cli(cli.main, argv)
-            check(rc == 0, f"2-D checkpointed cli returned {rc}")
-        launches["d2q9_kstep_inplace"] = d2q9_kstep_inplace.launches
-        check(d2q9_kstep_inplace.launches > 0 and d2q9_kstep.launches == 0
-              and d2q9_kstep_manual.launches == 0,
-              "the 2-D checkpointed run did not go through B1 alone")
-        ref = lbm_model.run_simulation(params, obstacles, dtype=torch.float32, engine="auto",
-                                       num_steps=2 * n, device="cuda")
-        with np.load(tmp / "ck2d" / "checkpoint.npz") as ck:
-            check(int(ck["step"]) == 2 * n and int(ck["k_steps"]) > 0,
-                  "the 2-D checkpoint does not record step and k_steps")
-            check(np.array_equal(ck["av_vels"], ref.av_vels),
-                  "2-D: resumed av_vels differ from the uninterrupted run")
-            check(np.array_equal(ck["f"], ref.f_final),
-                  "2-D: resumed final state differs from the uninterrupted run")
-        print(f"checkpoint 2-D 1024x1024 (B1, {launches['d2q9_kstep_inplace']} launches): "
-              f"{n} steps in chunks of {n // 2}, resumed to {2 * n}: av_vels and final state "
-              "equal the uninterrupted run bit for bit")
-
-        # 2-D, kernel B3: 1000 steps in chunks of 500, then on to 2000
-        m_steps = 1000
-        base = ["--params", str(tmp / "input.params"), "--obstacles", str(tmp / "obstacles.dat"),
-                "--engine", "cuda-manual", "--out-dir", str(tmp / "ck2d_manual"),
-                "--checkpoint-every", str(m_steps // 2)]
-        for m in mods:
-            m.launches = 0
-        for argv in (base + ["--num-steps", str(m_steps)],
-                     base + ["--num-steps", str(2 * m_steps), "--resume"]):
-            rc, text = run_cli(cli.main, argv)
-            check(rc == 0, f"2-D checkpointed cli (cuda-manual) returned {rc}")
-        launches["d2q9_kstep_manual"] = d2q9_kstep_manual.launches
-        check(d2q9_kstep_manual.launches > 0 and d2q9_kstep.launches == 0
-              and d2q9_kstep_inplace.launches == 0,
-              "the cuda-manual checkpointed run did not go through B3 alone")
-        ref = lbm_model.run_simulation(params, obstacles, dtype=torch.float32,
-                                       engine="cuda-manual", num_steps=2 * m_steps, device="cuda")
-        with np.load(tmp / "ck2d_manual" / "checkpoint.npz") as ck:
-            check(int(ck["step"]) == 2 * m_steps and int(ck["k_steps"]) > 0,
-                  "the cuda-manual checkpoint does not record step and k_steps")
-            check(np.array_equal(ck["av_vels"], ref.av_vels),
-                  "cuda-manual: resumed av_vels differ from the uninterrupted run")
-            check(np.array_equal(ck["f"], ref.f_final),
-                  "cuda-manual: resumed final state differs from the uninterrupted run")
-        print(f"checkpoint 2-D 1024x1024 (B3, {launches['d2q9_kstep_manual']} launches): "
-              f"{m_steps} steps in chunks of {m_steps // 2}, resumed to {2 * m_steps}: av_vels "
-              "and final state equal the uninterrupted run bit for bit")
+        by_engine = engine_modules(mods)
+        for engine, n in (("cuda-inplace", 2000), ("cuda-manual", 1000), ("auto", 2000)):
+            mod = by_engine[d2q9_kstep.choose_engine(N, N, num_steps=2 * n)
+                            if engine == "auto" else engine]
+            kernel = mod.__name__.rsplit(".", 1)[1]
+            out = tmp / f"ck2d_{engine}"
+            base = ["--params", str(tmp / "input.params"), "--obstacles",
+                    str(tmp / "obstacles.dat"), "--engine", engine, "--out-dir", str(out),
+                    "--checkpoint-every", str(n // 2)]
+            for m in mods:
+                m.launches = 0
+            for argv in (base + ["--num-steps", str(n)],
+                         base + ["--num-steps", str(2 * n), "--resume"]):
+                rc, text = run_cli(cli.main, argv)
+                check(rc == 0, f"2-D checkpointed cli (--engine {engine}) returned {rc}")
+            launches[engine] = mod.launches
+            check(mod.launches > 0 and all(m.launches == 0 for m in mods if m is not mod),
+                  f"the --engine {engine} checkpointed run did not go through {kernel} alone")
+            ref = lbm_model.run_simulation(params, obstacles, dtype=torch.float32, engine=engine,
+                                           num_steps=2 * n, device="cuda")
+            with np.load(out / "checkpoint.npz") as ck:
+                check(int(ck["step"]) == 2 * n and int(ck["k_steps"]) > 0,
+                      f"the --engine {engine} checkpoint does not record step and k_steps")
+                check(np.array_equal(ck["av_vels"], ref.av_vels),
+                      f"--engine {engine}: resumed av_vels differ from the uninterrupted run")
+                check(np.array_equal(ck["f"], ref.f_final),
+                      f"--engine {engine}: resumed final state differs from the uninterrupted run")
+            print(f"checkpoint 2-D 1024x1024 (--engine {engine}, {kernel}, {launches[engine]} "
+                  f"launches): {n} steps in chunks of {n // 2}, resumed to {2 * n}: av_vels and "
+                  "final state equal the uninterrupted run bit for bit")
 
         # 3-D, kernel B4: 600 steps in chunks of 300, then on to 1200
         nz, ny, nx = SHAPE_3D
@@ -1053,7 +1074,9 @@ def phase_any_width(torch, mods):
                               ("float64", torch.float64, GOLDEN_3D_BAR_F64)):
         plain = lbm_model.run_simulation(params, obstacles, dtype=dtype, engine="torch",
                                          device="cuda")
-        for engine, mod in (("auto", d2q9_kstep_inplace), ("cuda", d2q9_kstep),
+        by_engine = engine_modules(mods)
+        auto = by_engine[d2q9_kstep.choose_engine(ny, nx, dtype, num_steps=params.max_iters)]
+        for engine, mod in (("auto", auto), ("cuda", d2q9_kstep),
                             ("cuda-inplace", d2q9_kstep_inplace),
                             ("cuda-manual", d2q9_kstep_manual)):
             for m in mods:
@@ -1065,7 +1088,7 @@ def phase_any_width(torch, mods):
                   f"{ny}x{nx} --engine {engine}: not through its kernel alone")
             e_av = float(np.abs(res.av_vels - plain.av_vels).max() / np.abs(plain.av_vels).max())
             e_f = float(np.abs(res.f_final - plain.f_final).max() / np.abs(plain.f_final).max())
-            path = getattr(mod, "last_path", None) or "B3's own pipeline"
+            path = mod.last_path
             print(f"{ny}x{nx} {dname} --engine {engine} ({res.engine}, {mod.launches} launches, "
                   f"{path} path): av_vels rel err {e_av:.3e}, final state {e_f:.3e} vs the plain "
                   f"engine (bar {bar})")
@@ -1921,7 +1944,7 @@ def main() -> int:
             _build.load(name)
             print(f"built {lib_path.relative_to(REPO)}")
         print(f"built and loaded the kernels in {time.perf_counter() - t0:.1f} s")
-        phase_ptxas(d2q9_kstep)
+        phase_ptxas(torch, d2q9_kstep, d2q9_kstep_manual)
 
         th, tw, k_main = d2q9_kstep.choose_config(N, N, torch.float32)
         print(f"choose_config(1024, 1024, float32) = tile {th}x{tw}, K={k_main}")
@@ -1932,7 +1955,7 @@ def main() -> int:
         t0 = time.perf_counter()
         golden, mask = load_golden()
         print(f"loaded {GOLDEN.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s")
-        paths = phase_main_path(torch, mods, golden, mask)
+        flagship, picked = phase_main_path(torch, mods, golden, mask)
         paths_4096 = phase_4096(torch, mods)
         phase_any_width(torch, mods)
         bd_launches, bd_steps, bd_floor = phase_breakdown_path(torch, mods, copy_floor, k_main)
@@ -1962,20 +1985,30 @@ def main() -> int:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
 
+    # each 2-D kernel's main-path run: `auto` for the kernel it picked, else
+    # its engine by name (the other flagship runs are listed beside it)
+    engine_of = {mod.__name__.rsplit(".", 1)[1]: engine
+                 for engine, mod in engine_modules(mods).items()}
+    main_engine = {name: "auto" if engine == picked else engine
+                   for name, engine in engine_of.items()}
     kernels = [{
         "name": name, "route": "cuda",
         "source": ("lbm_tpu_torch/csrc/d2q9_manual.cu" if name == "d2q9_kstep_manual"
                    else "lbm_tpu_torch/csrc/d2q9_kstep.cu"),
-        "replaces": replaces, "launches": paths[name][0], "parity": "ok",
+        "replaces": replaces, "launches": flagship[main_engine[name]][0], "parity": "ok",
         "max_abs_err": abs_err[name], "ms": ms[name], "plain_ms": plain_ms,
         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-        "k_steps": k_main, "tile": [th, tw], "flagship_seconds": paths[name][1],
-        "flagship_mlups": paths[name][2],
-        "checkpoint_launches": ck_launches.get(name, 0),
+        "k_steps": k_main, "tile": [th, tw], "main_path": f"--engine {main_engine[name]}",
+        "flagship_seconds": flagship[main_engine[name]][1],
+        "flagship_mlups": flagship[main_engine[name]][2],
+        "flagship_mlups_by_engine": {
+            e: flagship[e][2] for e in {main_engine[name], engine_of[name]}},
+        "checkpoint_launches": ck_launches.get(engine_of[name], 0)
+                               + (ck_launches.get("auto", 0) if engine_of[name] == picked else 0),
         "mlups_4096": paths_4096[name][2], "breakdown_launches": bd_launches[name],
         "breakdown_us_per_step": bd_steps[{"d2q9_kstep": "B2", "d2q9_kstep_inplace": "B1",
                                            "d2q9_kstep_manual": "B3"}[name]],
-        **({"path": paths[name][3]} if paths[name][3] else {}),
+        "path": flagship[main_engine[name]][3],
         **({"grid": occupancy} if name == "d2q9_kstep_manual" else {}),
     } for name, replaces in KERNELS.items()]
     kernels.append({

@@ -7,14 +7,16 @@ imports that copy's package and builds its kernels into that copy's `build/`.
 Both copies are built before anything is timed. The processes run in the
 order A, B, B, A, so that a drift of the card's clock or temperature falls on
 both copies alike. Each times B2 (`d2q9_kstep.run`), B1
-(`d2q9_kstep_inplace.run`) and B3 (`d2q9_kstep_manual.run`, the control: no
-change to B1 and B2 should move it) at each grid (float32, tile 16x32, K=4)
-and mode, `repeats` times each, the kernels alternating, by CUDA events over
-`passes` passes (at 1024^2; scaled by the cells at other grids) after a
-warm-up run. Writes one CSV row per timing to results_ab2d.csv beside this
-file (or --out), with the path each launch of B1 and B2 took, and prints the
-median of each (grid, mode, kernel, copy), its least and greatest time, and
-B's median against A's.
+(`d2q9_kstep_inplace.run`) and B3 (`d2q9_kstep_manual.run`) at each grid
+(float32, tile 16x32, K=4) and mode. The kernels that a change leaves alone
+are its control and should not move by more than their spread: B1 and B2
+when B3 changes (csrc/d2q9_manual.cu), B3 when B1 and B2 do. Each runs
+`repeats` times, the kernels alternating, by CUDA events over `passes`
+passes (at 1024^2; scaled by the cells at other grids) after a warm-up run.
+Writes one CSV row per timing to results_ab2d.csv beside this file (or
+--out), with the path each kernel's launches took, and prints the median of
+each (grid, mode, kernel, copy), its least and greatest time, and B's median
+against A's.
 
 Run on a machine with the card, from the repository root:
 

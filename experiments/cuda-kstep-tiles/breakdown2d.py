@@ -21,8 +21,8 @@ The time of a pass is CUDA events around `passes` passes of the wrapper's
 float32. Each (engine, K) times its three modes `repeats` times, in rounds
 that take the modes in a rotating order, so that a drift of the card's clock
 or temperature falls on every mode alike. Writes results_breakdown2d.csv
-beside this file (or --out): per (grid, engine, K, mode) the path of B1's
-and B2's launches (box or thread; B3's own pipeline), the median, least and
+beside this file (or --out): per (grid, engine, K, mode) the path of the
+kernel's launches (box or thread), the median, least and
 greatest µs per pass over the repeats, µs per step and MLUPS of the median,
 and the bytes of a pass (73 per cell) over its median time.
 
@@ -110,8 +110,8 @@ def breakdown(grids, ks=None, engines=("B2", "B3", "B1"), passes=2000, repeats=5
                     ms = statistics.median(times[mode])
                     rows.append(dict(
                         engine=name, mode=mode, grid=f"{n}x{n}", tile=f"{th}x{tw}", k=k,
-                        # B1 and B2 move regions by TMA or by the threads (d2q9_kstep.PATHS)
-                        path=getattr(mod, "last_path", None) or "pipeline",
+                        # each kernel moves regions by TMA or by the threads (PATHS)
+                        path=mod.last_path,
                         passes=n_passes, repeats=repeats, us_per_pass=round(ms * 1e3, 3),
                         us_min=round(min(times[mode]) * 1e3, 3),
                         us_max=round(max(times[mode]) * 1e3, 3),

@@ -2,21 +2,24 @@
 """Tile and K sweep of the port's pipelined CUDA D2Q9 kernel (B3,
 d2q9_kstep_manual) beside B2 (d2q9_kstep) at the same tile and K, float32.
 
-For every (tile_h, tile_w, K) that fits B3's shared memory, at 1024^2 and
-4096^2: whether B3 equals B2 bit for bit in one `stepk` (state and Sum|u|),
-B3's persistent grid (blocks, and blocks per SM on this card), then the time
+For every (tile_h, tile_w, K) that fits B3's shared memory on the path it
+takes, at 1024^2 and 4096^2: whether B3 equals B2 bit for bit in one `stepk`
+(state and Sum|u|), the path each took, B3's persistent grid (blocks, and
+blocks per SM on this card) and shared memory a block, then the time
 per pass of each inside `run` (CUDA events over `passes` passes, after a
 warm-up run). One CSV row per configuration goes to results_manual.csv beside
 this file (or --out).
 
 `--probe` is the short first call after a change to the 2-D kernels: it
 prints what `nvcc -Xptxas -v` says of csrc/d2q9_kstep.cu, csrc/d2q9_manual.cu
-and csrc/copy_floor.cu (registers, spills) and the blocks an SM of B1 and B2
-on each path at 16x32, K=4, then checks, on grids whose
-sides no tile divides as on 1024^2, in both types and at K = 1..4: B2 against
-`stepk_plain`, B1 and B3 against B2 bit for bit (one pass and three passes of
-`run`), the stream_only mode of all three bit-equal to the plain version's,
-the copy mode and B12 (copy_floor) equal to their input; and stops.
+and csrc/copy_floor.cu (registers, spills) and the blocks an SM of B1, B2 and
+B3 on each path at 16x32, K=4, then checks, on grids whose sides no tile
+divides as on 1024^2 (K = 1..8 there, K = 1 and 4 elsewhere), in both types,
+at B3's tile: B2 against `stepk_plain`, B1 and B3 against B2 bit for bit
+(one pass and three passes of `run`; at 1024^2 also on a state 4 bytes off 16,
+which takes the thread path), the stream_only mode of all three bit-equal to
+the plain version's, the copy mode and B12 (copy_floor) equal to their
+input; it prints the path each kernel took, and stops.
 
 Run on a machine with the card, from the repository root:
 
@@ -89,11 +92,18 @@ def ptxas_report() -> None:
 
 def probe() -> int:
     ptxas_report()
-    for itemsize in (4, 8):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for itemsize, dtype in ((4, torch.float32), (8, torch.float64)):
         for in_place, name in ((False, "B2"), (True, "B1")):
             print(f"{name} 16x32 K=4 itemsize {itemsize}: blocks an SM",
                   {path: d2q9_kstep.blocks_per_sm(in_place, path, (16, 32), 4, itemsize)
                    for path in d2q9_kstep.PATHS}, flush=True)
+        f = torch.empty((9, 1024, 1024), dtype=dtype, device="cuda")
+        print(f"B3 16x32 K=4 itemsize {itemsize}: blocks an SM",
+              {path: d2q9_kstep_manual.grid_blocks(f, (16, 32), 4, path=path) / sms
+               for path in d2q9_kstep_manual.PATHS}, "shared memory a block",
+              {"thread": d2q9_kstep_manual.smem_bytes(16, 32, 4, itemsize),
+               "box": d2q9_kstep_manual.box_smem_bytes(16, 32, 4, itemsize)}, flush=True)
     failures = []
 
     def check(cond, what):
@@ -101,52 +111,62 @@ def probe() -> int:
             failures.append(what)
             print("FAIL", what, flush=True)
 
+    cases = [(shape, dtype, k, False) for shape in PROBE_SHAPES
+             for dtype in (torch.float64, torch.float32)
+             for k in (range(1, 9) if shape == (1024, 1024) else (1, 4))]
+    cases += [((1024, 1024), dtype, 4, True) for dtype in (torch.float64, torch.float32)]
+    for (ny, nx), dtype, k, offset in cases:
+        f, mask = make_case(ny, nx, dtype)
+        if offset:  # a state 4 bytes off 16: every kernel takes the thread path
+            g = torch.empty(f.numel() + 1, dtype=dtype, device="cuda")[1:].view(f.shape)
+            f = g.copy_(f)
+        if min(ny, nx) < k:
+            continue
+        kw = dict(k_steps=k, accel_row=ny - 2, **KW)
+        itemsize = f.element_size()
+        tile = d2q9_kstep_manual.choose_tile(ny, nx, itemsize, k)
+        what = f"{ny}x{nx} {str(dtype)[6:]} K={k} tile {tile}{' offset' if offset else ''}"
+        ref = d2q9_kstep.stepk_plain(f, mask, **kw)
+        b2 = d2q9_kstep.stepk(f, mask, tile=tile, **kw)
+        b1 = d2q9_kstep_inplace.stepk(f.clone(), mask, tile=tile, **kw)
+        b3 = d2q9_kstep_manual.stepk(f, mask, tile=tile, **kw)
+        torch.cuda.synchronize()
+        es, et = rel(b2[0], ref[0]), rel(b2[1], ref[1])
+        eq1 = torch.equal(b1[0], b2[0]) and torch.equal(b1[1], b2[1])
+        eq3 = torch.equal(b3[0], b2[0]) and torch.equal(b3[1], b2[1])
+        print(f"probe {what}: paths B2 {d2q9_kstep.last_path}, B1 "
+              f"{d2q9_kstep_inplace.last_path}, B3 {d2q9_kstep_manual.last_path}; "
+              f"B2 vs plain state {es:.3e} Sum|u| {et:.3e}; "
+              f"B1 == B2 {eq1}; B3 == B2 {eq3}; B3 - B2 max abs "
+              f"{float((b3[0] - b2[0]).abs().max()):.3e}", flush=True)
+        check(es <= BARS[dtype] and et <= BARS[dtype], f"{what}: B2 vs plain")
+        check(eq1, f"{what}: B1 != B2")
+        check(eq3, f"{what}: B3 != B2")
+        run_kw = dict(num_steps=3 * k, k_steps=k, accel_row=ny - 2, tile=tile, **KW)
+        r2 = d2q9_kstep.run(f, mask, **run_kw)
+        r1 = d2q9_kstep_inplace.run(f.clone(), mask, **run_kw)
+        r3 = d2q9_kstep_manual.run(f, mask, **run_kw)
+        r3_path = d2q9_kstep_manual.last_path
+        torch.cuda.synchronize()
+        check(torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1]),
+              f"{what}: B1 run != B2 run")
+        check(torch.equal(r3[0], r2[0]) and torch.equal(r3[1], r2[1]),
+              f"{what}: B3 run != B2 run")
+        for mode in ("stream_only", "copy"):
+            ref_m = d2q9_kstep.stepk_plain(f, mask, mode=mode, **kw)
+            for name, mod in (("B2", d2q9_kstep), ("B1", d2q9_kstep_inplace),
+                              ("B3", d2q9_kstep_manual)):
+                g = f.clone() if mod is d2q9_kstep_inplace else f
+                out = mod.stepk(g, mask, tile=tile, mode=mode, **kw)
+                torch.cuda.synchronize()
+                ok = torch.equal(out[0], ref_m[0])
+                if mode == "stream_only":
+                    eu = rel(out[1], ref_m[1])
+                    ok = ok and eu <= BARS[dtype]
+                check(ok, f"{what}: {name} {mode} differs from the plain version")
+        print(f"probe {what}: runs B1 == B2 == B3 (B3 run on the {r3_path} path); "
+              "modes stream_only and copy checked", flush=True)
     for ny, nx in PROBE_SHAPES:
-        for dtype in (torch.float64, torch.float32):
-            f, mask = make_case(ny, nx, dtype)
-            ks = (1, 2, 3, 4) if (ny, nx) == (1024, 1024) else (1, 4)
-            for k in ks:
-                kw = dict(k_steps=k, accel_row=ny - 2, **KW)
-                tile = d2q9_kstep.choose_config(ny, nx, dtype)[:2]
-                what = f"{ny}x{nx} {str(dtype)[6:]} K={k} tile {tile}"
-                ref = d2q9_kstep.stepk_plain(f, mask, **kw)
-                b2 = d2q9_kstep.stepk(f, mask, tile=tile, **kw)
-                b1 = d2q9_kstep_inplace.stepk(f.clone(), mask, tile=tile, **kw)
-                b3 = d2q9_kstep_manual.stepk(f, mask, tile=tile, **kw)
-                torch.cuda.synchronize()
-                es, et = rel(b2[0], ref[0]), rel(b2[1], ref[1])
-                eq1 = torch.equal(b1[0], b2[0]) and torch.equal(b1[1], b2[1])
-                eq3 = torch.equal(b3[0], b2[0]) and torch.equal(b3[1], b2[1])
-                print(f"probe {what}: paths B2 {d2q9_kstep.last_path}, B1 "
-                      f"{d2q9_kstep_inplace.last_path}; B2 vs plain state {es:.3e} Sum|u| {et:.3e}; "
-                      f"B1 == B2 {eq1}; B3 == B2 {eq3}; B3 - B2 max abs "
-                      f"{float((b3[0] - b2[0]).abs().max()):.3e}", flush=True)
-                check(es <= BARS[dtype] and et <= BARS[dtype], f"{what}: B2 vs plain")
-                check(eq1, f"{what}: B1 != B2")
-                check(eq3, f"{what}: B3 != B2")
-                run_kw = dict(num_steps=3 * k, k_steps=k, accel_row=ny - 2, tile=tile, **KW)
-                r2 = d2q9_kstep.run(f, mask, **run_kw)
-                r1 = d2q9_kstep_inplace.run(f.clone(), mask, **run_kw)
-                r3 = d2q9_kstep_manual.run(f, mask, **run_kw)
-                torch.cuda.synchronize()
-                check(torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1]),
-                      f"{what}: B1 run != B2 run")
-                check(torch.equal(r3[0], r2[0]) and torch.equal(r3[1], r2[1]),
-                      f"{what}: B3 run != B2 run")
-                for mode in ("stream_only", "copy"):
-                    ref_m = d2q9_kstep.stepk_plain(f, mask, mode=mode, **kw)
-                    for name, mod in (("B2", d2q9_kstep), ("B1", d2q9_kstep_inplace),
-                                      ("B3", d2q9_kstep_manual)):
-                        g = f.clone() if mod is d2q9_kstep_inplace else f
-                        out = mod.stepk(g, mask, tile=tile, mode=mode, **kw)
-                        torch.cuda.synchronize()
-                        ok = torch.equal(out[0], ref_m[0])
-                        if mode == "stream_only":
-                            eu = rel(out[1], ref_m[1])
-                            ok = ok and eu <= BARS[dtype]
-                        check(ok, f"{what}: {name} {mode} differs from the plain version")
-                print(f"probe {what}: runs B1 == B2 == B3; modes stream_only and copy checked",
-                      flush=True)
         g = make_case(ny, nx, torch.float32)[0]
         out = copy_floor.run_copy(g, 3, 16, 32)
         torch.cuda.synchronize()
@@ -196,8 +216,8 @@ def main() -> int:
         passes = max(20, args.passes * 1024 * 1024 // (n * n))
         for k in KS:
             for tile in TILES:
-                if (d2q9_kstep_manual.smem_bytes(*tile, k, 4) > d2q9_kstep.SMEM_PER_BLOCK
-                        or min(tile) < k):
+                smem = d2q9_kstep_manual.launch_smem(n, n)(*tile, k, 4)
+                if smem > d2q9_kstep.SMEM_PER_BLOCK or min(tile) < k:
                     continue
                 kw = dict(k_steps=k, accel_row=n - 2, tile=tile, **KW)
                 b2 = d2q9_kstep.stepk(f, mask, **kw)
@@ -207,9 +227,9 @@ def main() -> int:
                 b2_ms = time_run(d2q9_kstep, f, mask, k, tile, passes)
                 b3_ms = time_run(d2q9_kstep_manual, f, mask, k, tile, passes)
                 row = dict(grid=n, tile_h=tile[0], tile_w=tile[1], k=k, b3_equals_b2=equal,
+                           b3_path=d2q9_kstep_manual.last_path, b2_path=d2q9_kstep.last_path,
                            b3_blocks=blocks, b3_blocks_per_sm=round(blocks / sms, 3),
-                           b3_smem_bytes=d2q9_kstep_manual.smem_bytes(*tile, k, 4),
-                           b2_smem_bytes=d2q9_kstep.smem_bytes(*tile, k, 4),
+                           b3_smem_bytes=smem,
                            b2_ms_per_pass=round(b2_ms, 5), b3_ms_per_pass=round(b3_ms, 5),
                            b2_mlups=round(n * n * k / b2_ms / 1e3, 1),
                            b3_mlups=round(n * n * k / b3_ms / 1e3, 1))

@@ -8,10 +8,12 @@ Usage:
         [--checkpoint-every N] [--checkpoint FILE] [--resume]
 
 The counterpart of `python -m lbm_tpu.cli.lbm` for the main path. Runs on the
-CUDA device unless `--device cpu` is given; writes av_vels.dat and
-final_state.dat and prints the `==done==` block. With --checkpoint-every or
---resume the run goes in chunks and writes an atomic checkpoint after each; a
-resumed run equals an uninterrupted one bit for bit.
+CUDA device unless `--device cpu` is given. `--engine auto` takes the fastest
+kernel engine whose run fits in the card's free memory: `cuda` (kernel B2),
+else `cuda-inplace` (kernel B1, which holds half a lattice less). Writes
+av_vels.dat and final_state.dat and prints the `==done==` block. With
+--checkpoint-every or --resume the run goes in chunks and writes an atomic
+checkpoint after each; a resumed run equals an uninterrupted one bit for bit.
 """
 
 from __future__ import annotations
@@ -26,10 +28,13 @@ def main(argv=None) -> int:
     parser.add_argument("--params", required=True, help="7-line .params file")
     parser.add_argument("--obstacles", required=True, help="obstacle .dat file")
     parser.add_argument("--engine", default="auto", choices=list(lbm_model.ENGINES),
-                        help="compute path: 'cuda-inplace' (kernel B1), 'cuda' "
-                             "(kernel B2), 'cuda-manual' (kernel B3, B2 through an "
-                             "explicit copy pipeline), 'torch' (plain PyTorch) or 'auto' "
-                             "(d2q9_kstep.choose_engine)")
+                        help="compute path: 'cuda' (kernel B2), 'cuda-inplace' (kernel "
+                             "B1, in place: half a lattice less memory), 'cuda-manual' "
+                             "(kernel B3, B2 through an explicit copy pipeline), 'torch' "
+                             "(plain PyTorch) or 'auto' (d2q9_kstep.choose_engine: the "
+                             "fastest kernel engine whose run fits in free device memory, "
+                             "'cuda' then 'cuda-inplace'; 'torch' on a grid with a side "
+                             "under 4)")
     parser.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--num-steps", type=int, default=None,

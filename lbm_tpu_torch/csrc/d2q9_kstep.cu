@@ -84,45 +84,12 @@
 
 #include <string.h>
 
-#include "d2q9_step.cuh"
+#include "d2q9_box.cuh"
 #include "tile_copy.cuh"
 
 namespace {
 
 using namespace d2q9;
-
-// Where the nine values of region cell (r, c) come from: speed q is at
-// base[q * stride]. f for the tile interior (and the whole region in B2);
-// in place, the boundary snapshot for the halo. Only the address is chosen
-// per cell, so a warp that mixes interior and halo cells issues its nine
-// loads together instead of once per branch.
-template <typename T, bool kInPlace>
-__device__ __forceinline__ const T* cell_source(const T* f, const T* hband,
-                                                const T* vband, const Tiles& t,
-                                                const Region& g, int r, int c,
-                                                int gr, int gc, size_t& stride) {
-  stride = (size_t)t.ny * t.nx;
-  const T* base = f + (size_t)gr * t.nx + gc;
-  if (kInPlace) {
-    const int k = t.k, two_k = 2 * k;
-    if (r < k || r >= k + g.th) {
-      // rows around a horizontal tile boundary: hband[b][q][i][x] holds row
-      // (b*th - k + i) mod ny; below the last tile lies boundary 0
-      const int b = r < k ? g.ty : (g.ty + 1) % t.nty();
-      const int i = r < k ? r : r - g.th;
-      base = hband + ((size_t)b * 9 * two_k + i) * t.nx + gc;
-      stride = (size_t)two_k * t.nx;
-    } else if (c < k || c >= k + g.tw) {
-      // columns around a vertical tile boundary: vband[b][q][y][i] holds
-      // column (b*tw - k + i) mod nx
-      const int b = c < k ? g.tx : (g.tx + 1) % t.ntx();
-      const int i = c < k ? c : c - g.tw;
-      base = vband + ((size_t)b * 9 * t.ny + gr) * two_k + i;
-      stride = (size_t)t.ny * two_k;
-    }
-  }
-  return base;
-}
 
 // The pieces of a tile's interior that the next in-place pass reads as
 // snapshot, along one axis (rows: n = ny, tile t = th, tiles nt, this tile's
@@ -304,8 +271,6 @@ kstep_kernel(const T* f, const uint8_t* __restrict__ mask, T* out,
 
 // ----------------------------------------------------------- box path ----
 
-enum Path { kThreadPath = 0, kBoxPath = 1 };  // d2q9_kstep.PATHS
-
 // The tensor maps of a box-path launch, one __grid_constant__ parameter.
 struct Maps {
   CUtensorMap in;         // f as (9, ny, nx): B2 box (9, rh, rw), B1 box (1, th, rw)
@@ -313,8 +278,6 @@ struct Maps {
   CUtensorMap band;       // B1: hband as (nty * 9, 2K, nx), box (1, K, rw)
   CUtensorMap next_band;  // B1: next_hband, box (1, K, tw)
 };
-
-__host__ __device__ inline int round_up(int x, int a) { return (x + a - 1) / a * a; }
 
 // Byte offsets of the box path's shared memory from its 128-byte aligned
 // base: the region buffer a at 0, the buffer b, the mbarrier, the reduction
@@ -333,55 +296,6 @@ __host__ __device__ inline BoxSmem box_smem(const Tiles& t, int elem) {
   s.m = s.red + 2 * kWarps * elem;
   s.total = 128 + s.m + rh * rw + rh + rw;
   return s;
-}
-
-// The cells of a region that no box places, as two pieces (region rows and
-// columns): A, rows [0, a_top) and [rh - a_bot, rh) x columns [0, a_l) and
-// [rw - a_r, rw); B, rows [b_lo, b_hi) x columns [0, b_l) and [rw - b_r, rw).
-// B2: A the rows that wrap (all columns), B the columns that wrap (the rows
-// between). B1: A the corners of the hband rows that wrap, B the 2K columns
-// beside the tile, from vband. (Mirrored by region_plan in
-// tests/test_torch_d2q9_region_plan.py.)
-struct Strips {
-  int a_top, a_bot, a_l, a_r, b_lo, b_hi, b_l, b_r;
-};
-
-template <bool kInPlace>
-__device__ __forceinline__ Strips strips_of(const Tiles& t, const Region& g) {
-  const int k = t.k;
-  const int lft = max(0, k - g.c0), rgt = max(0, g.c0 + g.tw + k - t.nx);
-  if (kInPlace) return Strips{k, k, lft, rgt, k, k + g.th, k, k};
-  const int top = max(0, k - g.r0), bot = max(0, g.r0 + g.th + k - t.ny);
-  return Strips{top, bot, g.rw, 0, top, g.rh - bot, lft, rgt};
-}
-
-__device__ __forceinline__ int strip_cells(const Strips& s) {
-  return (s.a_top + s.a_bot) * (s.a_l + s.a_r) + (s.b_hi - s.b_lo) * (s.b_l + s.b_r);
-}
-
-// Loads the nine values of strip cell i into v from where cell_source reads
-// them; returns the cell's index in a plane of the region.
-template <typename T, bool kInPlace>
-__device__ __forceinline__ int load_strip_cell(const T* f, const T* hband, const T* vband,
-                                               const Tiles& t, const Region& g,
-                                               const Strips& s, int i, T (&v)[9]) {
-  const int wa = s.a_l + s.a_r, na = (s.a_top + s.a_bot) * wa;
-  int r, c;
-  if (i < na) {
-    const int rr = i / wa, cc = i - rr * wa;
-    r = rr < s.a_top ? rr : g.rh - s.a_bot + (rr - s.a_top);
-    c = cc < s.a_l ? cc : g.rw - s.a_r + (cc - s.a_l);
-  } else {
-    const int wb = s.b_l + s.b_r, rr = (i - na) / wb, cc = i - na - rr * wb;
-    r = s.b_lo + rr;
-    c = cc < s.b_l ? cc : g.rw - s.b_r + (cc - s.b_l);
-  }
-  const int gr = wrap(g.r0 - t.k + r, t.ny), gc = wrap(g.c0 - t.k + c, t.nx);
-  size_t stride;
-  const T* src = cell_source<T, kInPlace>(f, hband, vband, t, g, r, c, gr, gc, stride);
-#pragma unroll
-  for (int q = 0; q < 9; ++q) v[q] = src[q * stride];
-  return r * g.rw + c;
 }
 
 // B1's ring columns for the next pass from the dense (9, th, tw) tile, in
@@ -593,24 +507,13 @@ size_t smem_bytes(const Tiles& t, size_t itemsize) {
   return 2 * 9 * rh * rw * itemsize + 2 * kWarps * itemsize + rh * rw + rh + rw;
 }
 
-// Shared memory a block may use on Hopper (d2q9_kstep.SMEM_PER_BLOCK).
-constexpr size_t kSmemPerBlock = 232448;
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 // Whether the box path takes this launch (mirrored by d2q9_kstep.choose_path):
-// no edge tiles; rows of f, box rows and tile rows of a multiple of 16 bytes;
-// a region's first column (c0 - K) on 16 bytes, so K values a multiple of 16
-// bytes (an H100 traps on a box load that starts 8 bytes off); boxes of at
-// most 256 a side; 16-byte aligned buffers; in place, every box that lands in
-// or leaves from the middle of a plane at a multiple of 128 bytes; the block
-// in shared memory.
+// box_layout_fits and the block in shared memory; in place, every box that
+// lands in or leaves from the middle of a plane at a multiple of 128 bytes.
 bool box_fits(const Tiles& t, int elem, bool in_place, const void* f, const void* out,
               const void* hband, const void* next_hband) {
   const int rh = t.th + 2 * t.k, rw = t.tw + 2 * t.k;
-  bool ok = !has_edges(t) && t.th >= t.k && t.tw >= t.k && rh <= 256 && rw <= 256 &&
-            (t.k * elem) % 16 == 0 && (t.tw * elem) % 16 == 0 && ((size_t)t.nx * elem) % 16 == 0 &&
-            aligned16(f) && aligned16(out) && (size_t)box_smem(t, elem).total <= kSmemPerBlock;
+  bool ok = box_layout_fits(t, elem, f, out) && (size_t)box_smem(t, elem).total <= kSmemPerBlock;
   if (in_place)
     ok = ok && (rh * rw * elem) % 128 == 0 && (t.k * rw * elem) % 128 == 0 &&
          (t.th * rw * elem) % 128 == 0 && (t.th * t.tw * elem) % 128 == 0 &&

@@ -10,6 +10,7 @@ loop on the device, write av_vels.dat / final_state.dat and print the
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from pathlib import Path
 
@@ -56,6 +57,16 @@ def numpy_dtype(dtype):
     return np_dtype
 
 
+def choose_engine(params: Params, dtype, device: torch.device) -> str:
+    """The engine of 'auto' for this run: `d2q9_kstep.choose_engine` against
+    the free memory of a CUDA `device`; on another device the kernel engines
+    run their plain version, so memory counts as ample and CUDA is never
+    asked."""
+    free = d2q9_kstep.free_device_bytes(device) if device.type == "cuda" else math.inf
+    return d2q9_kstep.choose_engine(params.ny, params.nx, dtype, free,
+                                    num_steps=params.max_iters)
+
+
 def run_simulation(
     params: Params,
     obstacles: Obstacles,
@@ -70,12 +81,12 @@ def run_simulation(
     'cuda' (kernel B2, two-stream, ops/d2q9_kstep.py), 'cuda-inplace'
     (kernel B1, in place, ops/d2q9_kstep_inplace.py), 'cuda-manual' (kernel
     B3, B2 through an explicit copy pipeline, ops/d2q9_kstep_manual.py; the
-    counterpart of 'pallas-manual') or 'auto' (d2q9_kstep.choose_engine). On
-    the CPU the kernel engines run their kernels' plain version."""
+    counterpart of 'pallas-manual') or 'auto' (`choose_engine`). On the CPU
+    the kernel engines run their kernels' plain version."""
     device = resolve_device(device)
     p = params if num_steps is None else dataclasses.replace(params, max_iters=num_steps)
     if engine == "auto":
-        engine = d2q9_kstep.choose_engine(p.ny, p.nx)
+        engine = choose_engine(p, dtype, device)
     simulate = {"torch": d2q9.simulate, "cuda": d2q9_kstep.simulate,
                 "cuda-inplace": d2q9_kstep_inplace.simulate,
                 "cuda-manual": d2q9_kstep_manual.simulate}.get(engine)
@@ -86,9 +97,9 @@ def run_simulation(
                               obstacles.mask, device=device)
 
     # warm-up run (kernel build and load) outside the timed one, as
-    # lbm_tpu.models.lbm.run_simulation does
-    _, av_vels = simulate(p, f0, mask)
-    av_vels.cpu()
+    # lbm_tpu.models.lbm.run_simulation does; its state is dropped at once,
+    # so the timed run holds what choose_engine reckoned
+    simulate(p, f0, mask)[1].cpu()
 
     if device.type == "cuda":
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -144,7 +155,7 @@ def run_simulation_with_checkpoints(
     np_dtype = numpy_dtype(dtype)
     p = params if num_steps is None else dataclasses.replace(params, max_iters=num_steps)
     if engine == "auto":
-        engine = d2q9_kstep.choose_engine(p.ny, p.nx)
+        engine = choose_engine(p, dtype, device)
     run_fn = {"cuda": d2q9_kstep.run, "cuda-inplace": d2q9_kstep_inplace.run,
               "cuda-manual": d2q9_kstep_manual.run}.get(engine)
     if run_fn is None and engine != "torch":

@@ -53,10 +53,10 @@ SIGNATURES = {
         "d2q9_kstep_inplace_f64": [_P] * 4 + [_I] + [_P] * 4 + [_I] + _D2Q9_SCALARS,
         "d2q9_kstep_blocks": [_I] * 6,
     },
-    "d2q9_manual": {
-        "d2q9_manual_f32": [_P] * 5 + _D2Q9_SCALARS,
-        "d2q9_manual_f64": [_P] * 5 + _D2Q9_SCALARS,
-        "d2q9_manual_blocks": [_I] * 7,
+    "d2q9_manual": {  # ... partials, tot, path, then the scalars
+        "d2q9_manual_f32": [_P] * 5 + [_I] + _D2Q9_SCALARS,
+        "d2q9_manual_f64": [_P] * 5 + [_I] + _D2Q9_SCALARS,
+        "d2q9_manual_blocks": [_I] * 8,
     },
     "copy_floor": {
         "copy_floor_run": [_P] * 4,  # plan: 10 ints (ops/copy_floor.py)

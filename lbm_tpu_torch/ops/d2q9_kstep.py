@@ -99,13 +99,14 @@ def box_smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int
 
 
 def choose_path(ny: int, nx: int, tile, k_steps: int, itemsize: int, in_place: bool,
-                aligned: bool = True) -> str:
+                aligned: bool = True, box_smem=box_smem_bytes) -> str:
     """"box" where TMA can move this launch's regions, else "thread"
     (mirrors box_fits in csrc/d2q9_kstep.cu): no edge tiles; the rows of the
     state (nx) and of the tile (tw), and K values, whole 16-byte pieces, so
     that a region (tw + 2K wide) starts on 16 bytes (an H100 traps on a box
     load at a column 8 bytes off); sides of at most MAX_BOX; every buffer on
-    16 bytes (`aligned`); the block in shared memory. In place (B1) a region
+    16 bytes (`aligned`); the block in shared memory (`box_smem(th, tw, K,
+    itemsize)`: B3 passes its own). In place (B1) a region
     arrives in three boxes a plane and the ring leaves in two, so each of
     their offsets in shared memory must be a multiple of 128 bytes: a plane,
     K and th region rows, a tile plane and th - K tile rows."""
@@ -114,7 +115,7 @@ def choose_path(ny: int, nx: int, tile, k_steps: int, itemsize: int, in_place: b
     rh, rw = th + 2 * k, tw + 2 * k
     fits = (ny % th == 0 and nx % tw == 0 and min(th, tw) >= k and max(rh, rw) <= MAX_BOX
             and (k * e) % 16 == 0 and (tw * e) % 16 == 0 and (nx * e) % 16 == 0 and aligned
-            and box_smem_bytes(th, tw, k, e) <= SMEM_PER_BLOCK)
+            and box_smem(th, tw, k, e) <= SMEM_PER_BLOCK)
     if in_place:
         fits = fits and all(b % 128 == 0 for b in (rh * rw * e, k * rw * e, th * rw * e,
                                                    th * tw * e, (th - k) * tw * e))
@@ -154,17 +155,71 @@ def choose_config(h: int, w: int, dtype=torch.float32) -> tuple[int, int, int]:
     return (*choose_tile(h, w, itemsize, PREFERRED_K), PREFERRED_K)
 
 
-def choose_engine(h: int, w: int) -> str:
+def snapshot_shapes(ny: int, nx: int, tile: tuple[int, int], k_steps: int):
+    """Shapes of B1's boundary snapshot: rows around each of the ceil(ny /
+    tile_h) horizontal boundaries and columns around each of the ceil(nx /
+    tile_w) vertical ones (boundary 0 also closes the last, partial tile)."""
+    th, tw = tile
+    return (-(-ny // th), 9, 2 * k_steps, nx), (-(-nx // tw), 9, ny, 2 * k_steps)
+
+
+def simulate_bytes(engine: str, h: int, w: int, dtype=torch.float32, num_steps: int = 0) -> int:
+    """Device bytes that `simulate` of a kernel engine holds at its peak on
+    an (h, w) grid at choose_config's tile and K: the caller's lattice, the
+    first-accelerated copy that `simulate_with` makes, and what the
+    wrapper's `run` allocates, with the mask (one byte a cell), the per-step
+    sums and the partials. 'cuda' (B2) and 'cuda-manual' (B3) ping-pong two
+    lattices: four in all. 'cuda-inplace' (B1) advances the copy in place
+    and holds two boundary snapshots of (2K/th + 2K/tw) lattices each
+    (`snapshot_shapes`): 3.5 lattices at 16x32, K=4."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    th, tw, k = choose_config(h, w, dtype)
+    lattice = 9 * h * w
+    small = h * w + (num_steps + k * -(-h // th) * -(-w // tw)) * itemsize
+    if engine in ("cuda", "cuda-manual"):
+        return 4 * lattice * itemsize + small
+    if engine == "cuda-inplace":
+        snapshot = sum(a * b * c * d for a, b, c, d in snapshot_shapes(h, w, (th, tw), k))
+        return (2 * lattice + 2 * snapshot) * itemsize + small
+    raise ValueError(f"no kernel engine {engine!r}")
+
+
+# The 2-D kernel engines that `auto` takes, fastest first, as chip_smoke.py
+# measures them on an NVIDIA H100 80GB HBM3 at 700 W (the flagship's MLUPS,
+# PERF.md section 6): B2, then B1, which holds half a lattice less. B3 is
+# slower than B2 on this card (two blocks an SM against three).
+AUTO_ENGINES = ("cuda", "cuda-inplace")
+
+
+def free_device_bytes(device=None) -> int:
+    """Bytes a run on CUDA `device` (default: the current card) may still
+    allocate: the card's free memory (cudaMemGetInfo) and what PyTorch's
+    caching allocator holds reserved but unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def choose_engine(h: int, w: int, dtype=torch.float32, free_bytes: int | None = None,
+                  num_steps: int = 0) -> str:
     """The engine that run_simulation's 'auto' picks for an (h, w) grid.
 
-    As `lbm_tpu.ops.d2q9_pallas.choose_engine`, only the height decides:
-    the plain 'torch' engine when it is not a multiple of 8, else
-    'cuda-inplace' (kernel B1), which keeps one lattice in memory instead of
-    two and needs no minimum band count (unlike the TPU's in-place
-    pipeline). Any width runs on the kernel: a width that no tile divides
-    gets edge tiles."""
-    del w  # the width never decides the engine, as in the reference
-    return "torch" if h % 8 else "cuda-inplace"
+    As `lbm_tpu.ops.d2q9_pallas.choose_engine`, the measured best engine for
+    the grid: the first of AUTO_ENGINES whose run fits in `free_bytes` of
+    device memory (`simulate_bytes`; None: `free_device_bytes()` of the
+    current card). Every grid with both sides of at least PREFERRED_K goes to
+    a kernel; a smaller one to the plain 'torch' engine. Raises
+    torch.OutOfMemoryError when no kernel engine fits, as an allocation
+    would."""
+    if min(h, w) < PREFERRED_K:
+        return "torch"
+    if free_bytes is None:
+        free_bytes = free_device_bytes()
+    needs = {e: simulate_bytes(e, h, w, dtype, num_steps) for e in AUTO_ENGINES}
+    for engine, need in needs.items():
+        if need <= free_bytes:
+            return engine
+    raise torch.OutOfMemoryError(f"a {h}x{w} {dtype} run needs {needs} bytes of device memory "
+                                 f"and {free_bytes} are free")
 
 
 def obstacle_bool(mask: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """K fused D2Q9 steps per pass, written back in place: the wrapper of CUDA
-kernel B1, the production engine.
+kernel B1, the engine `auto` takes when B2's lattices do not fit.
 
 The counterpart of `lbm_tpu.ops.d2q9_pallas_inplace` (kernel `_kernel`),
 with the `stepk`/`run`/`simulate` contract of `d2q9_kstep` except that the
 state is advanced IN PLACE: `stepk` and `run` overwrite `f` and return it.
-One lattice lives in memory instead of two.
+`run` needs no second lattice, but holds two boundary snapshots of
+(2K/tile_h + 2K/tile_w) of a lattice each, 0.75 at 16x32, K=4: a simulation
+holds 3.5 lattices where B2's holds 4 (`d2q9_kstep.simulate_bytes`), so B1
+saves half a lattice, not one.
 
 The TPU kernel is safe in place because its bands run in order (delayed
 write-back, wraparound snapshot). On the card blocks run in no order, so the
@@ -28,14 +31,6 @@ launches = 0
 last_path = None
 
 
-def snapshot_shapes(ny: int, nx: int, tile: tuple[int, int], k_steps: int):
-    """Shapes of the boundary snapshot: rows around each of the ceil(ny /
-    tile_h) horizontal boundaries and columns around each of the ceil(nx /
-    tile_w) vertical ones (boundary 0 also closes the last, partial tile)."""
-    th, tw = tile
-    return (-(-ny // th), 9, 2 * k_steps, nx), (-(-nx // tw), 9, ny, 2 * k_steps)
-
-
 def _launch(f, mask_u8, snap, take_snapshot, next_snap, partials, tot, path, scalars):
     """One pass on `path`. snap = (hband, vband) holds the boundary snapshot,
     filled from f first when take_snapshot; next_snap receives the snapshot
@@ -52,7 +47,7 @@ def _launch(f, mask_u8, snap, take_snapshot, next_snap, partials, tot, path, sca
 
 
 def _snapshot(f, tile, k_steps):
-    hshape, vshape = snapshot_shapes(f.shape[1], f.shape[2], tile, k_steps)
+    hshape, vshape = d2q9_kstep.snapshot_shapes(f.shape[1], f.shape[2], tile, k_steps)
     return (torch.empty(hshape, dtype=f.dtype, device=f.device),
             torch.empty(vshape, dtype=f.dtype, device=f.device))
 

@@ -5,10 +5,20 @@ The counterpart of `lbm_tpu.ops.d2q9_pallas_manual` (kernel `_kernel`), the
 engine `pallas-manual`: B2's function (`d2q9_kstep`), with the traffic
 between device memory and the kernel's fast memory made explicit. On the
 card (csrc/d2q9_manual.cu) a persistent grid of blocks walks the tiles in
-order, and each block copies its next tile's region into a second
-shared-memory stage with `cp.async` while it steps the current one. The
-`stepk` / `run` / `simulate` contract and the modes are `d2q9_kstep`'s; at
-the same tile and K the state and Sum|u| equal B2's bit for bit.
+order, and each block brings its next tile's region into shared memory
+while it steps the current one. The `stepk` / `run` /
+`simulate` contract and the modes are `d2q9_kstep`'s; at the same tile and K
+the state and Sum|u| equal B2's bit for bit.
+
+As B1 and B2, B3 moves a region in one of two ways (`PATHS`), which
+`choose_path` picks per launch from the shape and the buffers' alignment:
+"box", B2's rule with B3's shared memory, where the region arrives as one TMA
+box into a free one of three rotating buffers, on that buffer's mbarrier,
+and the tile leaves by one box store that is waited on only before its
+buffer is written again, or "thread", every value
+by the threads' `cp.async` (edge tiles, K = 1..3 in float32, misaligned
+buffers). The launch reports it in `last_path`; a box launch whose tensor
+maps do not encode raises.
 
 Unlike the TPU kernel, which needs at least two bands of a height that is a
 multiple of 8, B3 takes any grid that B1 and B2 take.
@@ -23,10 +33,13 @@ from . import d2q9_kstep
 
 # Launches of kernel B3 (one per K-step pass); callers may reset it.
 launches = 0
+# The path of the last launch of B3 ("box" or "thread").
+last_path = None
+PATHS = d2q9_kstep.PATHS
 
-# The region of a tile, (tile_h + 2K)(tile_w + 2K) cells, may hold at most
-# this many: a thread carries the next tile's mask in 8 registers
-# (kMaskRegs x kThreads in csrc/d2q9_manual.cu).
+# On the thread path the region of a tile, (tile_h + 2K)(tile_w + 2K) cells,
+# may hold at most this many: a thread carries the next tile's mask in 8
+# registers (kMaskRegs x kThreads in csrc/d2q9_manual.cu).
 MAX_REGION_CELLS = 8 * 256
 # B3 takes B1/B2's tiles and K (d2q9_kstep.TILE_CANDIDATES, PREFERRED_K). Its
 # own sweep on an H100 (experiments/cuda-kstep-tiles/sweep_manual.py,
@@ -37,17 +50,62 @@ MAX_REGION_CELLS = 8 * 256
 
 
 def smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block: two stages and a work buffer of
-    nine planes of the tile plus its K halo (each rounded up to 16 bytes),
-    the reduction scratch, two mask stages and the row and column flags
-    (mirrors smem_bytes in csrc/d2q9_manual.cu). A region too large for the
-    mask registers counts as not fitting."""
+    """Dynamic shared memory of one block on the thread path: two stages and
+    a work buffer of nine planes of the tile plus its K halo (each rounded up
+    to 16 bytes), the reduction scratch, two mask stages and the row and
+    column flags (mirrors smem_bytes in csrc/d2q9_manual.cu). A region too
+    large for the mask registers counts as not fitting."""
     rh, rw = tile_h + 2 * k_steps, tile_w + 2 * k_steps
     if rh * rw > MAX_REGION_CELLS:
         return d2q9_kstep.SMEM_PER_BLOCK + 1
     per_16 = 16 // itemsize
     buffer = -(-9 * rh * rw // per_16) * per_16 * itemsize
     return 3 * buffer + 2 * d2q9_kstep.WARPS_PER_BLOCK * itemsize + 2 * rh * rw + rh + rw
+
+
+def _round128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def box_smem_layout(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> dict:
+    """Byte offsets of the box path's shared memory from its 128-byte aligned
+    base (mirrors box_smem in csrc/d2q9_manual.cu), each on 128 bytes:
+    "buffers", the three rotating buffers of nine planes of the region;
+    "masks", the mask planes of the even and the odd rounds; "bars", the
+    three mbarriers (one a buffer); "red", the reduction scratch; "flags",
+    the row flags and then the column flags; "total", with 128 bytes of slack
+    to align the base."""
+    rh, rw = tile_h + 2 * k_steps, tile_w + 2 * k_steps
+    buf, mask = _round128(9 * rh * rw * itemsize), _round128(rh * rw)
+    bars = 3 * buf + 2 * mask
+    red = bars + 128
+    flags = red + _round128(2 * d2q9_kstep.WARPS_PER_BLOCK * itemsize)
+    return dict(buffers=(0, buf, 2 * buf), masks=(3 * buf, 3 * buf + mask), bars=bars, red=red,
+                flags=flags, total=128 + flags + _round128(rh + rw))
+
+
+def box_smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block on the box path."""
+    return box_smem_layout(tile_h, tile_w, k_steps, itemsize)["total"]
+
+
+def choose_path(ny: int, nx: int, tile, k_steps: int, itemsize: int,
+                aligned: bool = True) -> str:
+    """"box" where TMA can move B3's regions and tiles (B2's rule,
+    `d2q9_kstep.choose_path`, with B3's shared memory; mirrors box_fits in
+    csrc/d2q9_manual.cu), else "thread"."""
+    return d2q9_kstep.choose_path(ny, nx, tile, k_steps, itemsize, False, aligned,
+                                  box_smem=box_smem_bytes)
+
+
+def launch_smem(ny: int, nx: int, aligned: bool = True):
+    """smem(tile_h, tile_w, K, itemsize) of a launch on an (ny, nx) grid: the
+    shared memory of the path it takes (on the box path the mask registers
+    do not bound the region)."""
+    def smem(tile_h, tile_w, k_steps, itemsize):
+        box = choose_path(ny, nx, (tile_h, tile_w), k_steps, itemsize, aligned) == "box"
+        return (box_smem_bytes if box else smem_bytes)(tile_h, tile_w, k_steps, itemsize)
+    return smem
 
 
 def choose_tile(h: int, w: int, itemsize: int, k_steps: int) -> tuple[int, int] | None:
@@ -67,34 +125,47 @@ def stepk_plain(f, mask, **kw):
     return d2q9_kstep.stepk_plain(f, mask, **kw)
 
 
-def grid_blocks(f: torch.Tensor, tile: tuple[int, int], k_steps: int,
-                mode: str = "full") -> int:
-    """Blocks of B3's persistent grid on f's card for this tile and K (the
-    blocks resident at once, at most one per tile)."""
+def grid_blocks(f: torch.Tensor, tile: tuple[int, int], k_steps: int, mode: str = "full",
+                path: str | None = None) -> int:
+    """Blocks of B3's persistent grid on f's card for this tile, K and path
+    (default: choose_path's for f): the blocks resident at once, at most one
+    per tile."""
     from . import _build
 
     _, ny, nx = f.shape
+    path = path or choose_path(ny, nx, tile, k_steps, f.element_size(),
+                               d2q9_kstep.aligned16(f))
     blocks = _build.load("d2q9_manual").d2q9_manual_blocks(
-        ny, nx, *tile, k_steps, f.element_size(), d2q9_kstep.check_mode(mode))
+        ny, nx, *tile, k_steps, f.element_size(), d2q9_kstep.check_mode(mode),
+        PATHS.index(path))
     if blocks <= 0:
         raise RuntimeError(f"d2q9_manual: no block of tile {tile} at K={k_steps} fits the card")
     return blocks
 
 
 def _args(f, mask, *, k_steps, tile, mode, **kw):
+    """(mask as bytes, tile, ntiles, the scalars of the C entry point)."""
     mask_u8 = d2q9_kstep.obstacle_u8(mask)
+    _, ny, nx = f.shape
     tile, ntiles, scalars = d2q9_kstep.kernel_args(
-        f, mask_u8, k_steps=k_steps, tile=tile, mode=mode, smem=smem_bytes, **kw)
-    return mask_u8, ntiles, scalars
+        f, mask_u8, k_steps=k_steps, tile=tile, mode=mode,
+        smem=launch_smem(ny, nx, d2q9_kstep.aligned16(f)), **kw)
+    return mask_u8, tile, ntiles, scalars
 
 
-def _launch(f, mask_u8, out, partials, tot, scalars):
-    global launches
+def _path(f, tile, k_steps, *outs) -> str:
+    _, ny, nx = f.shape
+    return choose_path(ny, nx, tile, k_steps, f.element_size(), d2q9_kstep.aligned16(f, *outs))
+
+
+def _launch(f, mask_u8, out, partials, tot, path, scalars):
+    global launches, last_path
     launches += 1
+    last_path = path
     rc = d2q9_kstep._entry(f, "d2q9_manual", "d2q9_manual")(
         f.data_ptr(), mask_u8.data_ptr(), out.data_ptr(), partials.data_ptr(), tot.data_ptr(),
-        *scalars)
-    d2q9_kstep.check_rc(rc, "d2q9_manual")
+        PATHS.index(path), *scalars)
+    d2q9_kstep.check_rc(rc, f"d2q9_manual ({path} path)")
 
 
 def stepk(
@@ -121,11 +192,11 @@ def stepk(
               valid_cols=valid_cols, global_ny=global_ny, mode=mode)
     if f.device.type == "cpu":
         return stepk_plain(f, mask, **kw)
-    mask_u8, ntiles, scalars = _args(f, mask, tile=tile, **kw)
+    mask_u8, tile, ntiles, scalars = _args(f, mask, tile=tile, **kw)
     out = torch.empty_like(f)
     partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
-    _launch(f, mask_u8, out, partials, tot, scalars)
+    _launch(f, mask_u8, out, partials, tot, _path(f, tile, k_steps, out), scalars)
     return out, tot
 
 
@@ -157,12 +228,13 @@ def run(
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
-    mask_u8, ntiles, scalars = _args(f, mask, k_steps=k_steps, tile=tile, mode=mode, **kw)
+    mask_u8, tile, ntiles, scalars = _args(f, mask, k_steps=k_steps, tile=tile, mode=mode, **kw)
     bufs = (torch.empty_like(f), torch.empty_like(f))
+    path = _path(f, tile, k_steps, *bufs)
     partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     for i in range(num_steps // k_steps):
         out = bufs[i % 2]
-        _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], scalars)
+        _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars)
         f = out
     return f, tots
 

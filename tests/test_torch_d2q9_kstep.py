@@ -144,12 +144,16 @@ def test_choose_config_and_engine():
         itemsize = torch.empty((), dtype=dtype).element_size()
         assert 1024 % th == 0 and 1024 % tw == 0
         assert d2q9_kstep.smem_bytes(th, tw, k, itemsize) <= d2q9_kstep.SMEM_PER_BLOCK
-    assert d2q9_kstep.choose_engine(1024, 1024) == "cuda-inplace"
-    assert d2q9_kstep.choose_engine(8, 128) == "cuda-inplace"  # no 2-band minimum
-    assert d2q9_kstep.choose_engine(12, 128) == "torch"
-    # as in lbm_tpu.ops.d2q9_pallas.choose_engine, the width never decides
-    assert d2q9_kstep.choose_engine(32, 48) == "cuda-inplace"
-    assert d2q9_kstep.choose_engine(1024, 1001) == "cuda-inplace"
+    # `auto` takes the fastest kernel engine that fits in free memory, B2,
+    # on every grid with sides of at least PREFERRED_K, whatever its height
+    # mod 8 (unlike lbm_tpu.ops.d2q9_pallas.choose_engine)
+    ample = 1 << 40
+    assert d2q9_kstep.choose_engine(1024, 1024, free_bytes=ample) == "cuda"
+    assert d2q9_kstep.choose_engine(8, 128, free_bytes=ample) == "cuda"  # no 2-band minimum
+    assert d2q9_kstep.choose_engine(12, 128, free_bytes=ample) == "cuda"
+    assert d2q9_kstep.choose_engine(32, 48, free_bytes=ample) == "cuda"
+    assert d2q9_kstep.choose_engine(1024, 1001, free_bytes=ample) == "cuda"
+    assert d2q9_kstep.choose_engine(3, 128, free_bytes=ample) == "torch"
     # no candidate divides a 12-row grid: the first tile, with edge tiles
     assert d2q9_kstep.choose_config(12, 128) == (16, 32, 4)
 

@@ -77,8 +77,16 @@ Phases, each of which must pass or the script exits non-zero:
      over three passes of `run`; B7's state against B6's (gated at 0.0); B5's
      result in its input's storage and its `run` under 1.5 x (lattice +
      mask); one launch of the blocked kernel per K steps and none of a
-     one-step kernel. Time per pass of B5 and B7 at K = 1..3 beside B4 and
-     B6. The main path `cli.lbm3d --nz 32 --ny 256 --nx 256 -n 1200` with
+     one-step kernel. Both paths of the two (box: a region by 19 TMA boxes;
+     thread: every value loaded by the threads) and B5's
+     `stream_only` and `copy` modes, through
+     experiments/cuda-kstep-tiles/sweep3d_blocked.py `check_paths`: at
+     32x256x256, 12x16x32 (which wraps in every axis) and 13x50x70, K =
+     1..4, both types, each kernel on its chosen path bit-equal to the
+     thread path, B5 == B7, B7 == B6, the modes' state bit-equal to their
+     plain versions (copy's Sum|u| zeros); both paths must run in each type.
+     Time per pass of B5 and B7 at K = 1..3 beside B4 and B6, with the path
+     each took. The main path `cli.lbm3d --nz 32 --ny 256 --nx 256 -n 1200` with
      `--engine cuda-inplace-blocked` (B5 alone), `--engine cuda-blocked` (B7
      alone) and no --engine (the kind `pick_engine` names), av_vels[1:24]
      against the plain engine (4e-4). Golden 8x256x256 x 6000 against
@@ -113,7 +121,10 @@ Phases, each of which must pass or the script exits non-zero:
      bands 32 and 64, R = 0 and 2 (smem totals too; the manual engines also
      against auto; manual6 must refuse band 64, as probe.py does); every
      `auto` instance on its one-value path (a width of 250, a state off 16
-     bytes) too; and at
+     bytes) too; each strided manual engine on its box path (one TMA box a
+     stage, (9, 16, 32) tiles) bit-equal to the bulk path ((9, 1, 512)
+     tiles) and its plain version at 256x256, 72x100 (edge tiles) and
+     4096^2, R = 0 and 16, with the path of each launch; and at
      4096^2, band 64, R = 16, where each block of a manual engine walks tens
      of tiles through its ring (the smem totals of 64 bands too); then the
      main path, the harness's sweep of every engine at 4096^2, band 64, 200
@@ -254,7 +265,8 @@ OVERLAP_FUNCTIONS = ["build_auto", "build_manual", "build_manual_depth", "build_
 OVERLAP_SIZE, OVERLAP_BAND, OVERLAP_ITERS = 4096, 64, 200
 OVERLAP_ROUNDS = [0, 16, 64]
 # the engines whose times the kernels line carries
-OVERLAP_REPORTED = ("auto", "manual", "manual@1x512", "manual_flat", "manual_alias_safe")
+OVERLAP_REPORTED = ("auto", "manual", "manual3", "manual4", "manual6", "manual_alias",
+                    "manual_alias_safe", "manual@1x512", "manual_flat")
 
 # the resident-blur variants (B13): the one pallas_call site of the study
 # they replace
@@ -1225,6 +1237,27 @@ def phase_parity_blocked(torch, mods3, modsb):
     return abs_err
 
 
+def phase_paths_blocked(torch):
+    """B7 and B5 on both paths and B5's modes (experiments/cuda-kstep-tiles/
+    sweep3d_blocked.py `check_paths`): at 32x256x256, at 12x16x32 (which
+    wraps in every axis, with edge tiles in z) and at 13x50x70 (rows of 280
+    bytes: the thread path in float32), K = 1..4, float32 and float64, at
+    B5's tile and at a tile of the box path where B5's takes the thread
+    path: each kernel on its chosen path bit-equal to the thread path, B5 to
+    B7 and B7's state to B6's, both within the bar of `stepk_plain`; B5's
+    stream_only and copy modes on either path bit-equal to their plain
+    versions' state (copy's Sum|u| zeros). Both paths must run in each
+    type."""
+    harness = load_harness("sweep3d_blocked")
+    seen = {}
+    bad = harness.check_paths(log=lambda line: print(f"paths blocked {line}"), seen=seen)
+    check(not bad, f"blocked kernels differ on: {bad}")
+    for dname, paths in seen.items():
+        check(paths == {"box", "thread"},
+              f"the blocked kernels ran on {sorted(paths)} only in {dname}, not on both paths")
+    print(f"paths blocked: every case held; paths {dict((d, sorted(p)) for d, p in seen.items())}")
+
+
 def phase_timing_blocked(torch, mods3, modsb):
     """Time per pass of B7 and B5 at K = 1..3 beside B6 and B4 at the same
     shape and K, 32x256x256 float32, inside `run`; the plain version and the
@@ -1249,23 +1282,28 @@ def phase_timing_blocked(torch, mods3, modsb):
     ms = {}
     for k in (1, 2, 3):
         row = {}
+        paths = {}
         for name, mod in (("B7", b7), ("B5", b5), ("B6", d3q19_kstep), ("B4", d3q19_kstep_inplace)):
             g = f.clone()
             row[name] = time_ms(torch, lambda: mod.run(g, mask, num_steps=k * passes, k_steps=k,
                                                        **kw), 1) / passes
+            paths[name] = getattr(mod, "last_path", None)
         print(f"timing blocked {nz}x{ny}x{nx} float32 K={k}: B7 {row['B7']:.4f} ms per pass "
-              f"(tile {b7.choose_config(nz, ny, nx, k)}), B5 {row['B5']:.4f} "
-              f"(tile {b5.choose_config(nz, ny, nx, k)}), B6 {row['B6']:.4f}, B4 {row['B4']:.4f} "
+              f"(tile {b7.choose_config(nz, ny, nx, k)}, {paths['B7']} path), B5 {row['B5']:.4f} "
+              f"(tile {b5.choose_config(nz, ny, nx, k)}, {paths['B5']} path), B6 {row['B6']:.4f}, "
+              f"B4 {row['B4']:.4f} "
               f"(K launches of a one-step kernel); bytes of a pass {bytes_moved / 1e6:.0f} MB, "
               f"{t_bytes:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s whatever K")
         if k == k_main:
             ms = {"d3q19_kstep_blocked": row["B7"], "d3q19_kstep_inplace_blocked": row["B5"]}
+            ms_paths = {"d3q19_kstep_blocked": paths["B7"],
+                        "d3q19_kstep_inplace_blocked": paths["B5"]}
     plain_ms = time_ms(torch, lambda: d3q19_kstep.stepk_plain(f, mask, k_steps=k_main, **kw), 5)
     for name, t in ms.items():
         print(f"timing {name:27s}: {t:.4f} ms per K={k_main} launch "
-              f"({cells * k_main / t / 1e3:.0f} MLUPS), bound {bound[0]:.4f} ms ({bound[1]}), "
-              f"plain version {plain_ms:.4f} ms")
-    return ms, plain_ms, bound
+              f"({cells * k_main / t / 1e3:.0f} MLUPS, {ms_paths[name]} path), bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), plain version {plain_ms:.4f} ms")
+    return ms, plain_ms, bound, ms_paths
 
 
 def phase_main_path_blocked(torch, mods3, modsb):
@@ -1316,7 +1354,7 @@ def phase_main_path_blocked(torch, mods3, modsb):
             mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
             print(f"blocked main path {kernel}: {launched[kernel]} launches, {seconds:.6f} s "
                   f"timed, {seconds / (launched[kernel] / 2) * 1e3:.4f} ms per launch in the "
-                  "timed run")
+                  f"timed run, {getattr(mod, 'last_path', None) or 'one-step'} path")
             print(f"blocked main path {label}: {mlups} MLUPS")
             if engine_args:
                 results[kernel] = (launched[kernel], seconds, mlups)
@@ -1766,6 +1804,12 @@ def phase_overlap(torch, overlap_probe, card):
         held = load_harness("ab_copy").auto_values_parity(
             torch, overlap_probe, log=lambda line: print(f"overlap {line}"))
         print(f"overlap: {held} cases of the auto instances' one-value path bit-equal")
+        # the strided manual engines: one TMA box a stage against bulk copies
+        held = harness.check_box_paths(cases=harness.PATH_CASES + ((n, n, band),),
+                                       rounds_list=(0, 16),
+                                       log=lambda line: print(f"overlap paths {line}"))
+        print(f"overlap: {held} cases of the strided manual engines, box path == bulk path == "
+              "plain bit for bit")
         max_err = harness.check_full(harness.ENGINES, n, band, 16,
                                      log=lambda line: print(f"overlap {line}"))
     except RuntimeError as err:
@@ -1809,6 +1853,7 @@ def phase_overlap(torch, overlap_probe, card):
     print(f"overlap sweep launches: {launches} (total {total_launches})")
     wall = {(r["engine"], r["rounds"]): r["us_per_iter"] / 1e3 for r in rows}
     blocks = {r["engine"]: r["blocks_per_sm"] for r in rows if r["blocks_per_sm"] != ""}
+    paths = {r["engine"]: r["path"] for r in rows if r["path"]}
     bound = {r: harness.bound_us("auto", n, n, r) for r in (0, 16)}
     return dict(
         launches=total_launches, launches_by_engine=launches, max_abs_err=max_err,
@@ -1816,7 +1861,7 @@ def phase_overlap(torch, overlap_probe, card):
         bound_ms=bound[0][0] / 1e3, bound_by=bound[0][1],
         ms_by_engine={e: {str(r): wall[(e, r)] for r in (0, 16)} for e in OVERLAP_REPORTED},
         plain_ms_r16=plain_ms[16], bound_ms_r16=bound[16][0] / 1e3, bound_by_r16=bound[16][1],
-        blocks_per_sm=blocks,
+        blocks_per_sm=blocks, paths=paths,
         us_per_round={e: per_round[e] for e in OVERLAP_REPORTED},
         overlap={f"{r['engine']} R={r['rounds']}": r["overlap"] for r in rows
                  if r["overlap"] != "" and r["engine"] in OVERLAP_REPORTED})
@@ -1970,7 +2015,8 @@ def main() -> int:
         ck_launches = phase_checkpoint(torch, mods, mods3, mask)
 
         abs_err_b = phase_parity_blocked(torch, mods3, modsb)
-        ms_b, plain_ms_b, bound_b = phase_timing_blocked(torch, mods3, modsb)
+        phase_paths_blocked(torch)
+        ms_b, plain_ms_b, bound_b, paths_ms_b = phase_timing_blocked(torch, mods3, modsb)
         paths_b = phase_main_path_blocked(torch, mods3, modsb)
         phase_golden_blocked(torch)
         ck_launches["d3q19_kstep_inplace_blocked"] = phase_checkpoint_blocked(torch, mods3, modsb)
@@ -2038,7 +2084,7 @@ def main() -> int:
         "tile": list(sys.modules[f"lbm_tpu_torch.ops.{name}"].choose_config(
             *SHAPE_BLOCKED, d3q19_kstep_blocked.PREFERRED_K)),
         "main_path_seconds": paths_b[name][1], "main_path_mlups": paths_b[name][2],
-        "checkpoint_launches": ck_launches.get(name, 0),
+        "checkpoint_launches": ck_launches.get(name, 0), "path": paths_ms_b[name],
     } for name, replaces in KERNELS_3D_BLOCKED.items()]
     for name, replaces in KERNELS_BLUR.items():
         t = dict(times_blur[name])

@@ -39,10 +39,17 @@ copy: 0 when the two run in series, 1 when the shorter is hidden.
 Writes results_overlap.csv beside this file (or --out): probe.csv's columns
 and the card's name and power limit, spread, blocks an SM, the bound.
 
+Each strided manual engine moves a stage as one TMA box where
+`op.choose_path` allows it (the (9, 16, 32) tile) and as bulk copies a row
+segment otherwise (the (9, 1, 512) tile); `check_box_paths` holds the two
+paths to each other and to the plain version bit for bit at 256x256 and at
+72x100 (edge tiles), and every row of the CSV names its path.
+
 `--probe` is the short first call after a change to csrc/overlap_probe.cu:
 what `nvcc -Xptxas -v` says of it (registers, shared memory, spills), the
-canary, the check at --size and R = 16, each kernel's blocks an SM and its
-grid, and 20 calls of each engine at R = 0 and 16; no CSV.
+canary, the path check, the check at --size and R = 16, each kernel's
+blocks an SM and its grid, and 20 calls of each engine at R = 0 and 16; no
+CSV.
 
 Run on a machine with the card, from the repository root:
 
@@ -82,7 +89,11 @@ ROW_SUFFIX = "@1x512"
 # probe.py's engines, and the strided manual ones in op.ROW_TILE tiles
 ENGINES = list(op.ENGINES) + [e + ROW_SUFFIX for e in op.STRIDED]
 FIELDS = ["engine", "platform", "grid", "band", "rounds", "iters", "us_per_iter", "rw_gbps",
-          "spread_us", "blocks_per_sm", "bound_us", "bound_by", "compute_us", "overlap", "card"]
+          "spread_us", "blocks_per_sm", "path", "bound_us", "bound_by", "compute_us", "overlap",
+          "card"]
+# grids of the path check (ny, nx, band): the canary's, and one whose tiles
+# of either shape leave edge tiles in both axes
+PATH_CASES = ((CANARY, CANARY, 32), (72, 100, 12))
 
 
 def card_name() -> str:
@@ -140,6 +151,47 @@ def runner(name: str, ny: int, nx: int, band: int, rounds: int):
                 bufs.reverse()
 
     return run, reset, probe
+
+
+def probe_path(probe, ny: int, nx: int) -> str:
+    """The path an engine's launches take on an aligned state: "tma" or
+    "values" (auto), "box" or "bulk" (manual); "" for `torch` and `copy_`."""
+    if not isinstance(probe, op.Probe):
+        return ""
+    if probe.kind == "auto":
+        return op.auto_path(nx, True)
+    return op.choose_path(ny, nx, probe.tile, probe.flat, aligned=True)
+
+
+def check_box_paths(engines=op.STRIDED, cases=PATH_CASES, rounds_list=CANARY_ROUNDS, log=print):
+    """Each strided manual engine on the box path ((9, 16, 32) tiles) against
+    the same engine on the bulk path ((9, 1, 512) tiles) and its plain
+    version, bit for bit, with the path each launch took. Raises
+    RuntimeError on a difference or a path other than expected. Returns the
+    cases held."""
+    held = 0
+    for ny, nx, band in cases:
+        for rounds in rounds_list:
+            f = torch.from_numpy(np.random.default_rng(ny + rounds).random(
+                (9, ny, nx), dtype=np.float32)).cuda()
+            for name in engines:
+                got = {}
+                for label, tile in (("box", op.TILE), ("bulk", op.ROW_TILE)):
+                    probe = op.ENGINES[name](ny, nx, band, rounds, tile=tile)
+                    got[label] = probe(f.clone())
+                    torch.cuda.synchronize()
+                    if op.last_path != label:
+                        raise RuntimeError(f"{name} {ny}x{nx} tile {tile}: took the "
+                                           f"{op.last_path} path, not {label}")
+                ref = probe.plain(f.clone())
+                what = f"{name} {ny}x{nx} band {band} R={rounds}"
+                if not (torch.equal(got["box"], ref) and torch.equal(got["bulk"], ref)):
+                    raise RuntimeError(f"{what}: box {float((got['box'] - ref).abs().max())}, "
+                                       f"bulk {float((got['bulk'] - ref).abs().max())} from "
+                                       "the plain version")
+                log(f"{what}: box path == bulk path == plain, bit for bit")
+                held += 1
+    return held
 
 
 def time_engine(name, ny, nx, band, rounds, iters, repeats=3):
@@ -235,11 +287,19 @@ def sweep(engines, n, band, iters, rounds_list, card, library=True, log=print):
                          iters=iters, us_per_iter=round(best * 1e3, 1),
                          rw_gbps=round(2 * 9 * n * n * 4 / (best * 1e-3) / 1e9, 1),
                          spread_us=round(spread * 1e3, 1), blocks_per_sm=blocks or "",
-                         bound_us=round(b_us, 1), bound_by=b_by, compute_us="", overlap="",
-                         card=card))
+                         path=path_of(name, n, n), bound_us=round(b_us, 1), bound_by=b_by,
+                         compute_us="", overlap="", card=card))
         log(f"{name:23s} R={rounds:<3d} {best * 1e3:9.1f} us (spread {spread * 1e3:.1f}, "
-            f"bound {b_us:.1f} {b_by}, {blocks or '-'} blocks an SM)")
+            f"bound {b_us:.1f} {b_by}, {blocks or '-'} blocks an SM, "
+            f"{path_of(name, n, n) or '-'} path)")
     return rows
+
+
+def path_of(name: str, ny: int, nx: int) -> str:
+    """probe_path of engine `name` (band 64 needs ny >= 64 x depth)."""
+    if name in ("torch", "copy_"):
+        return ""
+    return probe_path(build(name, ny, nx, ny // 8, 0), ny, nx)
 
 
 def add_overlap(rows, per_round):
@@ -288,7 +348,8 @@ def check_full(engines, n: int, band: int, rounds: int = 16, log=print) -> float
         same = torch.equal(got, ref) and (total is None or torch.equal(total, probe.total))
         extra = (f", grid {probe.grid_blocks(f.device)} blocks, {probe.tiles()} tiles"
                  if probe.kind == "manual" else "")
-        log(f"{name:23s} {n}^2 R={rounds}: {'bit-equal' if same else 'DIFFERS'} "
+        log(f"{name:23s} {n}^2 R={rounds} ({probe_path(probe, n, n)} path): "
+            f"{'bit-equal' if same else 'DIFFERS'} "
             f"(max |d| {err}{', smem total ' + repr(float(total)) if total is not None else ''}), "
             f"{probe.blocks_per_sm()} blocks an SM{extra}")
         if not same:
@@ -305,6 +366,7 @@ def probe_run(engines, n, band) -> int:
     held, refused = canary(engines)
     print(f"canary: {held} cases bit-equal, refused (too few bands): {refused or 'none'}")
     try:
+        print(f"paths: {check_box_paths()} cases held")
         check_full(engines, n, band)
     except RuntimeError as err:
         print(f"FAILED: {err}")

@@ -37,26 +37,36 @@
 //     partial of f[0, band_start, :128] (a warp: four values a lane in order,
 //     then a shuffle tree), summed over the bands in band order by
 //     sum_partials_kernel, one thread: no float atomics.
-//   * manual_kernel<Depth, Flat, Safe>, the explicit pipeline: a persistent
-//     grid (as many blocks as are resident at once, like B3); block b walks
-//     the tiles b, b + grid, ... in band order through a ring of Depth
-//     shared-memory stages, each with an input and an output slot of one
-//     tile. Warp 0 issues the copies: Hopper bulk copies (cp.async.bulk)
-//     global -> shared, completing on the stage's mbarrier, Depth - 1 tiles
-//     ahead; then shared -> global (bulk_group), drained Depth tiles behind
-//     with cp.async.bulk.wait_group.read, as probe.py's out_sem waits. The
-//     strided (9, by, bx) tile is one copy per row segment (9 by copies:
-//     144 of 128 B at 16x32, 9 of 2 KB at 1x512, the TPU stage's 9 strided
-//     descriptors); Flat copies one contiguous chunk of 9 by bx values of
-//     the flat view per stage, the TPU's "9 strided descriptors against 1".
+//   * manual_kernel<Depth, Flat, Safe, Box>, the explicit pipeline: a
+//     persistent grid (as many blocks as are resident at once, like B3);
+//     block b walks the tiles b, b + grid, ... in band order through a ring
+//     of Depth shared-memory stages, each with an input and an output slot
+//     of one tile. Warp 0 issues the copies global -> shared, completing on
+//     the stage's mbarrier, Depth - 1 tiles ahead; then shared -> global
+//     (bulk_group), drained Depth tiles behind with
+//     cp.async.bulk.wait_group.read, as probe.py's out_sem waits. A stage
+//     moves in one of two ways ("paths"):
+//       - Box (the rule where TMA takes the shape: the state's rows and the
+//         tile's of whole 16-byte pieces, sides of at most 256, 16-byte
+//         aligned buffers): the strided (9, by, bx) tile is ONE TMA box each
+//         way, through a tensor map over the (9, ny, nx) state and one over
+//         out (tile_copy::encode_map), the card's form of the TPU stage's one
+//         strided descriptor over the nine planes (probe.py:140-150). Edge
+//         tiles come zero-filled and go back clipped;
+//       - bulk: one Hopper bulk copy (cp.async.bulk) per row segment of the
+//         strided tile (9 by copies: 144 of 128 B at 16x32, 9 of 2 KB at
+//         1x512, whose 512 columns no box takes), or one contiguous chunk of
+//         9 by bx values a stage over the flat view (Flat, the TPU's "9
+//         strided descriptors against 1"). A bulk copy needs 16-byte
+//         alignment and a multiple of 16 bytes: nx % 4 == 0, bx % 4 == 0 and
+//         16-byte aligned pointers (the wrapper checks them).
 //     Safe issues tile i's write only after tile i+1's fetch has landed
 //     (probe.py:483-493). The aliased engines pass out == in: nothing else
-//     differs, so aliasing is no template parameter. A bulk copy needs 16-byte
-//     alignment and a multiple of 16 bytes: nx % 4 == 0, bx % 4 == 0 and
-//     16-byte aligned pointers (the wrapper checks them).
-// Shared memory of manual_kernel: 2 x Depth x 9 x by x bx x 4 B + the
-// barriers; at 16x32 or 1x512, 73,744 B at Depth 2 (three blocks an SM) up
-// to 221,232 B at Depth 6 (one).
+//     differs, so aliasing is no template parameter.
+// Shared memory of manual_kernel: each stage slot on 128 bytes (TMA's
+// boxes), 128 B of slack to align the base, 2 x Depth slots of 9 x by x bx
+// x 4 B and the barriers; at 16x32 or 1x512, 73,872 B at Depth 2 (three
+// blocks an SM) up to 221,360 B at Depth 6 (one).
 //
 // Interface: plain C; launches on the given stream and returns
 // cudaGetLastError(); allocates nothing.
@@ -226,10 +236,11 @@ using tile_copy::mbar_wait;
 
 // A tile of the manual kernel: its values are `rows` segments of `w` values,
 // segment j at src + seg_offset(j) in device memory and at stage + j * bx in
-// shared memory. Flat tiles are one segment.
+// shared memory. Flat tiles are one segment. (r0, c0): its first row and
+// column (strided tiles).
 struct Tile {
   size_t base;  // offset of the first value
-  int rows, h, w;
+  int rows, h, w, r0, c0;
 };
 
 template <bool kFlat>
@@ -238,13 +249,13 @@ __device__ __forceinline__ Tile tile_of(const Grid& g, int t) {
     const size_t stage = (size_t)9 * g.by * g.bx;
     const size_t total = (size_t)9 * g.ny * g.nx;
     const size_t base = (size_t)t * stage;
-    return Tile{base, 1, 1, (int)(total - base < stage ? total - base : stage)};
+    return Tile{base, 1, 1, (int)(total - base < stage ? total - base : stage), 0, 0};
   }
   const int ntx = (g.nx + g.bx - 1) / g.bx;
   const int ty = t / ntx, tx = t - ty * ntx;
   const int r0 = ty * g.by, c0 = tx * g.bx;
   const int h = min(g.by, g.ny - r0);
-  return Tile{(size_t)r0 * g.nx + c0, 9 * h, h, min(g.bx, g.nx - c0)};
+  return Tile{(size_t)r0 * g.nx + c0, 9 * h, h, min(g.bx, g.nx - c0), r0, c0};
 }
 
 // device-memory offset of segment j of a strided tile: plane q, row r
@@ -259,12 +270,27 @@ __device__ __forceinline__ int seg_stage(const Grid& g, const Tile& t, int j) {
   return (q * g.by + r) * g.bx;
 }
 
-// warp 0: start the fetch of tile t into stage, completing on bar
-template <bool kFlat>
-__device__ __forceinline__ void fetch(const float* in, float* stage, uint64_t* bar, const Grid& g,
-                                      int t) {
+// Values between two stage slots: a slot of 9 by bx floats rounded up to 128
+// bytes, so that every slot starts where a TMA box may land.
+__host__ __device__ __forceinline__ int slot_stride(int by, int bx) {
+  return (9 * by * bx + 31) / 32 * 32;
+}
+
+// warp 0: start the fetch of tile t into stage, completing on bar. Box: one
+// TMA box of the whole (9, by, bx) tile, zeros beyond the grid; its bytes
+// are the box's, edge tile or not.
+template <bool kFlat, bool kBox>
+__device__ __forceinline__ void fetch(const CUtensorMap* src, const float* in, float* stage,
+                                      uint64_t* bar, const Grid& g, int t) {
   const int lane = threadIdx.x;
   const Tile tl = tile_of<kFlat>(g, t);
+  if (kBox) {
+    if (lane == 0) {
+      mbar_expect_tx(bar, (uint32_t)9 * g.by * g.bx * 4);
+      tile_copy::box_load(src, stage, bar, tl.c0, tl.r0, 0);
+    }
+    return;
+  }
   if (lane == 0) mbar_expect_tx(bar, (uint32_t)tl.rows * tl.w * 4);
   __syncwarp();
   if (kFlat) {
@@ -275,12 +301,18 @@ __device__ __forceinline__ void fetch(const float* in, float* stage, uint64_t* b
     bulk_load(stage + seg_stage(g, tl, j), in + seg_offset(g, tl, j), (uint32_t)tl.w * 4, bar);
 }
 
-// warp 0: start the write-back of tile t from stage, as one bulk group a lane
-template <bool kFlat>
-__device__ __forceinline__ void write_back(float* out, const float* stage, const Grid& g, int t) {
+// warp 0: start the write-back of tile t from stage, as one bulk group a
+// lane. Box: lane 0 stores the tile as one TMA box, clipped to the grid.
+// The threads wrote the stage: the caller has fenced (fence.proxy.async) and
+// met at a barrier before this.
+template <bool kFlat, bool kBox>
+__device__ __forceinline__ void write_back(const CUtensorMap* dst, float* out, const float* stage,
+                                           const Grid& g, int t) {
   const int lane = threadIdx.x;
   const Tile tl = tile_of<kFlat>(g, t);
-  if (kFlat) {
+  if (kBox) {
+    if (lane == 0) tile_copy::box_store(dst, stage, tl.c0, tl.r0, 0);
+  } else if (kFlat) {
     if (lane == 0) bulk_store(out + tl.base, stage, (uint32_t)tl.w * 4);
   } else {
     for (int j = lane; j < tl.rows; j += 32)
@@ -289,14 +321,25 @@ __device__ __forceinline__ void write_back(float* out, const float* stage, const
   bulk_commit();
 }
 
-template <int kDepth, bool kFlat, bool kSafe>
+// The pipeline's hazards, each kept at its place below:
+//   * stage s's mbarrier completes once per use, so round i waits on parity
+//     (i / Depth) & 1, the number of its earlier uses mod 2;
+//   * a stage's in-slot is refilled (Depth - 1 tiles ahead) only in the round
+//     after the threads have read it: the fetch at the top of round i goes to
+//     the slot of round i - 1, whose reads ended at that round's last barrier;
+//   * an out-slot is written by the threads only after the store that last
+//     read it has read it (bulk_wait_read<Depth - 1>, then a barrier);
+//   * the threads' writes of an out-slot reach the async proxy that stores it
+//     through fence_proxy_async and a barrier before the store is issued.
+template <int kDepth, bool kFlat, bool kSafe, bool kBox>
 __global__ void __launch_bounds__(kThreads)
-manual_kernel(const float* in, float* out, Grid g, int rounds, int ntiles) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int stage = 9 * g.by * g.bx;
-  float* in_sl = reinterpret_cast<float*>(smem_raw);
-  float* out_sl = in_sl + kDepth * stage;
-  uint64_t* full = reinterpret_cast<uint64_t*>(out_sl + kDepth * stage);
+manual_kernel(__grid_constant__ const CUtensorMap src, __grid_constant__ const CUtensorMap dst,
+              const float* in, float* out, Grid g, int rounds, int ntiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const int stage = 9 * g.by * g.bx, stride = slot_stride(g.by, g.bx);
+  float* in_sl = tile_copy::align128<float>(smem_raw);
+  float* out_sl = in_sl + kDepth * stride;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_sl + kDepth * stride);
   const bool producer = threadIdx.x < 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kDepth; ++s) mbar_init(&full[s], 1);
@@ -308,31 +351,36 @@ manual_kernel(const float* in, float* out, Grid g, int rounds, int ntiles) {
   const auto tile = [&](int i) { return b + i * nb; };
   if (producer)
     for (int j = 0; j < kDepth - 1 && j < mine; ++j)
-      fetch<kFlat>(in, in_sl + j * stage, &full[j], g, tile(j));
+      fetch<kFlat, kBox>(&src, in, in_sl + j * stride, &full[j], g, tile(j));
   for (int i = 0; i < mine; ++i) {
     const int slot = i % kDepth;
     const int ahead = i + kDepth - 1;  // its in-slot was read in round i - 1
     if (producer && ahead < mine)
-      fetch<kFlat>(in, in_sl + (ahead % kDepth) * stage, &full[ahead % kDepth], g, tile(ahead));
+      fetch<kFlat, kBox>(&src, in, in_sl + (ahead % kDepth) * stride, &full[ahead % kDepth], g,
+                         tile(ahead));
     mbar_wait(&full[slot], (uint32_t)(i / kDepth) & 1u);
     if (kSafe && producer && i >= 1)  // tile i has landed: flush tile i - 1
-      write_back<kFlat>(out, out_sl + ((i - 1) % kDepth) * stage, g, tile(i - 1));
+      write_back<kFlat, kBox>(&dst, out, out_sl + ((i - 1) % kDepth) * stride, g, tile(i - 1));
     // the out-slot of tile i - Depth must have been read by its write-back
     if (producer) bulk_wait_read<kDepth - 1>();
     __syncthreads();
     const int n = kFlat ? tile_of<kFlat>(g, tile(i)).w : stage;
-    work_stage<kThreads>(in_sl + slot * stage, out_sl + slot * stage, n, rounds);
-    tile_copy::fence_proxy_async();
+    work_stage<kThreads>(in_sl + slot * stride, out_sl + slot * stride, n, rounds);
+    tile_copy::fence_proxy_async();  // the threads' out-slot, before the store reads it
     __syncthreads();
-    if (!kSafe && producer) write_back<kFlat>(out, out_sl + slot * stage, g, tile(i));
+    if (!kSafe && producer)
+      write_back<kFlat, kBox>(&dst, out, out_sl + slot * stride, g, tile(i));
   }
   if (kSafe && producer && mine > 0)
-    write_back<kFlat>(out, out_sl + ((mine - 1) % kDepth) * stage, g, tile(mine - 1));
+    write_back<kFlat, kBox>(&dst, out, out_sl + ((mine - 1) % kDepth) * stride, g,
+                            tile(mine - 1));
   if (producer) bulk_wait_all();  // drain: the writes land before the block ends
 }
 
+// Mirrored by overlap_probe.manual_smem_bytes.
 size_t manual_smem(int depth, int by, int bx) {
-  return (size_t)2 * depth * 9 * by * bx * sizeof(float) + (size_t)depth * sizeof(uint64_t);
+  return 128 + (size_t)2 * depth * slot_stride(by, bx) * sizeof(float) +
+         (size_t)depth * sizeof(uint64_t);
 }
 
 int manual_tiles(const Grid& g, bool flat) {
@@ -343,60 +391,87 @@ int manual_tiles(const Grid& g, bool flat) {
   return ((g.ny + g.by - 1) / g.by) * ((g.nx + g.bx - 1) / g.bx);
 }
 
-template <int kDepth, bool kFlat, bool kSafe>
+// Whether the box path takes a strided tile over this layout (mirrored by
+// overlap_probe.choose_path): TMA's rules and a tile no larger than the grid.
+bool manual_box_fits(const void* in, const void* out, const Grid& g) {
+  return tile_copy::tma_fits(in, out, 4, g.nx, 9, g.by, g.bx) && g.by <= g.ny && g.bx <= g.nx;
+}
+
+template <int kDepth, bool kFlat, bool kSafe, bool kBox>
 int manual_launch(const float* in, float* out, const Grid& g, int rounds, int blocks,
                   cudaStream_t stream) {
+  CUtensorMap src{}, dst{};
+  if (kBox) {
+    if (!manual_box_fits(in, out, g)) return (int)cudaErrorInvalidValue;
+    int rc = tile_copy::encode_map(&src, {in, 4, 9, g.ny, g.nx, 9, g.by, g.bx});
+    if (rc == 0) rc = tile_copy::encode_map(&dst, {out, 4, 9, g.ny, g.nx, 9, g.by, g.bx});
+    if (rc) return rc;
+  }
   const size_t smem = manual_smem(kDepth, g.by, g.bx);
-  cudaError_t err = cudaFuncSetAttribute(manual_kernel<kDepth, kFlat, kSafe>,
+  cudaError_t err = cudaFuncSetAttribute(manual_kernel<kDepth, kFlat, kSafe, kBox>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  manual_kernel<kDepth, kFlat, kSafe><<<blocks, kThreads, smem, stream>>>(
-      in, out, g, rounds, manual_tiles(g, kFlat));
+  manual_kernel<kDepth, kFlat, kSafe, kBox><<<blocks, kThreads, smem, stream>>>(
+      src, dst, in, out, g, rounds, manual_tiles(g, kFlat));
   return (int)cudaGetLastError();
 }
 
-template <int kDepth, bool kFlat, bool kSafe>
+template <int kDepth, bool kFlat, bool kSafe, bool kBox>
 int manual_per_sm(int by, int bx) {
   const size_t smem = manual_smem(kDepth, by, bx);
-  if (cudaFuncSetAttribute(manual_kernel<kDepth, kFlat, kSafe>,
+  if (cudaFuncSetAttribute(manual_kernel<kDepth, kFlat, kSafe, kBox>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess)
     return 0;
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, manual_kernel<kDepth, kFlat, kSafe>,
-                                                    kThreads, smem) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, manual_kernel<kDepth, kFlat, kSafe, kBox>, kThreads, smem) != cudaSuccess)
     return 0;
   return per_sm;
 }
 
-// Calls F<Depth, Flat, Safe>::run(args...) for the runtime triple; -1 for a
-// triple no engine uses. The engines use six: depth 2, 3, 4 and 6 strided,
-// depth 2 flat (manual_flat) and depth 2 safe (manual_alias_safe).
-template <template <int, bool, bool> class F, typename... A>
-int dispatch(int depth, bool flat, bool safe, A... args) {
-  if (flat || safe) {
-    if (depth != 2 || (flat && safe)) return -1;
-    return flat ? F<2, true, false>::run(args...) : F<2, false, true>::run(args...);
+// Calls F<Depth, Flat, Safe, Box>::run(args...) for the runtime quadruple; -1
+// for one no engine uses. The engines use depth 2, 3, 4 and 6 strided, depth
+// 2 flat (manual_flat, bulk only) and depth 2 safe (manual_alias_safe); each
+// strided one on either path.
+template <template <int, bool, bool, bool> class F, typename... A>
+int dispatch(int depth, bool flat, bool safe, bool box, A... args) {
+  if (flat) {
+    if (depth != 2 || safe || box) return -1;
+    return F<2, true, false, false>::run(args...);
+  }
+  if (safe) {
+    if (depth != 2) return -1;
+    return box ? F<2, false, true, true>::run(args...) : F<2, false, true, false>::run(args...);
+  }
+  if (box) {
+    switch (depth) {
+      case 2: return F<2, false, false, true>::run(args...);
+      case 3: return F<3, false, false, true>::run(args...);
+      case 4: return F<4, false, false, true>::run(args...);
+      case 6: return F<6, false, false, true>::run(args...);
+    }
+    return -1;
   }
   switch (depth) {
-    case 2: return F<2, false, false>::run(args...);
-    case 3: return F<3, false, false>::run(args...);
-    case 4: return F<4, false, false>::run(args...);
-    case 6: return F<6, false, false>::run(args...);
+    case 2: return F<2, false, false, false>::run(args...);
+    case 3: return F<3, false, false, false>::run(args...);
+    case 4: return F<4, false, false, false>::run(args...);
+    case 6: return F<6, false, false, false>::run(args...);
   }
   return -1;
 }
 
-template <int kDepth, bool kFlat, bool kSafe>
+template <int kDepth, bool kFlat, bool kSafe, bool kBox>
 struct Launch {
   static int run(const float* in, float* out, Grid g, int rounds, int blocks,
                  cudaStream_t stream) {
-    return manual_launch<kDepth, kFlat, kSafe>(in, out, g, rounds, blocks, stream);
+    return manual_launch<kDepth, kFlat, kSafe, kBox>(in, out, g, rounds, blocks, stream);
   }
 };
 
-template <int kDepth, bool kFlat, bool kSafe>
+template <int kDepth, bool kFlat, bool kSafe, bool kBox>
 struct PerSm {
-  static int run(int by, int bx) { return manual_per_sm<kDepth, kFlat, kSafe>(by, bx); }
+  static int run(int by, int bx) { return manual_per_sm<kDepth, kFlat, kSafe, kBox>(by, bx); }
 };
 
 size_t auto_smem(int values) {
@@ -493,11 +568,14 @@ int overlap_auto(const void* in, void* out, void* partials, void* total, int pla
 }
 
 // manual_kernel over a (9, ny, nx) state on a persistent grid of `blocks`
-// blocks; depth 2, 3, 4 or 6 strided, depth 2 flat or safe. out may be in
-// (the aliased engines).
+// blocks; depth 2, 3, 4 or 6 strided, depth 2 flat or safe; box: each
+// strided stage as one TMA box (16-byte aligned buffers, nx % 4 == 0, bx % 4
+// == 0, by <= min(256, ny), bx <= min(256, nx); else an error), bulk copies
+// otherwise. out may be in (the aliased engines).
 int overlap_manual(const void* in, void* out, int ny, int nx, int by, int bx, int rounds,
-                   int depth, int flat, int safe, int blocks, void* stream) {
-  const int rc = dispatch<Launch>(depth, flat != 0, safe != 0, static_cast<const float*>(in),
+                   int depth, int flat, int safe, int box, int blocks, void* stream) {
+  const int rc = dispatch<Launch>(depth, flat != 0, safe != 0, box != 0,
+                                  static_cast<const float*>(in),
                                   static_cast<float*>(out), Grid{9, ny, nx, by, bx}, rounds,
                                   blocks, static_cast<cudaStream_t>(stream));
   return rc < 0 ? (int)cudaErrorInvalidValue : rc;
@@ -510,8 +588,8 @@ int overlap_auto_blocks(int halo, int smem, int tma, int values) {
   return auto_dispatch<AutoPerSm>(halo != 0, smem != 0, tma != 0, values);
 }
 
-int overlap_manual_blocks(int depth, int flat, int safe, int by, int bx) {
-  const int n = dispatch<PerSm>(depth, flat != 0, safe != 0, by, bx);
+int overlap_manual_blocks(int depth, int flat, int safe, int box, int by, int bx) {
+  const int n = dispatch<PerSm>(depth, flat != 0, safe != 0, box != 0, by, bx);
   return n < 0 ? 0 : n;
 }
 

@@ -24,7 +24,8 @@
 // the start and one for the stride, none a piece.
 //
 // Also the mbarrier and bulk-copy primitives that the explicit pipeline of
-// B11 (manual_kernel) uses.
+// B11 (manual_kernel) uses, and the rank-4 box loads of the blocked D3Q19
+// kernels B5 and B7 (csrc/d3q19_blocked.cu).
 
 #pragma once
 
@@ -124,6 +125,18 @@ __device__ __forceinline__ void box_load(const CUtensorMap* map, void* dst, uint
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x),
         "r"(y), "r"(z)
+      : "memory");
+}
+
+// the box of a rank-4 `map` at (x, y, z, w) (innermost first), global ->
+// shared, completing its whole box's bytes on bar (zeros beyond the grid)
+__device__ __forceinline__ void box_load4(const CUtensorMap* map, void* dst, uint64_t* bar, int x,
+                                          int y, int z, int w) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x),
+        "r"(y), "r"(z), "r"(w)
       : "memory");
 }
 
@@ -262,13 +275,15 @@ inline EncodeTiled encode_tiled() {
 }
 
 // What a tensor map describes: a (planes, ny, nx) state of `elem`-byte values
-// at `base`, in boxes of (bq, by, bx).
+// at `base`, in boxes of (bq, by, bx); with nz > 0, a (planes, nz, ny, nx)
+// state in boxes of (bq, bz, by, bx), a map of rank 4. Contiguous either way.
 struct MapKey {
   const void* base;
   int elem, planes, ny, nx, bq, by, bx;
+  int nz = 0, bz = 0;
   bool operator==(const MapKey& o) const {
     return base == o.base && elem == o.elem && planes == o.planes && ny == o.ny && nx == o.nx &&
-           bq == o.bq && by == o.by && bx == o.bx;
+           bq == o.bq && by == o.by && bx == o.bx && nz == o.nz && bz == o.bz;
   }
 };
 
@@ -289,15 +304,18 @@ inline int encode_map(CUtensorMap* map, const MapKey& key) {
     }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)key.nx, (cuuint64_t)key.ny, (cuuint64_t)key.planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)key.nx * key.elem,
-                                 (cuuint64_t)key.ny * key.nx * key.elem};
-  const cuuint32_t box[3] = {(cuuint32_t)key.bx, (cuuint32_t)key.by, (cuuint32_t)key.bq};
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const bool rank4 = key.nz > 0;
+  const cuuint64_t row = (cuuint64_t)key.nx * key.elem, plane = row * key.ny;
+  const cuuint64_t dims[4] = {(cuuint64_t)key.nx, (cuuint64_t)key.ny,
+                              (cuuint64_t)(rank4 ? key.nz : key.planes), (cuuint64_t)key.planes};
+  const cuuint64_t strides[3] = {row, plane, plane * (rank4 ? key.nz : 1)};
+  const cuuint32_t box[4] = {(cuuint32_t)key.bx, (cuuint32_t)key.by,
+                             (cuuint32_t)(rank4 ? key.bz : key.bq), (cuuint32_t)key.bq};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapDataType type =
       key.elem == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap m;
-  if (encode(&m, type, 3, const_cast<void*>(key.base), dims, strides, box, unit,
+  if (encode(&m, type, rank4 ? 4 : 3, const_cast<void*>(key.base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;

@@ -36,8 +36,9 @@ _D = ctypes.c_double
 _D2Q9_SCALARS = [_I] * 13 + [_D, _D, _D, _P]
 # d3q19_kstep.cu: nz .. accel_plane, six collision coefficients, stream
 _D3Q19_SCALARS = [_I] * 14 + [_D] * 6 + [_P]
-# d3q19_blocked.cu: nz .. tile, threads, k .. accel_plane, six coefficients, stream
-_D3Q19_BLOCKED_SCALARS = [_I] * 15 + [_D] * 6 + [_P]
+# d3q19_blocked.cu: mode, path, nz .. tile, threads, k .. accel_plane, six
+# coefficients, stream
+_D3Q19_BLOCKED_SCALARS = [_I] * 17 + [_D] * 6 + [_P]
 # stencil.cu: image, interior, out, then c, h, w and each kernel's own ints
 _STENCIL_K = [_P] * 3 + [_I] * 7 + [_P]
 # the resident entries: image, interior, out, xrow, xcol, then c .. num_passes,
@@ -64,9 +65,9 @@ SIGNATURES = {
     },
     "overlap_probe": {
         "overlap_auto": [_P] * 4 + [_I] * 10 + [_P],
-        "overlap_manual": [_P] * 2 + [_I] * 9 + [_P],
+        "overlap_manual": [_P] * 2 + [_I] * 10 + [_P],
         "overlap_auto_blocks": [_I] * 4,
-        "overlap_manual_blocks": [_I] * 5,
+        "overlap_manual_blocks": [_I] * 6,
     },
     "d3q19_kstep": {
         "d3q19_kstep_f32": [_P] * 6 + _D3Q19_SCALARS,

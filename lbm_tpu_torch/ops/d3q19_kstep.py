@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import d3q19
-from .d2q9_kstep import check_rc, obstacle_bool, obstacle_u8
+from .d2q9_kstep import check_mode, check_rc, obstacle_bool, obstacle_u8
 from .d3q19_lattice import W
 
 # Launches of kernel B6 (one per K-step pass); callers may reset it.
@@ -93,10 +93,18 @@ def stepk_plain(
     valid_planes: tuple | None = None,
     valid_rows: tuple | None = None,
     global_nz: int | None = None,
+    mode: str = "full",
 ):
     """The plain PyTorch version of the K-step kernels: K steps of
     `d3q19.collide_fields` on `d3q19.stream_pull`, with per-step Sum|u| over
-    the valid window only. Returns (f_after_K, tot (K,))."""
+    the valid window only. The blocked in-place kernel's diagnostic modes
+    (`d2q9_kstep.MODES`): "stream_only", K pull-streams without bounce-back
+    or collision, Sum|u| the window sum of the rest-speed plane (`u =
+    state[0]` in the TPU kernel); "copy", f itself and a Sum|u| of zeros
+    (the TPU kernel's is a token). Returns (f_after_K, tot (K,))."""
+    check_mode(mode)
+    if mode == "copy":
+        return f.clone(), torch.zeros(k_steps, dtype=f.dtype, device=f.device)
     _, nz, ny, nx = f.shape
     valid_planes = valid_planes or (0, nz)
     valid_rows = valid_rows or (0, ny)
@@ -110,8 +118,12 @@ def stepk_plain(
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
     tots = []
     for _ in range(k_steps):
-        f, u = d3q19.collide_fields(d3q19.stream_pull(f), obstacle, amask, omega=omega,
-                                    density=density, accel=accel)
+        if mode == "stream_only":
+            f = torch.stack(d3q19.stream_pull(f))
+            u = f[0]
+        else:
+            f, u = d3q19.collide_fields(d3q19.stream_pull(f), obstacle, amask, omega=omega,
+                                        density=density, accel=accel)
         tots.append(torch.where(window, u, zero).sum())
     return f, torch.stack(tots)
 

@@ -8,13 +8,24 @@ PLACE: `stepk` and `run` overwrite `f` and return it.
 
 Blocks run in no order on the card, so the z-rows of tiles go in order as
 stream-ordered launches of B7's kernel, each writing to a ring of
-ceil(K / tz) + 1 rows in device memory; a row is flushed into `f` once no
-later row reads its old planes, and the last rows read planes [0, K) from a
-snapshot taken first (csrc/d3q19_blocked.cu). One call of the C entry point
-is one pass: every cell makes one trip per K steps. Beside the lattice a run
-holds the ring and the snapshot (`scratch_planes`); `choose_config` keeps them
-under 0.45 of the lattice where the grid has the planes for it. B5's state is
+ceil(K / tz) + 2 rows in device memory; once no later row reads a row's old
+planes, the next row's launch flushes it into `f` with extra blocks, and the
+last rows read planes [0, K) from a snapshot taken first
+(csrc/d3q19_blocked.cu). One call of the C entry point is one pass: every
+cell makes one trip per K steps. Beside the lattice a run holds the ring and
+the snapshot (`scratch_planes`); `choose_config` keeps them under 0.45 of
+the lattice where the grid has the planes for it. B5's state is
 bit-identical to B7's and, with the same tile and threads, so is its Sum|u|.
+A launch takes B7's path (`d3q19_kstep_blocked.choose_path`) and reports it
+in `last_path`.
+
+`stepk` and `run` take `mode`, the TPU kernel's diagnostic modes
+(`d2q9_kstep.MODES`, `lbm_tpu.ops.d3q19_pallas_inplace_blocked.stepk(mode=)`):
+"full", "stream_only" (K pull-streams without bounce-back or collision,
+Sum|u| the window sum of the rest-speed plane) or "copy" (the state
+unchanged, through the same load, store and ring; Sum|u| zeros, where the
+TPU kernel adds a token). `d3q19_kstep.stepk_plain(mode=)` is their plain
+version.
 
 `pick_engine` and `choose_k` choose for the engine 'cuda-inplace' between this
 kernel and the one-step kernel B4 (`d3q19_kstep_inplace`, the 'slab' kind, after
@@ -26,11 +37,13 @@ from __future__ import annotations
 import torch
 
 from . import d3q19_kstep, d3q19_kstep_blocked
-from .d2q9_kstep import check_rc, obstacle_u8
-from .d3q19_kstep_blocked import PREFERRED_K, scratch_planes  # noqa: F401  (B5's own)
+from .d2q9_kstep import check_mode, check_rc, obstacle_u8
+from .d3q19_kstep_blocked import PATHS, PREFERRED_K, scratch_planes  # noqa: F401  (B5's own)
 
 # Launches of kernel B5 (one per K-step pass); callers may reset it.
 launches = 0
+# The path of the last launch of B5 ("box" or "thread").
+last_path = None
 
 # Share of the lattice's planes that ring and snapshot may take, and the
 # planes they may take on a grid too shallow for that share.
@@ -81,12 +94,13 @@ def _scratch(f, tile, k_steps):
     return ring, snap
 
 
-def _launch(f, mask_u8, ring, snap, partials, tot, scalars):
-    global launches
+def _launch(f, mask_u8, ring, snap, partials, tot, mode, path, scalars):
+    global launches, last_path
     launches += 1
+    last_path = path
     rc = d3q19_kstep_blocked.entry(f, "d3q19_blocked_inplace")(
         f.data_ptr(), mask_u8.data_ptr(), ring.data_ptr(), snap.data_ptr(),
-        partials.data_ptr(), tot.data_ptr(), *scalars)
+        partials.data_ptr(), tot.data_ptr(), check_mode(mode), PATHS.index(path), *scalars)
     check_rc(rc, "d3q19_blocked_inplace")
 
 
@@ -112,15 +126,19 @@ def stepk(
     global_nz: int | None = None,
     tile: tuple[int, int, int] | None = None,
     threads: int | None = None,
+    mode: str = "full",
+    path: str | None = None,
 ):
     """K timesteps in one in-place trip (kernel B5 on CUDA,
-    `d3q19_kstep.stepk_plain` on the CPU). Overwrites f with the state after
-    K steps; returns (f, tot_u per step (K,))."""
+    `d3q19_kstep.stepk_plain` on the CPU) in `mode`. Overwrites f with the
+    state after K steps; returns (f, tot_u per step (K,)). `path` as in
+    `d3q19_kstep_blocked.resolve_path`."""
+    check_mode(mode)
     kw = dict(k_steps=k_steps, omega=omega, density=density, accel=accel,
               accel_plane=accel_plane, plane_offset=plane_offset, valid_planes=valid_planes,
               valid_rows=valid_rows, global_nz=global_nz)
     if f.device.type == "cpu":
-        f_new, tot = d3q19_kstep.stepk_plain(f, mask, **kw)
+        f_new, tot = d3q19_kstep.stepk_plain(f, mask, mode=mode, **kw)
         f.copy_(f_new)
         return f, tot
     mask_u8 = obstacle_u8(mask)
@@ -128,7 +146,8 @@ def stepk(
     ring, snap = _scratch(f, tile, k_steps)
     partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
     tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
-    _launch(f, mask_u8, ring, snap, partials, tot, scalars)
+    path = d3q19_kstep_blocked.resolve_path(path, f, tile, k_steps)
+    _launch(f, mask_u8, ring, snap, partials, tot, mode, path, scalars)
     return f, tot
 
 
@@ -144,9 +163,13 @@ def run(
     k_steps: int = 1,
     tile: tuple[int, int, int] | None = None,
     threads: int | None = None,
+    mode: str = "full",
+    path: str | None = None,
 ):
-    """`num_steps` timesteps, `k_steps` per in-place trip. Overwrites f;
-    returns (f, tot_u (num_steps,))."""
+    """`num_steps` timesteps, `k_steps` per in-place trip, in `mode`.
+    Overwrites f; returns (f, tot_u (num_steps,)). `path` as in
+    `d3q19_kstep_blocked.resolve_path`."""
+    check_mode(mode)
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
@@ -154,7 +177,7 @@ def run(
     if f.device.type == "cpu":
         for i in range(num_steps // k_steps):
             f_new, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
-                f, mask, k_steps=k_steps, **kw)
+                f, mask, k_steps=k_steps, mode=mode, **kw)
             f.copy_(f_new)
         return f, tots
     mask_u8 = obstacle_u8(mask)
@@ -162,6 +185,8 @@ def run(
                                          threads=threads, **kw)
     ring, snap = _scratch(f, tile, k_steps)
     partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
+    path = d3q19_kstep_blocked.resolve_path(path, f, tile, k_steps)
     for i in range(num_steps // k_steps):
-        _launch(f, mask_u8, ring, snap, partials, tots[i * k_steps:(i + 1) * k_steps], scalars)
+        _launch(f, mask_u8, ring, snap, partials, tots[i * k_steps:(i + 1) * k_steps], mode,
+                path, scalars)
     return f, tots

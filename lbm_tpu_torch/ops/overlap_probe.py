@@ -29,8 +29,13 @@ the (9, 16, 32) tile makes it 144 copies of 128 B.
   there: a CUDA grid's blocks are always independent. It stays a flag so
   that the CSV keeps the TPU's rows.
 - `manual` engines: a persistent grid whose blocks walk their tiles through a
-  ring of `depth` shared-memory stages filled and drained by Hopper bulk
-  copies.
+  ring of `depth` shared-memory stages filled and drained asynchronously. A
+  strided stage moves as one TMA box each way where `choose_path` says the
+  shape allows it ("box"), else as one Hopper bulk copy a row segment
+  ("bulk": the (9, 1, 512) row tile, whose 512 columns no box takes);
+  `manual_flat` makes one bulk copy a stage. `last_path` names the path of
+  the last launch ("tma" or "values" for `auto`, "box" or "bulk" for
+  `manual`).
 - Aliased engines (`build_manual_alias`, `build_auto_alias`,
   `build_manual_alias_safe`) update their input in place and return it, on
   the card and on the CPU alike: the port's form of
@@ -48,6 +53,9 @@ import torch
 # Launches of kernel B11 (one per probe call, two with the smem trait:
 # the tiles, then the sum of the partials); callers may reset it.
 launches = 0
+# The path of the last launch: "tma" or "values" (auto), "box" or "bulk"
+# (manual).
+last_path = None
 
 # (by, bx) of a tile of both kernel families: 9 x 16 x 32 float32 values,
 # 18,432 bytes, so that a depth-6 ring of input and output slots (221,184 B)
@@ -56,6 +64,7 @@ TILE = (16, 32)
 ROW_TILE = (1, 512)  # as many values: 9 row segments of 2 KB a stage
 DEPTHS = (2, 3, 4, 6)
 MAX_SMEM = 227 * 1024  # a block's shared memory on sm_90
+MAX_BOX = 256  # TMA's longest side of a box, in values
 SMEM_COLS = 128  # the smem trait sums f[0, band_start, :128]
 
 
@@ -114,6 +123,30 @@ def auto_path(nx: int, aligned: bool) -> str:
     return "tma" if aligned and nx % 4 == 0 else "values"
 
 
+def manual_smem_bytes(depth: int, tile: tuple) -> int:
+    """Dynamic shared memory of the manual kernel: 2 x depth stage slots of
+    9 x by x bx float32 values, each on 128 bytes, 128 bytes of slack to
+    align the first, and the mbarriers (mirrors manual_smem in
+    csrc/overlap_probe.cu)."""
+    by, bx = tile
+    slot = -(-9 * by * bx * 4 // 128) * 128
+    return 128 + 2 * depth * slot + 8 * depth
+
+
+def choose_path(ny: int, nx: int, tile: tuple, flat: bool, aligned: bool) -> str:
+    """How a manual kernel moves a stage (mirrors manual_box_fits in
+    csrc/overlap_probe.cu): "box", one TMA box of the strided (9, by, bx)
+    tile each way, where TMA takes the shape: rows of the state and of the
+    tile whole 16-byte pieces (nx, bx multiples of 4), both buffers on 16
+    bytes (`aligned`), sides of at most MAX_BOX and no larger than the grid;
+    "bulk", a bulk copy a row segment, otherwise, and always for the flat
+    view (one copy a stage already)."""
+    by, bx = tile
+    fits = (not flat and aligned and nx % 4 == 0 and bx % 4 == 0 and 1 <= by <= min(MAX_BOX, ny)
+            and 1 <= bx <= min(MAX_BOX, nx))
+    return "box" if fits else "bulk"
+
+
 def check_build(ny: int, nx: int, band: int, *, min_bands: int = 1, halo: bool = False,
                 smem: bool = False, bulk: bool = False, tile: tuple = TILE,
                 depth: int = 2) -> None:
@@ -137,7 +170,7 @@ def check_build(ny: int, nx: int, band: int, *, min_bands: int = 1, halo: bool =
     if bulk and (nx % 4 or bx % 4):
         raise ValueError(f"bulk copies need nx % 4 == 0 and bx % 4 == 0, got nx = {nx}, "
                          f"bx = {bx}")
-    ring = 2 * depth * 9 * by * bx * 4 + 8 * depth
+    ring = manual_smem_bytes(depth, tile)
     if bulk and ring > MAX_SMEM:
         raise ValueError(f"a ring of {depth} stages of a {tile} tile takes {ring} B of shared "
                          f"memory, more than a block's {MAX_SMEM}")
@@ -185,7 +218,7 @@ class Probe:
         return out
 
     def __call__(self, f: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-        global launches
+        global launches, last_path
         self._check(f, out)
         if f.device.type == "cpu":
             res = self.plain(f)
@@ -213,7 +246,8 @@ class Probe:
                 partials = torch.empty(self.ny // self.band, dtype=f.dtype, device=f.device)
                 total = torch.empty((), dtype=f.dtype, device=f.device)
             planes, ny, tile_h = (1, 9 * self.ny, 9 * by) if self.flat else (9, self.ny, by)
-            tma = auto_path(self.nx, f.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0) == "tma"
+            last_path = auto_path(self.nx, f.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+            tma = last_path == "tma"
             launches += 2 if self.smem else 1
             rc = lib.overlap_auto(f.data_ptr(), out.data_ptr(),
                                   partials.data_ptr() if self.smem else None,
@@ -222,17 +256,19 @@ class Probe:
                                   int(self.smem), int(tma), stream)
             self.total = total
         else:
+            # the buffers of a manual probe were held to 16 bytes above
+            last_path = choose_path(self.ny, self.nx, self.tile, self.flat, aligned=True)
             launches += 1
             rc = lib.overlap_manual(f.data_ptr(), out.data_ptr(), self.ny, self.nx, by, bx,
                                     self.rounds, self.depth, int(self.flat), int(self.safe),
-                                    self.grid_blocks(f.device), stream)
+                                    int(last_path == "box"), self.grid_blocks(f.device), stream)
         if rc != 0:
             raise RuntimeError(f"overlap_probe ({self!r}): CUDA error {rc} at launch")
         return out
 
     def blocks_per_sm(self) -> int:
-        """Blocks of this probe's kernel resident on one SM of the current card
-        (`auto`: on its TMA path where the width allows it)."""
+        """Blocks of this probe's kernel resident on one SM of the current card,
+        on the path it takes on an aligned state."""
         from . import _build
 
         lib = _build.load("overlap_probe")
@@ -241,7 +277,9 @@ class Probe:
             n = lib.overlap_auto_blocks(int(self.halo), int(self.smem),
                                         int(auto_path(self.nx, True) == "tma"), 9 * by * bx)
         else:
-            n = lib.overlap_manual_blocks(self.depth, int(self.flat), int(self.safe), *self.tile)
+            box = choose_path(self.ny, self.nx, self.tile, self.flat, aligned=True) == "box"
+            n = lib.overlap_manual_blocks(self.depth, int(self.flat), int(self.safe), int(box),
+                                          *self.tile)
         if n <= 0:
             raise RuntimeError(f"overlap_probe ({self!r}): no block fits the card")
         return n

@@ -50,16 +50,23 @@ Phases, each of which must pass or the script exits non-zero:
      and B1 through experiments/cuda-kstep-tiles/breakdown2d.py, B12 and
      `copy_` through copy_floor2d.py), each kernel launched there;
   4. D3Q19 kernels vs plain version at 64x128x256: B6 (d3q19_kstep) and B4
-     (d3q19_kstep_inplace) at K=1, at choose_k's K and at K=3 (B4's swap),
-     float64 and float32, plus a ghost window (plane_offset, valid planes
-     and rows strictly inside, global_nz != nz). B4 must be bit-equal to B6,
-     also over three passes of `run`, must leave its result in the input's
-     storage, and a B4 `run` must peak under 1.5 x (lattice + mask) of
-     device memory;
+     (d3q19_kstep_inplace) at K = 1..4, float64 and float32, on the full
+     window and a ghost window (plane_offset, valid planes and rows strictly
+     inside, global_nz != nz), each on both paths (wave: one launch a pass,
+     a z-wavefront through L2; step: a launch a step): the wave path's state
+     and Sum|u| bit-equal to the step path's, B4 bit-equal to B6 on each
+     path, the path `choose_path` gives within the bar of the plain
+     version; also over three passes of `run`. B4 must leave its result in
+     the input's storage, a B4 `run` must peak under 1.5 x (lattice + mask)
+     of device memory, and B6's `run` prints what it allocates on top of
+     the lattice;
+     Then the wave path on small grids, at other plans and in B6's modes
+     (experiments/cuda-kstep-tiles/wave3d.py `check_paths`);
   5. the 3-D main path: `lbm_tpu_torch.cli.lbm3d --nz 64 --ny 128 --nx 256
      -n 1200` in float32 with no --engine (must launch B4 and never the
-     plain engine) and with `--engine cuda` (B6); av_vels[1:24] against the
-     plain engine on the card (4e-4);
+     plain engine) and with `--engine cuda` (B6), each on the path
+     `choose_path` gives its K; av_vels[1:24] against the plain engine on
+     the card (4e-4);
   6. golden: 16x64x128 x 6000 steps against
      experiments/d3q19-drift/d3q19_16x64x128_6000.av_vels.dat, float32
      through both engines (max relative error over all steps <= 1.5e-3) and
@@ -85,10 +92,12 @@ Phases, each of which must pass or the script exits non-zero:
      1..4, both types, each kernel on its chosen path bit-equal to the
      thread path, B5 == B7, B7 == B6, the modes' state bit-equal to their
      plain versions (copy's Sum|u| zeros); both paths must run in each type.
-     Time per pass of B5 and B7 at K = 1..3 beside B4 and B6, with the path
-     each took. The main path `cli.lbm3d --nz 32 --ny 256 --nx 256 -n 1200` with
+     Time per pass of B5 and B7 at K = 1..3 beside B4 and B6 on each of
+     their paths at K = 1..4, with the path each took. The main path
+     `cli.lbm3d --nz 32 --ny 256 --nx 256 -n 1200` with
      `--engine cuda-inplace-blocked` (B5 alone), `--engine cuda-blocked` (B7
-     alone) and no --engine (the kind `pick_engine` names), av_vels[1:24]
+     alone), no --engine and `--engine cuda` (the kind `pick_engine` names,
+     and for B4 and B6 the path `choose_path` gives), av_vels[1:24]
      against the plain engine (4e-4). Golden 8x256x256 x 6000 against
      experiments/d3q19-drift/d3q19_8x256x256_6000.av_vels.dat (float32 both
      blocked engines <= 1.5e-3; float64 `cuda-blocked`, 200 steps, <= 1e-10).
@@ -764,7 +773,8 @@ def random_mask_3d(rng, nz, ny, nx):
 
 
 def phase_parity_3d(torch, mods3, k_main):
-    """Phase 4. Returns {kernel: max_abs_err} of the float32 main-K case."""
+    """Phase 4. Returns {kernel: max_abs_err} of the float32 main-K case (on
+    the path `choose_path` gives it)."""
     from lbm_tpu_torch.core import state
     d3q19_kstep, d3q19_kstep_inplace = mods3
     nz, ny, nx = SHAPE_3D
@@ -777,36 +787,60 @@ def phase_parity_3d(torch, mods3, k_main):
     abs_err = {}
     for dname, dtype in (("float64", torch.float64), ("float32", torch.float32)):
         f, mask = state.to_torch3d(f_np, mask_np, device="cuda", dtype=dtype)
-        cases = [(k, "full", dict(accel_plane=nz - 2)) for k in sorted({1, k_main, 3})]
-        cases.append((k_main, "window", window))
+        cases = [(k, label, extra) for k in (1, 2, 3, 4)
+                 for label, extra in (("full", dict(accel_plane=nz - 2)), ("window", window))]
         for k, label, extra in cases:
             kw = dict(k_steps=k, **PHYSICS_3D, **extra)
             ref_f, ref_tot = d3q19_kstep.stepk_plain(f, mask, **kw)
             torch.cuda.synchronize()
-            b6_f, b6_tot = d3q19_kstep.stepk(f, mask, **kw)
-            torch.cuda.synchronize()
-            g = f.clone()
-            b4_f, b4_tot = d3q19_kstep_inplace.stepk(g, mask, **kw)
-            torch.cuda.synchronize()
-            check(b4_f.data_ptr() == g.data_ptr(), "B4 did not write into its input's storage")
-            for name, kf, kt in (("d3q19_kstep", b6_f, b6_tot),
-                                 ("d3q19_kstep_inplace", b4_f, b4_tot)):
+            got = {}
+            for path in d3q19_kstep.PATHS:
+                b6_f, b6_tot = d3q19_kstep.stepk(f, mask, path=path, **kw)
+                g = f.clone()
+                b4_f, b4_tot = d3q19_kstep_inplace.stepk(g, mask, path=path, **kw)
+                torch.cuda.synchronize()
+                check(d3q19_kstep.last_path == path and d3q19_kstep_inplace.last_path == path,
+                      f"a pass forced onto the {path} path ran on another")
+                check(b4_f.data_ptr() == g.data_ptr(), "B4 did not write into its input's storage")
+                got[path] = {"d3q19_kstep": (b6_f, b6_tot), "d3q19_kstep_inplace": (b4_f, b4_tot)}
+            chosen = {name: d3q19_kstep.choose_path(nz, ny, nx, k, dtype, kernel=kernel)
+                      for name, kernel in (("d3q19_kstep", "b6"), ("d3q19_kstep_inplace", "b4"))}
+            for name, path in chosen.items():
+                kf, kt = got[path][name]
                 ef, et = rel_err(kf, ref_f), rel_err(kt, ref_tot)
                 ea = float((kf - ref_f).abs().max())
-                print(f"parity {name:19s} {dname} K={k} {label:6s}: state max rel err "
-                      f"{ef:.3e} (max abs {ea:.3e}), Sum|u| max rel err {et:.3e}")
+                print(f"parity {name:19s} {dname} K={k} {label:6s} ({path} path): state max rel "
+                      f"err {ef:.3e} (max abs {ea:.3e}), Sum|u| max rel err {et:.3e}")
                 check(np.isfinite(ef) and ef <= BARS[dname],
                       f"{name} {dname} K={k} {label}: state rel err {ef} > {BARS[dname]}")
                 check(np.isfinite(et) and et <= BARS[dname],
                       f"{name} {dname} K={k} {label}: Sum|u| rel err {et} > {BARS[dname]}")
                 if dname == "float32" and k == k_main and label == "full":
                     abs_err[name] = ea
-            check(torch.equal(b4_f, b6_f) and torch.equal(b4_tot, b6_tot),
-                  f"B4 is not bit-equal to B6 ({dname} K={k} {label})")
-            print(f"parity B4 == B6 bit for bit ({dname} K={k} {label})")
-            del ref_f, b6_f, b4_f, g
+            what = f"{dname} K={k} {label}"
+            step, wave = got["step"], got["wave"]
+            for name in chosen:
+                check(torch.equal(wave[name][0], step[name][0])
+                      and torch.equal(wave[name][1], step[name][1]),
+                      f"{name}: the wave path's state or Sum|u| differs from the step path's "
+                      f"({what})")
+            for path, res in got.items():
+                check(torch.equal(res["d3q19_kstep_inplace"][0], res["d3q19_kstep"][0])
+                      and torch.equal(res["d3q19_kstep_inplace"][1], res["d3q19_kstep"][1]),
+                      f"B4 is not bit-equal to B6 on the {path} path ({what})")
+            print(f"parity wave == step (state and Sum|u|), B4 == B6 on each path, bit for bit "
+                  f"({what}); paths B6 {chosen['d3q19_kstep']}, B4 "
+                  f"{chosen['d3q19_kstep_inplace']}")
+            del ref_f, got, g
         run_kw = dict(num_steps=3 * k_main, k_steps=k_main, accel_plane=nz - 2, **PHYSICS_3D)
+        step_f, step_tot = d3q19_kstep.run(f, mask, path="step", **run_kw)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         b6_f, b6_tot = d3q19_kstep.run(f, mask, **run_kw)
+        torch.cuda.synchronize()
+        b6_bytes = torch.cuda.max_memory_allocated() - before
+        b6_path = d3q19_kstep.last_path
         g = f.clone()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
@@ -814,24 +848,45 @@ def phase_parity_3d(torch, mods3, k_main):
         b4_f, b4_tot = d3q19_kstep_inplace.run(g, mask, **run_kw)
         torch.cuda.synchronize()
         extra_bytes = torch.cuda.max_memory_allocated() - before
+        check(torch.equal(b6_f, step_f) and torch.equal(b6_tot, step_tot),
+              f"B6 run on the {b6_path} path is not bit-equal to the step path ({dname})")
         check(torch.equal(b4_f, b6_f) and torch.equal(b4_tot, b6_tot),
               f"B4 run is not bit-equal to B6 run ({dname}, 3 passes of K={k_main})")
-        print(f"parity B4 run == B6 run bit for bit ({dname}, 3 passes of K={k_main})")
+        print(f"parity B4 run ({d3q19_kstep_inplace.last_path} path) == B6 run ({b6_path} path) "
+              f"== B6 run on the step path, bit for bit ({dname}, 3 passes of K={k_main})")
         # B4's run holds the lattice and the mask (already counted in
         # `before`) and may add less than half of them again
         held = g.numel() * g.element_size() + mask.numel()
+        lattice = g.numel() * g.element_size()
         print(f"memory B4 run ({dname}): lattice + mask {held} B, allocated on top "
               f"{extra_bytes} B, peak {(held + extra_bytes) / held:.4f} x (bar 1.5 x)")
+        print(f"memory B6 run ({dname}, {b6_path} path): allocated on top of the lattice and "
+              f"mask {b6_bytes} B, {b6_bytes / lattice:.4f} lattices (the step path holds two)")
         check(b4_f.data_ptr() == g.data_ptr(), "B4 run did not stay in its input's storage")
         check(held + extra_bytes < 1.5 * held, f"B4 run allocated {extra_bytes} B on top")
-        del b6_f, b4_f, g, f
+        del b6_f, b4_f, g, f, step_f
     return abs_err
 
 
+def phase_paths_3d(torch):
+    """The wave path of B4 and B6 on small grids and in B6's modes
+    (experiments/cuda-kstep-tiles/wave3d.py `check_paths`): at K = 1..4 in
+    both types, on the two bench grids and on grids of 3, 4 and 7 planes
+    whose rows and columns no block divides, each bit-equal to the step path
+    and B4 to B6, at other plans (chunk, lag) and with 7 blocks in all; B6's
+    stream_only and copy bit-equal to their plain versions' state,
+    collide_no_roll within the bar."""
+    harness = load_harness("wave3d")
+    bad = harness.check_paths(log=lambda line: print(f"paths 3-D {line}"))
+    check(not bad, f"the wave path differs on: {bad}")
+    print("paths 3-D: every case held")
+
+
 def phase_timing_3d(torch, mods3, k_main):
-    """Time per launch (one pass of K steps) of each 3-D kernel and of the
-    plain version at the main path's shape, 64x128x256 float32, inside `run`
-    as the main path calls them."""
+    """Time per launch (one pass of K steps) of each 3-D kernel on each path
+    and of the plain version at the main path's shape, 64x128x256 float32,
+    inside `run` as the main path calls them. Returns ({kernel: ms on the
+    path `run` takes}, plain ms, bound, {kernel: {path: ms}}, {kernel: path})."""
     from lbm_tpu_torch.core import state
     d3q19_kstep, d3q19_kstep_inplace = mods3
     nz, ny, nx = SHAPE_3D
@@ -840,11 +895,17 @@ def phase_timing_3d(torch, mods3, k_main):
                                device="cuda", dtype=torch.float32)
     kw = dict(accel_plane=nz - 2, **PHYSICS_3D)
     passes = 200
-    ms = {}
+    ms, by_path, paths = {}, {}, {}
     for name, mod in (("d3q19_kstep", d3q19_kstep), ("d3q19_kstep_inplace", d3q19_kstep_inplace)):
-        g = f.clone()
-        ms[name] = time_ms(torch, lambda: mod.run(g, mask, num_steps=k_main * passes,
-                                                  k_steps=k_main, **kw), 1) / passes
+        by_path[name] = {}
+        for path in (None, *d3q19_kstep.PATHS):
+            g = f.clone()
+            t = time_ms(torch, lambda: mod.run(g, mask, num_steps=k_main * passes,
+                                               k_steps=k_main, path=path, **kw), 1) / passes
+            if path is None:
+                ms[name], paths[name] = t, mod.last_path
+            else:
+                by_path[name][path] = t
     plain_ms = time_ms(torch, lambda: d3q19_kstep.stepk_plain(f, mask, k_steps=k_main, **kw), 5)
     cells = nz * ny * nx
     itemsize = 4
@@ -855,10 +916,11 @@ def phase_timing_3d(torch, mods3, k_main):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     for name, t in ms.items():
-        print(f"timing {name:19s}: {t:.4f} ms per K={k_main} launch "
-              f"({cells * k_main / t / 1e3:.0f} MLUPS), bound {bound[0]:.4f} ms ({bound[1]}), "
+        print(f"timing {name:19s}: {t:.4f} ms per K={k_main} launch on the {paths[name]} path "
+              f"({cells * k_main / t / 1e3:.0f} MLUPS; wave path {by_path[name]['wave']:.4f}, "
+              f"step path {by_path[name]['step']:.4f}), bound {bound[0]:.4f} ms ({bound[1]}), "
               f"plain version {plain_ms:.4f} ms")
-    return ms, plain_ms, bound
+    return ms, plain_ms, bound, by_path, paths
 
 
 def phase_main_path_3d(torch, mods3):
@@ -889,13 +951,18 @@ def phase_main_path_3d(torch, mods3):
             if not engine_args:
                 check(re.search(r"^engine:\s+cuda-inplace$", text, re.M) is not None,
                       "the 3-D CLI's default engine is not cuda-inplace")
+            k = int(re.search(r"^kernel:\s+slab, (\d+) steps? per pass$", text, re.M).group(1))
+            want = d3q19_kstep.choose_path(nz, ny, nx, k, torch.float32,
+                                           kernel="b4" if mod is d3q19_kstep_inplace else "b6")
+            check(mod.last_path == want,
+                  f"3-D {engine_args}: {kernel} ran on the {mod.last_path} path, not {want}")
             seconds = float(re.search(r"Total compute time:\s+([0-9.eE+-]+)", text).group(1))
             mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
             # launches count the warm-up run and the timed run, which are equal
             print(f"3-D main path {kernel}: {launches} launches, {seconds:.6f} s timed, "
                   f"{mlups} MLUPS, {seconds / (launches / 2) * 1e3:.4f} ms per launch in the "
-                  "timed run")
-            results[kernel] = (launches, seconds, mlups)
+                  f"timed run, {mod.last_path} path")
+            results[kernel] = (launches, seconds, mlups, mod.last_path)
             av = lbm_io.read_av_vels(out / "av_vels_3d.dat")
             check(av.shape == (STEPS_3D,) and np.isfinite(av).all(),
                   f"3-D {engine_args}: av_vels_3d.dat is malformed")
@@ -1259,9 +1326,10 @@ def phase_paths_blocked(torch):
 
 
 def phase_timing_blocked(torch, mods3, modsb):
-    """Time per pass of B7 and B5 at K = 1..3 beside B6 and B4 at the same
-    shape and K, 32x256x256 float32, inside `run`; the plain version and the
-    bound at the main path's K. Returns ({kernel: ms}, plain_ms, bound)."""
+    """Time per pass of B7 and B5 at K = 1..3 beside B6 and B4 on each of
+    their paths at K = 1..4, 32x256x256 float32, inside `run`; the plain
+    version and the bound at the main path's K. Returns ({kernel: ms},
+    plain_ms, bound, {kernel: path})."""
     from lbm_tpu_torch.core import state
     d3q19_kstep, d3q19_kstep_inplace = mods3
     b7, b5 = modsb
@@ -1280,20 +1348,26 @@ def phase_timing_blocked(torch, mods3, modsb):
     t_ops = FLOP_PER_CELL_STEP_3D * k_main * cells / F32_FLOP_PER_S * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     ms = {}
-    for k in (1, 2, 3):
+    slab = (("B6", d3q19_kstep), ("B4", d3q19_kstep_inplace))
+    for k in (1, 2, 3, 4):
         row = {}
         paths = {}
-        for name, mod in (("B7", b7), ("B5", b5), ("B6", d3q19_kstep), ("B4", d3q19_kstep_inplace)):
+        cases = [(name, mod, None) for name, mod in (("B7", b7), ("B5", b5)) if k < 4]
+        cases += [(f"{name} {path}", mod, path) for name, mod in slab for path in d3q19_kstep.PATHS]
+        for name, mod, path in cases:
             g = f.clone()
+            extra = {} if path is None else dict(path=path)
             row[name] = time_ms(torch, lambda: mod.run(g, mask, num_steps=k * passes, k_steps=k,
-                                                       **kw), 1) / passes
+                                                       **extra, **kw), 1) / passes
             paths[name] = getattr(mod, "last_path", None)
-        print(f"timing blocked {nz}x{ny}x{nx} float32 K={k}: B7 {row['B7']:.4f} ms per pass "
-              f"(tile {b7.choose_config(nz, ny, nx, k)}, {paths['B7']} path), B5 {row['B5']:.4f} "
-              f"(tile {b5.choose_config(nz, ny, nx, k)}, {paths['B5']} path), B6 {row['B6']:.4f}, "
-              f"B4 {row['B4']:.4f} "
-              f"(K launches of a one-step kernel); bytes of a pass {bytes_moved / 1e6:.0f} MB, "
-              f"{t_bytes:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s whatever K")
+        blocked = (f"B7 {row['B7']:.4f} ms per pass (tile {b7.choose_config(nz, ny, nx, k)}, "
+                   f"{paths['B7']} path), B5 {row['B5']:.4f} (tile "
+                   f"{b5.choose_config(nz, ny, nx, k)}, {paths['B5']} path), " if k < 4 else "")
+        print(f"timing blocked {nz}x{ny}x{nx} float32 K={k}: {blocked}B6 {row['B6 wave']:.4f} "
+              f"(one launch a pass, wave path) / {row['B6 step']:.4f} (K launches, step path), "
+              f"B4 {row['B4 wave']:.4f} / {row['B4 step']:.4f}; bytes of a pass "
+              f"{bytes_moved / 1e6:.0f} MB, {t_bytes:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s "
+              "whatever K")
         if k == k_main:
             ms = {"d3q19_kstep_blocked": row["B7"], "d3q19_kstep_inplace_blocked": row["B5"]}
             ms_paths = {"d3q19_kstep_blocked": paths["B7"],
@@ -1319,7 +1393,8 @@ def phase_main_path_blocked(torch, mods3, modsb):
     results, avs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for engine_args, mod in ((["--engine", "cuda-inplace-blocked"], b5),
-                                 (["--engine", "cuda-blocked"], b7), ([], None)):
+                                 (["--engine", "cuda-blocked"], b7), ([], None),
+                                 (["--engine", "cuda"], None)):
             label = " ".join(engine_args) or "(default engine)"
             out = Path(tmp) / (engine_args[-1] if engine_args else "default")
             argv = ["--nz", str(nz), "--ny", str(ny), "--nx", str(nx), "-n", str(STEPS_3D),
@@ -1335,12 +1410,20 @@ def phase_main_path_blocked(torch, mods3, modsb):
             kind = re.search(r"^kernel:\s+(slab|blocked), (\d+) steps? per pass$", text, re.M)
             check(kind is not None, f"{label}: the CLI does not print the kind of kernel")
             if mod is None:
-                # the kind pick_engine names for the in-place family
-                picked = b5.pick_engine(nz, ny, nx, int(kind.group(2)), torch.float32, "cuda")[0]
+                # the kind pick_engine names for the family
+                family = (b7, d3q19_kstep) if engine_args else (b5, d3q19_kstep_inplace)
+                picked = family[0].pick_engine(nz, ny, nx, int(kind.group(2)), torch.float32,
+                                               "cuda")[0]
                 check(kind.group(1) == picked, f"{label}: ran {kind.group(1)}, not {picked}")
-                mod = b5 if picked == "blocked" else d3q19_kstep_inplace
+                mod = family[0] if picked == "blocked" else family[1]
                 print(f"blocked main path {label}: pick_engine chose the {picked} kind, kernel "
                       f"{names[mod]}")
+                if picked == "slab":
+                    want = d3q19_kstep.choose_path(
+                        nz, ny, nx, int(kind.group(2)), torch.float32,
+                        kernel="b4" if mod is d3q19_kstep_inplace else "b6")
+                    check(mod.last_path == want,
+                          f"{label}: {names[mod]} ran on the {mod.last_path} path, not {want}")
             else:
                 check(kind.group(1) == "blocked", f"{label}: the kind is {kind.group(1)}")
             kernel = names[mod]
@@ -1356,8 +1439,11 @@ def phase_main_path_blocked(torch, mods3, modsb):
                   f"timed, {seconds / (launched[kernel] / 2) * 1e3:.4f} ms per launch in the "
                   f"timed run, {getattr(mod, 'last_path', None) or 'one-step'} path")
             print(f"blocked main path {label}: {mlups} MLUPS")
-            if engine_args:
+            if mod in (b5, b7):
                 results[kernel] = (launched[kernel], seconds, mlups)
+            else:  # the one-step kernels' run at this grid, beside their own phase
+                results[f"{kernel} {nz}x{ny}x{nx}"] = (launched[kernel], seconds, mlups,
+                                                       mod.last_path)
             av = lbm_io.read_av_vels(out / "av_vels_3d.dat")
             check(av.shape == (STEPS_3D,) and np.isfinite(av).all(),
                   f"{label}: av_vels_3d.dat is malformed")
@@ -2009,7 +2095,8 @@ def main() -> int:
         block3 = d3q19_kstep.choose_block(SHAPE_3D[2])
         print(f"3-D: choose_k({STEPS_3D}) = {k3}, choose_block({SHAPE_3D[2]}) = {block3}")
         abs_err3 = phase_parity_3d(torch, mods3, k3)
-        ms3, plain_ms3, bound3 = phase_timing_3d(torch, mods3, k3)
+        phase_paths_3d(torch)
+        ms3, plain_ms3, bound3, ms3_paths, paths_ms3 = phase_timing_3d(torch, mods3, k3)
         paths3 = phase_main_path_3d(torch, mods3)
         phase_golden_3d(torch)
         ck_launches = phase_checkpoint(torch, mods, mods3, mask)
@@ -2072,7 +2159,10 @@ def main() -> int:
         "max_abs_err": abs_err3[name], "ms": ms3[name], "plain_ms": plain_ms3,
         "bound_ms": bound3[0], "bound_by": bound3[1], "library_ms": None,
         "k_steps": k3, "block": list(block3), "main_path_seconds": paths3[name][1],
-        "main_path_mlups": paths3[name][2],
+        "main_path_mlups": paths3[name][2], "path": paths3[name][3],
+        "ms_by_path": ms3_paths[name], "timed_path": paths_ms3[name],
+        "main_path_32x256x256": dict(zip(("launches", "seconds", "mlups", "path"),
+                                         paths_b[f"{name} 32x256x256"])),
         "checkpoint_launches": ck_launches.get(name, 0),
     } for name, replaces in KERNELS_3D.items()]
     kernels += [{

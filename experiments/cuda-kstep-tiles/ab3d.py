@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the blocked D3Q19 kernels B5 and B7 of two copies of the port on one card.
+"""Time the D3Q19 kernels B4, B6, B5 and B7 of two copies of the port on one card.
 
 The 3-D counterpart of ab2d.py. Each copy (a directory that holds a
 `lbm_tpu_torch/` package, e.g. the parent commit unpacked by `git archive`)
@@ -7,23 +7,25 @@ runs in a process of its own, which imports that copy's package and builds
 its kernels into that copy's `build/`. Both copies are built before anything
 is timed. The processes run in the order A, B, B, A, so that a drift of the
 card's clock or temperature falls on both copies alike. Each times, float32,
-K steps a pass, at each grid: B5 (`d3q19_kstep_inplace_blocked.run`) and B7
-(`d3q19_kstep_blocked.run`) at the copy's own tile (`choose_config`), and the
-one-step kernels B4 (`d3q19_kstep_inplace.run`) and B6 (`d3q19_kstep.run`),
-the control of a change to csrc/d3q19_blocked.cu, which should not move by
-more than their spread. Each runs `repeats` times, the kernels alternating,
+K steps a pass for each K of `--ks`, at each grid: B4
+(`d3q19_kstep_inplace.run`) and B6 (`d3q19_kstep.run`) on the path their
+`run` takes, and B5 (`d3q19_kstep_inplace_blocked.run`) and B7
+(`d3q19_kstep_blocked.run`) at the copy's own tile (`choose_config`). A
+change to one pair has the other as its control, which should not move by
+more than its spread. Each runs `repeats` times, the kernels alternating,
 by CUDA events over `passes` passes (at 32x256x256; scaled by the cells at
 other grids) after a warm-up run. Writes one CSV row per timing to
 results_ab3d.csv beside this file (or --out), with each kernel's tile and
 the path its launches took ("-" where the copy has no `last_path`), and
-prints the median of each (grid, kernel, copy), its least and greatest
+prints the median of each (grid, K, kernel, copy), its least and greatest
 time, and B's median against A's.
 
 Run on a machine with the card, from the repository root:
 
     git archive PARENT lbm_tpu_torch | tar -x -C build/parent
     python3 experiments/cuda-kstep-tiles/ab3d.py --a build/parent --b . \\
-        [--grids 32x256x256] [--k 2] [--passes 100] [--repeats 5] [--out FILE]
+        [--grids 32x256x256 64x128x256] [--ks 1 2 3 4] [--passes 100] [--repeats 5]
+        [--out FILE]
 """
 
 from __future__ import annotations
@@ -37,11 +39,11 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-KERNELS = ("B5", "B7", "B4", "B6")
+KERNELS = ("B4", "B6", "B5", "B7")
 KW = dict(omega=1.85, density=0.1, accel=0.005)
 
 
-def worker(root: str, grids, k: int, passes: int, repeats: int, build_only: bool) -> None:
+def worker(root: str, grids, ks, passes: int, repeats: int, build_only: bool) -> None:
     """Time B5, B7, B4 and B6 of the package under `root`; print one JSON line."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
@@ -64,9 +66,9 @@ def worker(root: str, grids, k: int, passes: int, repeats: int, build_only: bool
                                      - 1.0))).contiguous()
         mask = torch.rand(shape, generator=gen, device="cuda") < 0.05
         npass = max(20, passes * 32 * 256 * 256 // (shape[0] * shape[1] * shape[2]))
-        run_kw = dict(num_steps=k * npass, k_steps=k, accel_plane=shape[0] - 2, **KW)
         grid = "x".join(map(str, shape))
-        for rep in range(repeats):
+        for k, rep in ((k, rep) for k in ks for rep in range(repeats)):
+            run_kw = dict(num_steps=k * npass, k_steps=k, accel_plane=shape[0] - 2, **KW)
             for name, mod in mods.items():
                 g = f.clone()
                 if rep == 0:
@@ -78,7 +80,7 @@ def worker(root: str, grids, k: int, passes: int, repeats: int, build_only: bool
                 mod.run(g, mask, **run_kw)
                 end.record()
                 end.synchronize()
-                key = f"{grid} {name}"
+                key = f"{grid} {k} {name}"
                 times.setdefault(key, []).append(start.elapsed_time(end) / npass)
                 paths[key] = getattr(mod, "last_path", None) or "-"
                 tiles[key] = ("x".join(map(str, mod.choose_config(*shape, k)))
@@ -96,8 +98,8 @@ def shown(root: str) -> str:
 
 def worker_cmd(args, root: str, build_only: bool = False) -> list:
     cmd = [sys.executable, __file__, "--a", args.a, "--b", args.b, "--worker", root,
-           "--k", str(args.k), "--passes", str(args.passes), "--repeats", str(args.repeats),
-           "--grids", *args.grids]
+           "--ks", *map(str, args.ks), "--passes", str(args.passes), "--repeats",
+           str(args.repeats), "--grids", *args.grids]
     return cmd + ["--build-only"] if build_only else cmd
 
 
@@ -113,8 +115,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", required=True, help="directory of copy A (the reference)")
     ap.add_argument("--b", required=True, help="directory of copy B (the change)")
-    ap.add_argument("--grids", nargs="+", default=["32x256x256"])
-    ap.add_argument("--k", type=int, default=2)
+    ap.add_argument("--grids", nargs="+", default=["32x256x256", "64x128x256"])
+    ap.add_argument("--ks", type=int, nargs="+", default=[1, 2, 3, 4])
     ap.add_argument("--passes", type=int, default=100)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--out", default=str(Path(__file__).with_name("results_ab3d.csv")))
@@ -123,7 +125,7 @@ def main() -> int:
     args = ap.parse_args()
     grids = [tuple(int(v) for v in g.split("x")) for g in args.grids]
     if args.worker:
-        worker(args.worker, grids, args.k, args.passes, args.repeats, args.build_only)
+        worker(args.worker, grids, args.ks, args.passes, args.repeats, args.build_only)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -139,32 +141,31 @@ def main() -> int:
         res = finish(subprocess.Popen(worker_cmd(args, root), stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
         for key, ms_list in res["times"].items():
-            grid, kernel = key.split()
+            grid, k, kernel = key.split()
             for rep, ms in enumerate(ms_list):
                 rows.append(dict(copy=label, root=shown(root), process=order, grid=grid,
-                                 kernel=kernel, tile=res["tiles"][key], path=res["paths"][key],
-                                 repeat=rep, ms_per_pass=round(ms, 6)))
+                                 k=int(k), kernel=kernel, tile=res["tiles"][key],
+                                 path=res["paths"][key], repeat=rep, ms_per_pass=round(ms, 6)))
         print(f"process {order} ({label}, {shown(root)}):",
               {k: [round(v, 5) for v in ms] for k, ms in res["times"].items()}, flush=True)
     with open(args.out, "w", newline="") as fh:
-        fh.write(f"# {card}; float32, K={args.k}, {args.passes} passes a timing at 32x256x256 "
+        fh.write(f"# {card}; float32, K in {args.ks}, {args.passes} passes a timing at 32x256x256 "
                  f"(scaled by the cells elsewhere); A = {shown(args.a)}, B = {shown(args.b)}; "
                  "experiments/cuda-kstep-tiles/ab3d.py\n")
         writer = csv.DictWriter(fh, fieldnames=list(rows[0]))
         writer.writeheader()
         writer.writerows(rows)
-    for grid in args.grids:
-        for kernel in KERNELS:
-            med = {}
-            for label in ("A", "B"):
-                sel = [r for r in rows if r["copy"] == label and r["kernel"] == kernel
-                       and r["grid"] == grid]
-                ms = [r["ms_per_pass"] for r in sel]
-                med[label] = statistics.median(ms)
-                print(f"{grid} {kernel} {label} (tile {sel[0]['tile'] or '-'}, {sel[0]['path']} "
-                      f"path): median {med[label]:.5f} ms a pass ({min(ms):.5f}-{max(ms):.5f}, "
-                      f"{len(ms)} timings)")
-            print(f"{grid} {kernel}: B against A {100 * (med['B'] / med['A'] - 1):+.2f}%")
+    for grid, k, kernel in ((g, k, n) for g in args.grids for k in args.ks for n in KERNELS):
+        med = {}
+        for label in ("A", "B"):
+            sel = [r for r in rows if r["copy"] == label and r["kernel"] == kernel
+                   and r["grid"] == grid and r["k"] == k]
+            ms = [r["ms_per_pass"] for r in sel]
+            med[label] = statistics.median(ms)
+            print(f"{grid} K={k} {kernel} {label} (tile {sel[0]['tile'] or '-'}, {sel[0]['path']} "
+                  f"path): median {med[label]:.5f} ms a pass ({min(ms):.5f}-{max(ms):.5f}, "
+                  f"{len(ms)} timings)")
+        print(f"{grid} K={k} {kernel}: B against A {100 * (med['B'] / med['A'] - 1):+.2f}%")
     return 0
 
 

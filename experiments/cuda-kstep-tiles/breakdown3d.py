@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Attribute the port's blocked 3-D K-step time: memory movement against arithmetic.
+"""Attribute the port's 3-D K-step time: memory movement against arithmetic.
 
 The 3-D counterpart of breakdown2d.py. The in-place blocked D3Q19 kernel B5
 (d3q19_kstep_inplace_blocked) runs in its three modes, at each K:
@@ -12,10 +12,16 @@ The 3-D counterpart of breakdown2d.py. The in-place blocked D3Q19 kernel B5
 So copy is what B5's memory movement costs (the load of the extended tile,
 the store into the ring, the flush and the snapshot), stream_only - copy
 what its K steps cost without the collision, and full - stream_only the
-collisions. Beside them, for scale: B7 full (d3q19_kstep_blocked, the same
-kernel in one launch, out of place), B4 (d3q19_kstep_inplace, K one-step
-launches) and `copy_` of the lattice (Tensor.copy_ between two lattices: a
-pass's bytes at the library's rate).
+collisions. The two-stream kernel B6 (d3q19_kstep) runs its four modes on
+its wave path (one launch a pass, the middle steps through L2): copy (every
+stage loads and stores its cells in place, no pull), collide_no_roll (the
+pull along z and the collision), stream_only (the full pull, no collision)
+and full; so B6 copy is a wave pass's load and store, stream_only - copy
+its streaming, full - stream_only its collisions. Beside them, for scale:
+B7 full (d3q19_kstep_blocked, the same kernel as B5 in one launch, out of
+place), B4 (d3q19_kstep_inplace, on the path its `run` takes) and `copy_`
+of the lattice (Tensor.copy_ between two lattices: a pass's bytes at the
+library's rate).
 
 The time of a pass is CUDA events around `passes` passes of the wrapper's
 `run` (after a warm-up run), on a state seeded on the card with 5% obstacles,
@@ -50,13 +56,14 @@ import torch
 REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
-from lbm_tpu_torch.ops import (d3q19_kstep_blocked as b7,  # noqa: E402
-                               d3q19_kstep_inplace as b4, d3q19_kstep_inplace_blocked as b5,
-                               d3q19_lattice)
+from lbm_tpu_torch.ops import (d3q19_kstep as b6,  # noqa: E402
+                               d3q19_kstep_blocked as b7, d3q19_kstep_inplace as b4,
+                               d3q19_kstep_inplace_blocked as b5, d3q19_lattice)
 
 KW = dict(omega=1.85, density=0.1, accel=0.005)
 BYTES_PER_CELL = 153  # 19 float32 values in and out, and the mask byte
-CASES = ("B5 copy", "B5 stream_only", "B5 full", "B7 full", "B4 full", "copy_")
+CASES = ("B5 copy", "B5 stream_only", "B5 full", "B7 full", "B6 copy", "B6 collide_no_roll",
+         "B6 stream_only", "B6 full", "B4 full", "copy_")
 
 
 def seeded_case(shape, seed: int = 5):
@@ -82,6 +89,9 @@ def ms_per_pass(case: str, f, mask, *, k: int, tile, path, passes: int, warm_up:
     elif name == "B7":
         def run():
             b7.run(g, mask, tile=tile, path=path, **kw)
+    elif name == "B6":
+        def run():
+            b6.run(g, mask, mode=mode, path="wave", **kw)
     elif name == "B4":
         def run():
             b4.run(g, mask, **kw)
@@ -97,7 +107,7 @@ def ms_per_pass(case: str, f, mask, *, k: int, tile, path, passes: int, warm_up:
     run()
     end.record()
     end.synchronize()
-    used = {"B5": b5, "B7": b7}.get(name)
+    used = {"B5": b5, "B7": b7, "B6": b6, "B4": b4}.get(name)
     return start.elapsed_time(end) / passes, used.last_path if used else ""
 
 
@@ -139,7 +149,7 @@ def summary(rows):
     by_key = {}
     for r in rows:
         by_key.setdefault((r["grid"], r["k"], r["tile"] or None), {})[r["case"]] = r
-        if r["case"] in ("B4 full", "copy_"):  # no tile: beside every tile of its (grid, K)
+        if r["case"][:2] in ("B4", "B6", "co"):  # no tile: beside every tile of its (grid, K)
             for key in [key for key in by_key if key[:2] == (r["grid"], r["k"])]:
                 by_key[key][r["case"]] = r
     lines = []
@@ -152,7 +162,12 @@ def summary(rows):
             f"{ms['B5 copy']:.4f} ms, streaming {ms['B5 stream_only'] - ms['B5 copy']:+.4f}, "
             f"collision {ms['B5 full'] - ms['B5 stream_only']:+.4f}, full {ms['B5 full']:.4f} "
             f"(load and store {100 * ms['B5 copy'] / ms['B5 full']:.0f}% of it); B7 "
-            f"{ms['B7 full']:.4f}, B4 {ms['B4 full']:.4f}, copy_ {ms['copy_']:.4f}")
+            f"{ms['B7 full']:.4f}, B4 {ms['B4 full']:.4f}, copy_ {ms['copy_']:.4f}; B6 on the "
+            f"wave path: copy {ms['B6 copy']:.4f} ms, streaming "
+            f"{ms['B6 stream_only'] - ms['B6 copy']:+.4f}, collision "
+            f"{ms['B6 full'] - ms['B6 stream_only']:+.4f}, full {ms['B6 full']:.4f} (load and "
+            f"store {100 * ms['B6 copy'] / ms['B6 full']:.0f}%), collide_no_roll "
+            f"{ms['B6 collide_no_roll']:.4f}")
     return lines
 
 

@@ -15,6 +15,13 @@ warm-up; B5 only where its ring and snapshot keep to its `choose_config`'s
 limit). One CSV row per configuration goes to results3d_blocked.csv beside
 this file (or --out).
 
+`--slab` times only the one-step kernels B6 and B4, on each of their paths
+(d3q19_kstep.PATHS: the wave path, one launch a pass, and the step path, a
+launch a step) at each K and type, the median of `--repeats` timings (the
+repeats in turn, every case once in each), into results3d_slab.csv beside
+this file (or --out): the rows of d3q19_kstep.PATH_MS and the b6 and b4
+rows of d3q19_kstep_blocked.MS_PER_PASS.
+
 `--probe` is the short first call after a change to the kernels: it prints
 what `nvcc -Xptxas -v` says of csrc/d3q19_blocked.cu (registers, spills),
 checks B7 and B5 against `stepk_plain` and B6 at K = 1..4 in both types at
@@ -26,14 +33,16 @@ pass of each on either path, and stops.
 
 Run on a machine with the card, from the repository root:
 
-    python3 experiments/cuda-kstep-tiles/sweep3d_blocked.py [--probe]
-        [--passes 50] [--dtypes float32 float64] [--ks 1 2 3 4] [--out FILE]
+    python3 experiments/cuda-kstep-tiles/sweep3d_blocked.py [--probe | --slab]
+        [--passes 50] [--repeats 5] [--dtypes float32 float64] [--ks 1 2 3 4]
+        [--out FILE]
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -203,10 +212,46 @@ def probe() -> int:
     return 1 if bad else 0
 
 
+def slab(dtypes, ks, passes: int, repeats: int, out: str, card: str) -> int:
+    """B6 and B4 on each path at each K and type (the module doc's --slab)."""
+    rows = []
+    for dname in dtypes:
+        f, mask = make_case((NZ, NY, NX), DTYPES[dname])
+        kw = dict(accel_plane=NZ - 2, **KW)
+        cases = [(k, name, mod, path) for k in ks
+                 for name, mod in (("b6", d3q19_kstep), ("b4", d3q19_kstep_inplace))
+                 for path in d3q19_kstep.PATHS]
+        times = {case[:2] + case[3:]: [] for case in cases}
+        for _ in range(repeats):
+            for k, name, mod, path in cases:
+                times[(k, name, path)].append(time_run(mod, f, mask, k, passes, path=path, **kw))
+        for (k, name, path), ms in times.items():
+            rows.append(dict(dtype=dname, k=k, kernel=name, path=path,
+                             ms_per_pass=f"{statistics.median(ms):.4f}",
+                             ms_min=f"{min(ms):.4f}", ms_max=f"{max(ms):.4f}", repeats=len(ms),
+                             card=card.replace(",", "")))
+            print(rows[-1], flush=True)
+        del f, mask
+    with open(out, "w", newline="") as fh:
+        writer = csv.DictWriter(fh, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    for dname in dtypes:
+        for name in ("b6", "b4"):
+            for path in d3q19_kstep.PATHS:
+                ms = [r["ms_per_pass"] for r in rows
+                      if (r["dtype"], r["kernel"], r["path"]) == (dname, name, path)]
+                print(f"{dname} {name} {path}: ({', '.join(ms)})")
+    print(f"wrote {out}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--slab", action="store_true")
     ap.add_argument("--passes", type=int, default=50)
+    ap.add_argument("--repeats", type=int, default=5, help="timings a case (--slab)")
     ap.add_argument("--dtypes", nargs="+", default=list(DTYPES), choices=list(DTYPES))
     ap.add_argument("--ks", nargs="+", type=int, default=list(KS), choices=list(KS))
     ap.add_argument("--out", default=str(Path(__file__).with_name("results3d_blocked.csv")))
@@ -220,6 +265,10 @@ def main() -> int:
     print(card)
     if args.probe:
         return probe()
+    if args.slab:
+        out = (args.out if args.out != ap.get_default("out")
+               else str(Path(__file__).with_name("results3d_slab.csv")))
+        return slab(args.dtypes, args.ks, args.passes, args.repeats, out, card)
     cells = NZ * NY * NX
     rows = []
     for dname in args.dtypes:

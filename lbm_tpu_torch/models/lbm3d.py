@@ -31,9 +31,11 @@ from .lbm import numpy_dtype, resolve_device
 
 
 def select_k_steps(engine: str, num_steps: int, checkpoint_every: int, shape=None) -> int:
-    """Deepest K compatible with bit-exact chunking for this engine: the
-    preferred K of the kernel it runs when that divides both the total and
-    the chunk, else the largest smaller K that does. The kernels take any grid
+    """K for this engine that keeps chunking bit-exact: of the K dividing both
+    the total and the chunk, the one its kernel's `choose_k` prefers (the
+    preferred K where it divides, else the least ms a step, for the one-step
+    kernels; the deepest up to their preferred K for the blocked pair). The
+    kernels take any grid
     shape, so the shape sets no limit (unlike the TPU's K-plane-aligned halo
     blocks); given `shape` (nz, ny, nx), 'cuda' and 'cuda-inplace' take the K
     of the kind their `pick_engine` names there, else that of the one-step

@@ -36,6 +36,8 @@ _D = ctypes.c_double
 _D2Q9_SCALARS = [_I] * 13 + [_D, _D, _D, _P]
 # d3q19_kstep.cu: nz .. accel_plane, six collision coefficients, stream
 _D3Q19_SCALARS = [_I] * 14 + [_D] * 6 + [_P]
+# d3q19_kstep.cu's wave entries: blocks, chunk, lag
+_D3Q19_WAVE = [_I] * 3
 # d3q19_blocked.cu: mode, path, nz .. tile, threads, k .. accel_plane, six
 # coefficients, stream
 _D3Q19_BLOCKED_SCALARS = [_I] * 17 + [_D] * 6 + [_P]
@@ -74,6 +76,10 @@ SIGNATURES = {
         "d3q19_kstep_f64": [_P] * 6 + _D3Q19_SCALARS,
         "d3q19_kstep_inplace_f32": [_P] * 4 + _D3Q19_SCALARS,
         "d3q19_kstep_inplace_f64": [_P] * 4 + _D3Q19_SCALARS,
+        # ... tot, counters, mode, inplace, then the plan and the scalars
+        "d3q19_wave_f32": [_P] * 6 + [_I] * 2 + _D3Q19_WAVE + _D3Q19_SCALARS,
+        "d3q19_wave_f64": [_P] * 6 + [_I] * 2 + _D3Q19_WAVE + _D3Q19_SCALARS,
+        "d3q19_wave_blocks": [_I] * 3,
     },
     "d3q19_blocked": {
         "d3q19_blocked_f32": [_P] * 5 + _D3Q19_BLOCKED_SCALARS,

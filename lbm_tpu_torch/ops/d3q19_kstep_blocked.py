@@ -73,15 +73,23 @@ TILE_YZ_MAX = 16
 #   float64  B6 0.2320 0.4522 0.6754 0.8961   B7 0.2675 0.5218 1.9574 16.7192
 #            B4 0.5012 0.4558 0.9443 0.9055   B5 0.6358 0.9487 2.5843 18.2862
 # (B5 among the tiles whose ring and snapshot take at most 14 of the 32
-# planes). Every best tile takes the box path. One trip of K steps is slower
-# than K one-step launches at every K: a tile with its halo computes 2 to 15
-# cell-steps per cell-step kept, in shared memory and with one or two blocks
-# an SM, and that costs more than the trips through device memory it saves.
+# planes; B4 and B6 on their step path, a launch a step). Every best tile
+# takes the box path. One trip of K steps is slower than K one-step launches
+# at every K: a tile with its halo computes 2 to 15 cell-steps per cell-step
+# kept, in shared memory and with one or two blocks an SM, and that costs
+# more than the trips through device memory it saves. The b6 and b4 rows
+# below are d3q19_kstep.PATH_MS, each K on the path `d3q19_kstep.choose_path`
+# gives it (mostly the wave path, one launch a pass: f32 B6 0.1207 0.2015
+# 0.3086 0.4051, B4 0.2985 0.1997 0.5300 0.4031).
 MS_PER_PASS = {
-    torch.float32: {"b6": (0.1249, 0.2399, 0.3596, 0.4751), "b7": (0.1556, 0.3133, 0.7225, 1.8110),
-                    "b4": (0.3123, 0.2401, 0.5412, 0.4772), "b5": (0.3797, 0.6045, 1.1627, 2.8655)},
-    torch.float64: {"b6": (0.2320, 0.4522, 0.6754, 0.8961), "b7": (0.2675, 0.5218, 1.9574, 16.7192),
-                    "b4": (0.5012, 0.4558, 0.9443, 0.9055), "b5": (0.6358, 0.9487, 2.5843, 18.2862)},
+    torch.float32: {"b6": d3q19_kstep.pass_ms(torch.float32, "b6"),
+                    "b7": (0.1556, 0.3133, 0.7225, 1.8110),
+                    "b4": d3q19_kstep.pass_ms(torch.float32, "b4"),
+                    "b5": (0.3797, 0.6045, 1.1627, 2.8655)},
+    torch.float64: {"b6": d3q19_kstep.pass_ms(torch.float64, "b6"),
+                    "b7": (0.2675, 0.5218, 1.9574, 16.7192),
+                    "b4": d3q19_kstep.pass_ms(torch.float64, "b4"),
+                    "b5": (0.6358, 0.9487, 2.5843, 18.2862)},
 }
 # The fastest tiles of that sweep by (type, K), B7's first, then B5's under
 # its scratch limit, and the thread count each ran at where it is not
@@ -301,8 +309,8 @@ def kind_and_k(pick, nz: int, ny: int, nx: int, step_counts, dtype=torch.float32
     `pick_engine` is `pick`: the one-step kernels' preferred K
     (`d3q19_kstep.choose_k`) and the kind picked there; where that is the
     blocked kind, the blocked kernels' preferred K and the kind picked at it.
-    Each K is the deepest up to the preferred one that divides every one of
-    `step_counts` (the total, and the chunk of a checkpointed run)."""
+    Each K divides every one of `step_counts` (the total, and the chunk of a
+    checkpointed run)."""
     k = d3q19_kstep.choose_k(*step_counts)
     kind, tile = pick(nz, ny, nx, k, dtype, device)
     if kind == "blocked":

@@ -13,9 +13,11 @@ The TPU kernel is safe in place because its slabs run in order (delayed
 write-back, wraparound snapshot). On the card blocks run in no order, so the
 kernel alternates two kinds of step that each read and write the same 19
 slots per cell, and restores the natural layout with a swap after an odd
-number of steps (csrc/d3q19_kstep.cu). An even K therefore moves the bytes of
-K steps and an odd K one more lattice: `choose_k` prefers an even K. B4's
-state and Sum|u| are bit-identical to B6's.
+number of steps (csrc/d3q19_kstep.cu). On the wave path (`d3q19_kstep.PATHS`,
+`choose_path` with kernel "b4") a pass is one launch, the swap its last
+stage; on the step path a launch a step and one for the swap. The launch
+reports its path in `last_path`. B4's state and Sum|u| are bit-identical to
+B6's.
 """
 
 from __future__ import annotations
@@ -28,14 +30,33 @@ from .d3q19_kstep import choose_k  # noqa: F401  (the in-place engine's own K)
 
 # Launches of kernel B4 (one per K-step pass); callers may reset it.
 launches = 0
+# The path of the last launch of B4 ("wave" or "step").
+last_path = None
 
 
-def _launch(f, mask_u8, partials, tot, scalars):
-    global launches
+def _launch(f, mask_u8, partials, tot, *, path, scalars, plan=None):
+    global launches, last_path
     launches += 1
-    rc = d3q19_kstep.entry(f, "d3q19_kstep_inplace")(
-        f.data_ptr(), mask_u8.data_ptr(), partials.data_ptr(), tot.data_ptr(), *scalars)
-    check_rc(rc, "d3q19_kstep_inplace")
+    last_path = path
+    if path == "step":
+        rc = d3q19_kstep.entry(f, "d3q19_kstep_inplace")(
+            f.data_ptr(), mask_u8.data_ptr(), partials.data_ptr(), tot.data_ptr(), *scalars)
+        check_rc(rc, "d3q19_kstep_inplace")
+        return
+    d3q19_kstep.wave_launch(f, f, mask_u8, partials, tot, plan, mode="full", scalars=scalars,
+                            what="d3q19_wave (in place)")
+
+
+def _setup(f, mask, k_steps, block, path, **kw):
+    """(mask as bytes, partials, launch arguments) of a CUDA pass."""
+    mask_u8 = obstacle_u8(mask)
+    block, nblocks, scalars = d3q19_kstep.kernel_args(f, mask_u8, k_steps=k_steps, block=block,
+                                                      **kw)
+    path = d3q19_kstep.resolve_path(path, f, k_steps, kernel="b4", block=block)
+    plan = (d3q19_kstep.wave_plan(f, k_steps, inplace=True, mode="full", block=block)
+            if path == "wave" else None)
+    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    return mask_u8, partials, dict(path=path, scalars=scalars, plan=plan)
 
 
 def stepk(
@@ -52,22 +73,22 @@ def stepk(
     valid_rows: tuple | None = None,
     global_nz: int | None = None,
     block: tuple[int, int, int] | None = None,
+    path: str | None = None,
 ):
     """K timesteps in one in-place pass (kernel B4 on CUDA,
     `d3q19_kstep.stepk_plain` on the CPU). Overwrites f with the state after
-    K steps; returns (f, tot_u per step (K,))."""
-    kw = dict(k_steps=k_steps, omega=omega, density=density, accel=accel,
-              accel_plane=accel_plane, plane_offset=plane_offset, valid_planes=valid_planes,
-              valid_rows=valid_rows, global_nz=global_nz)
+    K steps; returns (f, tot_u per step (K,)). `path` as in
+    `d3q19_kstep.stepk`."""
+    kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane,
+              plane_offset=plane_offset, valid_planes=valid_planes, valid_rows=valid_rows,
+              global_nz=global_nz)
     if f.device.type == "cpu":
-        f_new, tot = d3q19_kstep.stepk_plain(f, mask, **kw)
+        f_new, tot = d3q19_kstep.stepk_plain(f, mask, k_steps=k_steps, **kw)
         f.copy_(f_new)
         return f, tot
-    mask_u8 = obstacle_u8(mask)
-    nblocks, scalars = d3q19_kstep.kernel_args(f, mask_u8, block=block, **kw)
-    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    mask_u8, partials, launch = _setup(f, mask, k_steps, block, path, **kw)
     tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
-    _launch(f, mask_u8, partials, tot, scalars)
+    _launch(f, mask_u8, partials, tot, **launch)
     return f, tot
 
 
@@ -82,9 +103,10 @@ def run(
     accel_plane: int,
     k_steps: int = 1,
     block: tuple[int, int, int] | None = None,
+    path: str | None = None,
 ):
     """`num_steps` timesteps, `k_steps` per in-place pass. Overwrites f;
-    returns (f, tot_u (num_steps,))."""
+    returns (f, tot_u (num_steps,)). `path` as in `d3q19_kstep.stepk`."""
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
@@ -95,9 +117,7 @@ def run(
                 f, mask, k_steps=k_steps, **kw)
             f.copy_(f_new)
         return f, tots
-    mask_u8 = obstacle_u8(mask)
-    nblocks, scalars = d3q19_kstep.kernel_args(f, mask_u8, k_steps=k_steps, block=block, **kw)
-    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    mask_u8, partials, launch = _setup(f, mask, k_steps, block, path, **kw)
     for i in range(num_steps // k_steps):
-        _launch(f, mask_u8, partials, tots[i * k_steps:(i + 1) * k_steps], scalars)
+        _launch(f, mask_u8, partials, tots[i * k_steps:(i + 1) * k_steps], **launch)
     return f, tots

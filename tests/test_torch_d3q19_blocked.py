@@ -202,13 +202,17 @@ def test_pick_engine_names_the_measured_kind(shape, k):
     assert b5.pick_engine(*shape, k) == ("slab", None)
 
 
-@pytest.mark.parametrize("step_counts, k", [((1200,), 2), ((600, 300), 2), ((100,), 2),
-                                            ((7,), 1), ((9, 3), 1)])
-def test_choose_k_gates_k_by_the_step_counts(step_counts, k):
+@pytest.mark.parametrize("step_counts, k, k_blocked", [((1200,), 4, 2), ((600, 300), 4, 2),
+                                                       ((100,), 4, 2), ((7,), 1, 1),
+                                                       ((9, 3), 3, 1)])
+def test_choose_k_gates_k_by_the_step_counts(step_counts, k, k_blocked):
+    """The slab kind runs at the one-step kernels' K (`d3q19_kstep.choose_k`:
+    K = 4 preferred since their wave path), the blocked pair at its own."""
     assert b5.choose_k(32, 256, 256, *step_counts) == ("slab", None, k)
     assert b5.choose_k(64, 128, 256, *step_counts) == ("slab", None, k)
-    assert b7.choose_k(*step_counts) == k
-    assert all(n % k == 0 for n in step_counts)
+    assert d3q19_kstep.choose_k(*step_counts) == k
+    assert b7.choose_k(*step_counts) == k_blocked
+    assert all(n % k == 0 and n % k_blocked == 0 for n in step_counts)
     assert 1 <= b7.PREFERRED_K <= d3q19_kstep.MAX_K and b5.PREFERRED_K == b7.PREFERRED_K
 
 

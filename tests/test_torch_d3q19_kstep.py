@@ -134,15 +134,23 @@ def test_run_equals_the_plain_engine(mod):
         mod.run(tf, tm, num_steps=7, k_steps=2, accel_plane=4, **KW)
 
 
-@pytest.mark.parametrize("num_steps, k", [(1200, 2), (6000, 2), (7, 1), (1, 1)])
+@pytest.mark.parametrize("num_steps, k", [(1200, 4), (6000, 4), (7, 1), (1, 1), (6, 2), (9, 3)])
 def test_choose_k_divides_the_steps(num_steps, k):
+    """PREFERRED_K where it divides the steps, else the K dividing them at
+    which B4 costs the least a step: 6 steps run at K = 2, where K = 3 would
+    pay B4's swap."""
     assert d3q19_kstep.choose_k(num_steps) == k
     assert d3q19_kstep_inplace.choose_k(num_steps) == k
     assert num_steps % k == 0
-    assert d3q19_kstep.choose_k(num_steps, 3) == 1  # a chunk of 3 steps leaves K=1
+    # a chunk of 3 steps leaves K=3 where the total allows it, else K=1
+    assert d3q19_kstep.choose_k(num_steps, 3) == (3 if num_steps % 3 == 0 else 1)
     assert 1 <= d3q19_kstep.PREFERRED_K <= d3q19_kstep.MAX_K
     # the in-place kernel pays a swap after an odd K
     assert d3q19_kstep.PREFERRED_K % 2 == 0
+    # at the grid of PATH_MS the preferred K ties with the cheapest a step
+    ms = d3q19_kstep.pass_ms(torch.float32, "b4")
+    per_step = [ms[j - 1] / j for j in range(1, d3q19_kstep.MAX_K + 1)]
+    assert per_step[d3q19_kstep.PREFERRED_K - 1] <= 1.02 * min(per_step)
 
 
 @pytest.mark.parametrize("nx, block", [(256, (256, 1, 1)), (512, (256, 1, 1)), (128, (128, 2, 1)), (100, (128, 2, 1)),

@@ -104,8 +104,11 @@ Phases, each of which must pass or the script exits non-zero:
      Checkpoint/resume through `cuda-inplace-blocked`, bit-equal to an
      uninterrupted run;
   8. blur kernels vs plain version, from numpy-seeded images: B10
-     (stencil.blur_step) one pass, B9 (blur_k) at k = 1, 2, 4, 8 and two tile
-     heights, B8 (blur_resident) at 8 and 200 passes; float32 (bit-equal) and
+     (stencil.blur_step) one pass, B9 (blur_k) at k = 1..8 and bands of 64
+     and 100 rows (100 divides none of the heights) on its vector path, and
+     on its thread path at 4x40x250 float32 and 4x40x252 bfloat16, whose rows
+     are not whole 16-byte pieces (the path of each launch printed), B8
+     (blur_resident) at 8 and 200 passes; float32 (bit-equal) and
      bfloat16 (one unit in the last place); at the bricks shape 4x304x512,
      the leaf shape 4x1032x896 (beyond what B8 holds on an H100: there it
      must raise and name the 'cuda' engine), an image whose ring is not zero,
@@ -114,7 +117,7 @@ Phases, each of which must pass or the script exits non-zero:
      float64 9-point blur with numpy on the host, at 1e-4 absolute;
   9. the blur main path: a seeded 4096x4096 RGBA image through
      `lbm_tpu_torch.cli.blur -n 100`: `--engine auto` must choose cuda with
-     k_passes 4 and launch B9 50 times per run, `--engine cuda` B10 200
+     k_passes 4 and launch B9 50 times per run on its vector path, `--engine cuda` B10 200
      times per run, `--data-type half` through auto B9 again; then a 302x499
      image through `--engine auto`, which must choose resident and launch B8
      once per run; never a plain version. Each float32 output is held to the
@@ -264,6 +267,10 @@ STATE_BAR = {"float32": 1e-5, "bfloat16": 2e-2}
 # and the separable pass of B9 and B8 (rows 3, columns 3, scale and mask 2)
 FLOP_PER_VALUE_STEP = 12
 FLOP_PER_VALUE_SEPARABLE = 8
+# B9's bands in the parity phase (100 divides none of the heights), and the
+# shapes of its thread path: rows that are not whole 16-byte pieces
+B9_BANDS = (64, 100)
+B9_THREAD_CASES = {"float32": (4, 40, 250), "bfloat16": (4, 40, 252)}
 
 # the overlap probes (B11): the eight builders of probe.py they replace, and
 # probe.csv's case: 4096^2, band 64, 200 iterations
@@ -1576,11 +1583,17 @@ def phase_blur_parity(torch, stencil):
             m = torch.from_numpy(int_np).to("cuda", dtype)
             outs = {"blur_step": [("", stencil.blur_step(x, m), stencil.blur_step_plain(x, m))],
                     "blur_k": [], "blur_resident": []}
-            for k in (1, 2, 4, 8):
+            paths = []
+            for k in range(1, stencil.MAX_PASSES_PER_SWEEP + 1):
                 ref = stencil.blur_k_plain(x, m, k_passes=k)
-                for band in (16, 32):
-                    outs["blur_k"].append((f" k={k} band={band}",
-                                           stencil.blur_k(x, m, k_passes=k, band=band), ref))
+                for band in B9_BANDS:
+                    out = stencil.blur_k(x, m, k_passes=k, band=band)
+                    paths.append(f"k={k} band {band} {stencil.last_path}")
+                    outs["blur_k"].append((f" k={k} band={band} ({stencil.last_path} path)",
+                                           out, ref))
+                    check(stencil.last_path == "vector",
+                          f"B9 took its {stencil.last_path} path at {label} {dname}")
+            print(f"blur parity B9 paths {label} {dname}: " + ", ".join(paths))
             if stencil.resident_fits(x):
                 for n in (8, 200):
                     outs["blur_resident"].append(
@@ -1610,6 +1623,30 @@ def phase_blur_parity(torch, stencil):
                 if dtype == torch.float32:
                     abs_err[name] = max(abs_err[name], worst)
             del outs, x, m
+    # B9's thread path: rows that are not whole 16-byte pieces, a ring that
+    # is not zero
+    for dname, shape in B9_THREAD_CASES.items():
+        img_np, int_np = blur_case(rng, shape, (0, 0), ring=True)
+        dtype = getattr(torch, dname)
+        x = torch.from_numpy(img_np).to("cuda", dtype)
+        m = torch.from_numpy(int_np).to("cuda", dtype)
+        worst, paths = 0.0, []
+        for k in range(1, stencil.MAX_PASSES_PER_SWEEP + 1):
+            ref = stencil.blur_k_plain(x, m, k_passes=k)
+            for band in (16, B9_BANDS[1]):
+                out = stencil.blur_k(x, m, k_passes=k, band=band)
+                paths.append(f"k={k} band {band} {stencil.last_path}")
+                check(stencil.last_path == "thread",
+                      f"B9 took its {stencil.last_path} path at {shape} {dname}")
+                worst = max(worst, hold_to_plain(torch, f"blur_k k={k} band={band} {shape} "
+                                                        f"{dname}", out, ref))
+        label = "x".join(map(str, shape))
+        print(f"blur parity B9 paths {label} {dname}: " + ", ".join(paths))
+        print(f"blur parity blur_k        {label} {dname}: {len(paths)} cases on the thread "
+              f"path, max abs err vs plain {worst:.3e}"
+              + (" (bit-equal)" if dtype == torch.float32 else " (<= 1 ulp)"))
+        if dtype == torch.float32:
+            abs_err["blur_k"] = max(abs_err["blur_k"], worst)
     # eight passes of every engine against float64 on the host
     for label in ("bricks", "leaf"):
         img_np, int_np = cases[label]
@@ -1751,6 +1788,10 @@ def phase_blur_main_path(torch, stencil):
                             f"{run.compute_seconds:.6f}s")
             launched = dict(stencil.launches)
             print(f"blur main path {label}:\n{text.rstrip()}")
+            if kernel == "blur_k":
+                print(f"blur main path {label}: B9's path {stencil.last_path}")
+                check(stencil.last_path == "vector",
+                      f"{label}: B9 ran on its {stencil.last_path} path")
             check(re.search(rf"^engine:\t{re.escape(engine_line)}$", text, re.M) is not None,
                   f"{label}: the engine is not {engine_line}")
             check(f"{BLUR_ITERS}(x2) iterations took" in text, f"{label}: no timing line")
@@ -1813,7 +1854,7 @@ def blur_bound(shape, itemsize, flop_per_value):
 
 def phase_blur_timing(torch, stencil):
     """Time per launch of each blur kernel at the main path's shapes, float32:
-    B10 and B9 (k=4) at the padded 4096x4096 image, B8 at the padded bricks
+    B10 and B9 (k=4; B9 in bfloat16 too) at the padded 4096x4096 image, B8 at the padded bricks
     image for the main path's 200 passes, and per pass from two run lengths.
     Beside each: its plain version, and the library's convolution for the same
     passes (`blur_step_conv`: once for B10, k times for B9, 200 times for
@@ -1836,10 +1877,19 @@ def phase_blur_timing(torch, stencil):
     bound = blur_bound(BIG[0], 4, k * FLOP_PER_VALUE_SEPARABLE)
     out["blur_k"] = dict(
         ms=time_ms(torch, lambda: stencil.blur_k(x, m, k_passes=k), 50),
+        path=stencil.last_path,
         plain_ms=time_ms(torch, lambda: stencil.blur_k_plain(x, m, k_passes=k), 5),
         library_ms=k * conv_ms, bound=bound, shape=list(BIG[0]), k_passes=k,
-        tile=list(stencil.DEFAULT_TILE))
-    del x, m
+        band=stencil.DEFAULT_BAND, windows=stencil.K_WINDOWS)
+    # and in bfloat16, the main path's `--data-type half`
+    xb, mb = x.to(torch.bfloat16), m.to(torch.bfloat16)
+    out["blur_k"].update(
+        ms_bf16=time_ms(torch, lambda: stencil.blur_k(xb, mb, k_passes=k), 50),
+        path_bf16=stencil.last_path,
+        plain_ms_bf16=time_ms(torch, lambda: stencil.blur_k_plain(xb, mb, k_passes=k), 5),
+        library_ms_bf16=k * time_ms(torch, lambda: stencil.blur_step_conv(xb, mb), 20),
+        bound_ms_bf16=blur_bound(BIG[0], 2, k * FLOP_PER_VALUE_SEPARABLE)[0])
+    del x, m, xb, mb
 
     # B8 at what pad_to_tile(row_mult=32) makes of the 302x499 image
     shape = (4, 320, 512)
@@ -1861,9 +1911,15 @@ def phase_blur_timing(torch, stencil):
         library_ms=time_ms(torch, conv_run, 3), bound=bound, shape=list(shape), passes=passes,
         us_per_pass=(t_long - t_short) / (long_run - passes) * 1e3,
         tile=list(stencil.resident_tiling(*shape, *stencil.device_limits(x.device))))
+    b9 = out["blur_k"]
+    print(f"timing blur_k        at {tuple(b9['shape'])} bfloat16: {b9['ms_bf16']:.4f} ms per "
+          f"launch ({b9['path_bf16']} path), bound {b9['bound_ms_bf16']:.5f} ms (bytes), plain "
+          f"version {b9['plain_ms_bf16']:.4f} ms, library {b9['library_ms_bf16']:.4f} ms")
     for name, t in out.items():
         extra = (f", {t['us_per_pass']:.3f} us per pass from runs of {passes} and {long_run}"
-                 if name == "blur_resident" else "")
+                 if name == "blur_resident" else
+                 f" ({t['path']} path, band {t['band']}, {t['windows']} window(s) a channel "
+                 "in a block)" if name == "blur_k" else "")
         print(f"timing {name:13s} at {tuple(t['shape'])}: {t['ms']:.4f} ms per launch{extra}, "
               f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}), plain version "
               f"{t['plain_ms']:.4f} ms, library (blur_step_conv for the same passes) "

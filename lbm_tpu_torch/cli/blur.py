@@ -36,9 +36,9 @@ def main(argv=None) -> int:
     parser.add_argument("--data-type", default="float",
                         choices=["float", "half", "float32", "bfloat16"])
     parser.add_argument("--band", type=int, default=None,
-                        help="--engine cuda with --k-passes: the row extent of a "
-                             "thread block's tile (the reference's row-band height; "
-                             "the result does not depend on it)")
+                        help="--engine cuda with --k-passes: the rows a thread "
+                             "block writes (the reference's row-band height; the "
+                             "result does not depend on it)")
     parser.add_argument("--k-passes", type=int, default=None,
                         help="--engine cuda: fuse this many blur passes per trip "
                              "through device memory (temporal blocking, <=8; must "

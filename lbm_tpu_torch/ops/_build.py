@@ -42,6 +42,7 @@ _D3Q19_WAVE = [_I] * 3
 # coefficients, stream
 _D3Q19_BLOCKED_SCALARS = [_I] * 17 + [_D] * 6 + [_P]
 # stencil.cu: image, interior, out, then c, h, w and each kernel's own ints
+# (B9: band, k, windows, path)
 _STENCIL_K = [_P] * 3 + [_I] * 7 + [_P]
 # the resident entries: image, interior, out, xrow, xcol, then c .. num_passes,
 # k, tag0, threads, stream (blur_resident_opt.cu's take h0 and w0 too)
@@ -92,6 +93,7 @@ SIGNATURES = {
         "stencil_step_bf16": [_P] * 3 + [_I] * 3 + [_P],
         "stencil_k_f32": _STENCIL_K,
         "stencil_k_bf16": _STENCIL_K,
+        "stencil_k_smem_bytes": [_I] * 4,
         "stencil_resident_f32": _STENCIL_RESIDENT,
         "stencil_resident_bf16": _STENCIL_RESIDENT,
     },

@@ -21,7 +21,10 @@ same arithmetic in the same order, on the whole array with periodic edges
 (`torch.roll`), rounding to the storage type where the kernel does: B10
 after every pass, B9 once per k passes, B8 once per run. A wrapper runs its
 plain version only for a CPU tensor; a CUDA tensor goes to the kernel, and
-anything else raises. `launches` counts the kernel launches.
+anything else raises. `launches` counts the kernel launches. B9 has two
+paths, "vector" and "thread" (`choose_path`, from the shape alone); its
+windows, grid and shared memory are `k_plan`, `k_grid` and
+`blur_k_smem_bytes`, and `last_path` names the path of its last launch.
 
 The kernels and their plain versions wrap around at the edges, as the TPU
 kernels do; `blur_step_conv` sees zeros outside. The two agree on any image
@@ -31,6 +34,7 @@ whose ring is zero, which `pad_to_tile` provides.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +44,8 @@ KERNEL = np.array([[1.0, 2.0, 1.0], [2.0, 4.0, 2.0], [1.0, 2.0, 1.0]]) / 16.0
 
 # Launches of each kernel, by wrapper; callers may reset the counts.
 launches = {"blur_step": 0, "blur_k": 0, "blur_resident": 0}
+# the path of B9's last launch: "vector" or "thread" (`choose_path`)
+last_path = None
 
 MAX_PASSES_PER_SWEEP = 8  # the k of the TPU kernel's 8-row halo blocks, kept
 # Shared memory a block may use on Hopper (H100/H200), in bytes, and the
@@ -47,13 +53,16 @@ MAX_PASSES_PER_SWEEP = 8  # the k of the TPU kernel's 8-row halo blocks, kept
 # that 'auto' chooses on the CPU what it would choose on that card.
 SMEM_PER_BLOCK = 232448
 H100_SMS = 132
-# B9's tile (rows, columns) and threads a block when the caller names none.
-# Measured at 4096x4096 RGBA float32 on an H100 over 11 tiles, k = 1, 2, 4, 8
-# and 256 or 512 threads (experiments/cuda-kstep-tiles/results_blur.csv):
-# 32x64 with 256 threads is the fastest at k=4, the k that 'auto' picks, and
-# at k=2; 64x64 is 10% faster at k=8, 32x128 5% at k=1; 512 threads never win.
-DEFAULT_TILE = (32, 64)
-K_THREADS = 256
+# B9's band (the rows a block writes) and column windows a block takes of
+# each channel, when the caller names none (csrc/stencil.cu has the design;
+# `k_plan` and `k_grid` its windows and grid).
+DEFAULT_BAND = 64
+K_WINDOWS = 1
+# mirrors of csrc/stencil.cu: rows of B9's ring beyond a row's k passes,
+# the most consumer warps a block, and the paths
+K_RING_LEAD = 4
+K_MAX_WARPS = 8
+K_PATHS = ("vector", "thread")
 # B8: threads of a block, and the widest tile its index arithmetic takes
 # (blur_resident_opt.MAX_ROW less the halo)
 RESIDENT_THREADS = 512
@@ -167,7 +176,7 @@ def _entry(img: torch.Tensor, name: str):
 
 REFUSALS = {-1: "the blocks of the grid cannot all be resident at once",
             -2: "the device has no cooperative launch",
-            -3: "a tile or thread count the kernel does not take"}
+            -3: "a tile, band, thread or window count or path the kernel does not take"}
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -194,11 +203,74 @@ def blur_step(img: torch.Tensor, interior: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def blur_k_smem_bytes(tile_h: int, tile_w: int, k_passes: int) -> int:
-    """Dynamic shared memory of one block of B9: two float32 buffers and the
-    mask over the tile plus its k halo (mirrors blur_k_smem_bytes in
+class KPlan(NamedTuple):
+    """The column windows of B9 at one (width, type, k), as csrc/stencil.cu
+    lays them out: a lane owns `values` adjacent columns, a warp a window of
+    32 x values; pass j is valid on a window's columns [j, 32 values - j),
+    the lanes whose columns lie `halo` or more from its edges store, and
+    window i covers columns i x `step` - `halo` onward (periodic), so its
+    output columns are [i x step, (i + 1) x step). The ring holds
+    `ring_rows` rows: the k + 1 rows a row's mask serves and K_RING_LEAD
+    rows in flight."""
+    values: int
+    halo: int
+    step: int
+    windows: int
+    ring_rows: int
+
+
+def k_plan(w: int, dtype, k_passes: int) -> KPlan:
+    """B9's windows across a row of `w` columns (mirrors k_values, k_halo,
+    k_step and k_ring_rows of csrc/stencil.cu)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    values = 4 if itemsize == 4 or k_passes > 4 else 8
+    piece = 16 // itemsize  # values in 16 bytes
+    halo = piece * -(-k_passes // piece)
+    step = 32 * values - 2 * halo
+    return KPlan(values, halo, step, -(-w // step), k_passes + 1 + K_RING_LEAD)
+
+
+def k_grid(c: int, h: int, w: int, dtype, k_passes: int, band: int,
+           windows: int = K_WINDOWS) -> tuple[tuple[int, int, int], int, int]:
+    """B9's grid (groups of channels, groups of windows, bands of `band`
+    rows), and the channels and windows of a block: `windows` windows of
+    each channel, fewer where the row has fewer, and as many channels as
+    fit K_MAX_WARPS consumer warps, so that a block brings a mask row in
+    once for all of them (mirrors k_channels and launch_k_instance in
+    csrc/stencil.cu). A band reads its rows plus k above and below, wrapped
+    mod h; the last band may be short."""
+    row_windows = k_plan(w, dtype, k_passes).windows
+    windows = min(windows, row_windows)
+    channels = min(c, max(1, K_MAX_WARPS // windows))
+    return (-(-c // channels), -(-row_windows // windows), -(-h // band)), channels, windows
+
+
+def k_span(plan: KPlan, windows: int) -> int:
+    """Columns of a block's span of `windows` windows (one array's row in
+    the ring)."""
+    return (windows - 1) * plan.step + 32 * plan.values
+
+
+def blur_k_smem_bytes(channels: int, windows: int, k_passes: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of one block of B9 with `channels` channels of
+    `windows` windows: for each row of the ring its full and empty barriers
+    (8 bytes each), the block's span of the mask row and of each channel's
+    image row in the storage type (mirrors blur_k_smem_bytes in
     csrc/stencil.cu)."""
-    return 3 * (tile_h + 2 * k_passes) * (tile_w + 2 * k_passes) * 4
+    plan = k_plan(1, dtype, k_passes)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return plan.ring_rows * (2 * 8 + (channels + 1) * k_span(plan, windows) * itemsize)
+
+
+def choose_path(h: int, w: int, dtype, k_passes: int, aligned: bool = True) -> str:
+    """B9's path for an (h, w) image: "vector" (bulk copies of whole rows'
+    spans, 16-byte shared loads and stores) where a row is whole 16-byte
+    pieces and the arrays start on 16 bytes (`aligned`), else "thread" (the
+    same pipeline, one value at a time). Neither h nor k changes it: a
+    band's rows and the windows' halo are whole 16-byte pieces whatever
+    they are."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return "vector" if aligned and (w * itemsize) % 16 == 0 else "thread"
 
 
 def check_k_passes(k_passes: int, h: int) -> None:
@@ -212,28 +284,29 @@ def blur_k(img: torch.Tensor, interior: torch.Tensor, *, k_passes: int,
            band: int | None = None) -> torch.Tensor:
     """`k_passes` fused blur passes in ONE trip through device memory
     (k_passes <= 8; kernel B9 on CUDA, `blur_k_plain` on the CPU). `band` is
-    the row extent of a block's tile (DEFAULT_TILE's when None); the tile
-    does not have to divide the image, and the result does not depend on it.
+    the number of rows a block writes (DEFAULT_BAND when None); it does not
+    have to divide the image, and the result does not depend on it.
     Mathematically identical to k_passes calls of `blur_step`; differs at
     float32 rounding, since this kernel accumulates rows then columns and
     the single-pass kernel the direct 9-point sum."""
+    global last_path
     k_passes = int(k_passes)
     check_k_passes(k_passes, img.shape[-2])
-    th, tw = DEFAULT_TILE[0] if band is None else int(band), DEFAULT_TILE[1]
-    if th < 1:
-        raise ValueError(f"bad band {th}")
+    band = DEFAULT_BAND if band is None else int(band)
+    if band < 1:
+        raise ValueError(f"bad band {band}")
     if img.device.type == "cpu":
         return blur_k_plain(img, interior, k_passes=k_passes)
     c, h, w = _check(img, interior)
-    if blur_k_smem_bytes(th, tw, k_passes) > SMEM_PER_BLOCK or tw + 2 * k_passes >= 1024:
-        raise ValueError(f"tile {th}x{tw} at k_passes={k_passes} needs more than "
-                         f"{SMEM_PER_BLOCK} B of shared memory or is wider than 1023 "
-                         "with its halo")
     out = torch.empty_like(img)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (img, interior, out))
+    path = choose_path(h, w, img.dtype, k_passes, aligned)
     launches["blur_k"] += 1
+    last_path = path
     rc = _entry(img, "stencil_k")(img.data_ptr(), interior.data_ptr(), out.data_ptr(),
-                                  c, h, w, th, tw, k_passes, K_THREADS, _stream(img))
-    _check_rc(rc, "stencil_k")
+                                  c, h, w, band, k_passes, K_WINDOWS, K_PATHS.index(path),
+                                  _stream(img))
+    _check_rc(rc, f"stencil_k ({path} path)")
     return out
 
 
@@ -328,7 +401,7 @@ def blur_many(img: torch.Tensor, interior: torch.Tensor, *, num_iters: int,
     loop over per-pass calls (`blur_step_conv`, kernel B10). k_passes ('cuda'
     engine only) fuses that many passes per trip through device memory
     (kernel B9), for images too large for the resident engine; it must
-    divide 2*num_iters. `band` is the row extent of B9's tiles."""
+    divide 2*num_iters. `band` is the number of rows a block of B9 writes."""
     if engine == "resident":
         return blur_resident(img, interior, num_passes=2 * num_iters)
     if engine == "cuda" and k_passes is not None and k_passes > 1:

@@ -258,7 +258,10 @@ def test_resident_tiling_follows_the_device():
 
 
 def test_shared_memory_formulas():
-    assert stencil.blur_k_smem_bytes(32, 128, 4) == 3 * 40 * 136 * 4
+    # B9: nine ring rows at k = 4 (k + 1 + 4), each with two 8-byte barriers
+    # and the span of two windows (120 + 128 float32 columns) of the mask and
+    # of each of four channels
+    assert stencil.blur_k_smem_bytes(4, 2, 4) == 9 * (2 * 8 + 5 * 248 * 4)
     assert stencil.resident_smem_bytes(40, 128) == (2 * 42 * 130 + 40 * 128) * 4
     # a halo of k cells: the buffers k deep, the mask k - 1
     assert stencil.resident_smem_bytes(40, 128, 3) == (2 * 46 * 134 + 44 * 132) * 4

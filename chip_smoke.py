@@ -76,6 +76,21 @@ Phases, each of which must pass or the script exits non-zero:
      (64x128x256, B4): N steps with --checkpoint-every N/2, then 2N with
      --resume; av_vels and the final state must equal an uninterrupted 2N run
      bit for bit;
+  7c. the multi-device paths (lbm_tpu_torch/parallel/) at world size 1, in
+     a NCCL process group this script sets up on cuda:0 (file:// rendezvous)
+     and destroys after: the flagship through `cli.lbm --engine sharded-cuda
+     --num-devices 1` (kernel B1 on the (9, 1040, 1024) ghost-extended
+     block, on the box path), then with `--overlap`, each through the golden
+     gate, the final state bit-equal to an `--engine cuda-inplace` run and
+     av_vels within 1e-6 of it, never the plain engine; the same run with B2
+     as the local engine (`kstep_sharded.simulate(local_engine='two-stream')`),
+     bit-equal; a chunk split into its exchange, B1's snapshot refresh and
+     pass, the host's time a chunk and the all-reduce; `--engine sharded`
+     with each halo strategy for 1,000 steps (through
+     `models.lbm.run_simulation_sharded`), the state bit-equal to the torch
+     engine's; `cli.blur --engine conv-sharded --num-devices 1` on the seeded
+     4096x4096 PNG x 200 passes, bit-equal to the conv engine. MLUPS of
+     sharded-cuda beside cuda-inplace's, and the path of the extended block;
   7b. the blocked 3-D pair at 32x256x256 (the reference's
      `d3q19_blocked_only` shape), all of it in the phases named *_blocked:
      kernels B7 (d3q19_kstep_blocked) and B5 (d3q19_kstep_inplace_blocked) vs
@@ -672,6 +687,31 @@ def diff_pct(ref, sim):
         return 100.0 * (diff / (ref - diff))
 
 
+def golden_gate(out, golden, label):
+    """The flagship's gate on a run's out-dir: final_state.dat against the
+    golden file by the checker's per-cell rule (column 5, 1%), av_vels.dat
+    well formed. Returns av_vels."""
+    from lbm_tpu_torch.core import io as lbm_io
+
+    sim = np.loadtxt(out / "final_state.dat", usecols=(0, 1, 4, 5))
+    check(sim.shape == (N * N, 4), f"final_state.dat has shape {sim.shape}")
+    check(np.array_equal(sim[:, :2], golden[:, :2]),
+          "final state coordinates differ from the golden file")
+    pct = diff_pct(golden[:, 3], sim[:, 3])
+    worst = int(np.argmax(np.abs(pct)))
+    print(f"checker rule (column 5, pressure): max diff {pct[worst]:.3e}% at "
+          f"({int(sim[worst, 0])},{int(sim[worst, 1])}), tolerance {CHECK_TOLERANCE_PCT}%")
+    check(np.isfinite(pct[worst]) and abs(pct[worst]) <= CHECK_TOLERANCE_PCT,
+          f"{label}: final state fails the checker's 1% rule")
+    u_err = np.abs(sim[:, 2] - golden[:, 2]).max() / np.abs(golden[:, 2]).max()
+    print(f"|u| column: max abs error / max|u| = {u_err:.3e} (not gated: f32 "
+          "state rounding over 20,000 steps)")
+    av = lbm_io.read_av_vels(out / "av_vels.dat")
+    check(av.shape == (FLAGSHIP["max_iters"],) and np.isfinite(av).all(),
+          f"{label}: av_vels.dat is malformed")
+    return av
+
+
 def engine_modules(mods):
     """{2-D kernel engine: its wrapper module}."""
     return {"cuda": mods[0], "cuda-inplace": mods[1], "cuda-manual": mods[2]}
@@ -681,7 +721,6 @@ def phase_main_path(torch, mods, golden, mask):
     """Phase 3. Returns {engine: (launches, seconds, mlups, path)} of each
     run, and the engine that `auto` picked."""
     from lbm_tpu_torch.cli import lbm as cli
-    from lbm_tpu_torch.core import io as lbm_io
     from lbm_tpu_torch.core.params import Obstacles, Params
     from lbm_tpu_torch.models import lbm as lbm_model
     from lbm_tpu_torch.ops import d2q9
@@ -739,23 +778,7 @@ def phase_main_path(torch, mods, golden, mask):
                   f"{path} path")
             results[engine] = (launches, seconds, mlups, path)
 
-            sim = np.loadtxt(out / "final_state.dat", usecols=(0, 1, 4, 5))
-            check(sim.shape == (N * N, 4), f"final_state.dat has shape {sim.shape}")
-            check(np.array_equal(sim[:, :2], golden[:, :2]),
-                  "final state coordinates differ from the golden file")
-            pct = diff_pct(golden[:, 3], sim[:, 3])
-            worst = int(np.argmax(np.abs(pct)))
-            print(f"checker rule (column 5, pressure): max diff {pct[worst]:.3e}% at "
-                  f"({int(sim[worst, 0])},{int(sim[worst, 1])}), tolerance {CHECK_TOLERANCE_PCT}%")
-            check(np.isfinite(pct[worst]) and abs(pct[worst]) <= CHECK_TOLERANCE_PCT,
-                  f"--engine {engine}: final state fails the checker's 1% rule")
-            u_err = np.abs(sim[:, 2] - golden[:, 2]).max() / np.abs(golden[:, 2]).max()
-            print(f"|u| column: max abs error / max|u| = {u_err:.3e} (not gated: f32 "
-                  "state rounding over 20,000 steps)")
-            av = lbm_io.read_av_vels(out / "av_vels.dat")
-            check(av.shape == (FLAGSHIP["max_iters"],) and np.isfinite(av).all(),
-                  f"--engine {engine}: av_vels.dat is malformed")
-            avs[engine] = av
+            avs[engine] = golden_gate(out, golden, f"--engine {engine}")
 
     plain = lbm_model.run_simulation(Params(**FLAGSHIP), Obstacles(mask), dtype=torch.float32,
                                      engine="torch", num_steps=100, device="cuda")
@@ -2103,6 +2126,188 @@ def phase_blur_resident_opt(torch, bro, stencil, card):
                      for v in bro.VARIANTS})
 
 
+SHARDED_STEPS = 1000  # the halo strategies' runs against the plain engine
+SHARDED_AV_BAR = 1e-6  # av_vels of the ghost-band run against B1's: Sum|u| in another order
+SHARDED_TIMING_CHUNKS = 200
+
+
+def phase_sharded(torch, mods, golden, mask, stencil):
+    """Phase 7c: the multi-device paths at world size 1, in a NCCL process
+    group of this process (file:// rendezvous, cuda:0), destroyed at the end.
+    Returns {"d2q9_kstep_inplace": launches, "d2q9_kstep": launches, ...} of
+    the ghost-band runs and their measurements."""
+    import torch.distributed as dist
+
+    from lbm_tpu_torch.cli import blur as blur_cli
+    from lbm_tpu_torch.cli import lbm as cli
+    from lbm_tpu_torch.core import state
+    from lbm_tpu_torch.core.params import Obstacles, Params
+    from lbm_tpu_torch.models import blur as blur_model
+    from lbm_tpu_torch.models import lbm as lbm_model
+    from lbm_tpu_torch.ops import d2q9
+    from lbm_tpu_torch.parallel import kstep_sharded, mesh as mesh_lib
+    from lbm_tpu_torch.utils import image as img_lib
+    d2q9_kstep, d2q9_kstep_inplace, _ = mods
+
+    out = {}
+    params, obstacles = Params(**FLAGSHIP), Obstacles(mask)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp / 'rendezvous'}",
+                                world_size=1, rank=0, device_id=torch.device("cuda", 0))
+        try:
+            params.to_file(tmp / "p.params")
+            obstacles.to_file(tmp / "o.dat")
+            files = ["--params", str(tmp / "p.params"), "--obstacles", str(tmp / "o.dat")]
+            ref = lbm_model.run_simulation(params, obstacles, dtype=torch.float32,
+                                           engine="cuda-inplace", device="cuda")
+            ref_mlups = N * N * FLAGSHIP["max_iters"] / ref.compute_seconds / 1e6
+            print(f"sharded: --engine cuda-inplace (B1) reference run: {ref.compute_seconds:.6f} s,"
+                  f" {ref_mlups:.1f} MLUPS")
+
+            # the ghost-band engine through the CLI, B1 on the extended block
+            for flags in ([], ["--overlap"]):
+                label = f"--engine sharded-cuda --num-devices 1 {' '.join(flags)}".strip()
+                for m in mods:
+                    m.launches = 0
+                with CountCalls(d2q9, "collide_fields") as plain, \
+                        Capture(lbm_model, "run_simulation_sharded") as captured:
+                    rc, text = run_cli(cli.main, files + [
+                        "--engine", "sharded-cuda", "--num-devices", "1", "--dtype", "float32",
+                        "--out-dir", str(tmp / "out"), *flags])
+                launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+                print(f"sharded: {label}:\n{text.rstrip()}")
+                check(rc == 0, f"{label}: cli returned {rc}")
+                check(launches["d2q9_kstep_inplace"] > 0, f"{label}: B1 was never launched")
+                check(launches["d2q9_kstep"] == 0 and launches["d2q9_kstep_manual"] == 0,
+                      f"{label}: another 2-D kernel was launched: {launches}")
+                check(plain.calls == 0, f"{label}: the plain engine ran {plain.calls} collisions")
+                res = captured.results[0]
+                golden_gate(tmp / "out", golden, label)
+                check(np.array_equal(res.f_final, ref.f_final),
+                      f"{label}: the final state differs from --engine cuda-inplace's")
+                av_err = float(np.max(np.abs(res.av_vels - ref.av_vels) / np.abs(ref.av_vels)))
+                check(av_err <= SHARDED_AV_BAR,
+                      f"{label}: av_vels {av_err} from cuda-inplace's > {SHARDED_AV_BAR}")
+                mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
+                path = d2q9_kstep_inplace.last_path
+                print(f"sharded: {label}: B1 {launches['d2q9_kstep_inplace']} launches on the "
+                      f"{path} path (extended block 9x{N + 2 * kstep_sharded.GHOST}x{N}), "
+                      f"{res.compute_seconds:.6f} s timed, {mlups} MLUPS against cuda-inplace's "
+                      f"{ref_mlups:.1f}; final state bit-equal to cuda-inplace's, av_vels max "
+                      f"rel err {av_err:.3e} (bar {SHARDED_AV_BAR})")
+                check(path == "box", f"{label}: B1 took the {path} path on the extended block")
+                key = "overlap" if flags else "fused"
+                out[key] = dict(launches=launches["d2q9_kstep_inplace"], path=path, mlups=mlups,
+                                seconds=res.compute_seconds, av_err=av_err)
+            out["cuda_inplace_mlups"] = ref_mlups
+
+            # the same run with B2 as the local engine
+            f0 = state.initial_distributions(params, np.float32)
+            mesh = kstep_sharded.make_row_mesh()
+            for m in mods:
+                m.launches = 0
+            f_b2, av_b2 = kstep_sharded.simulate(params, f0, mask, mesh,
+                                                 local_engine="two-stream")
+            b2 = d2q9_kstep.launches
+            check(b2 > 0 and d2q9_kstep_inplace.launches == 0,
+                  "the two-stream ghost-band run did not go through B2 alone")
+            check(np.array_equal(f_b2.cpu().numpy(), ref.f_final),
+                  "the ghost-band run on B2 differs from cuda-inplace's state")
+            print(f"sharded: ghost-band run on B2 (two-stream): {b2} launches on the "
+                  f"{d2q9_kstep.last_path} path, final state bit-equal to cuda-inplace's")
+            out["two_stream"] = dict(launches=b2, path=d2q9_kstep.last_path)
+
+            # a chunk's parts: the exchange (at world size 1 local copies),
+            # the snapshot refresh, B1's pass, and the one all-reduce of a run
+            aw = d2q9.AccelWeights.from_params(params)
+            f_sh, mask_ext, _ = kstep_sharded.prepare(params, f0, mask, mesh)
+            chunk = kstep_sharded.make_chunk_fn(mesh, k_steps=4, omega=params.omega,
+                                                accel_w1=aw.w1, accel_w2=aw.w2, accel_row=N - 2,
+                                                ny=N)
+            chunk.start(f_sh.to_local(), mask_ext.to_local())
+            n = SHARDED_TIMING_CHUNKS
+            tots = torch.empty(4, device="cuda")
+            chunk_ms = time_ms(torch, lambda: chunk(tots), n)
+            chain_ms = time_ms(torch, lambda: chunk.passes(tots), n)
+            pass_ms = time_ms(torch, lambda: d2q9_kstep_inplace.run(
+                chunk.buf, chunk.mask, num_steps=4 * n, k_steps=4, omega=params.omega,
+                accel_w1=aw.w1, accel_w2=aw.w2, accel_row=N - 2), 1) / n
+            sums = torch.zeros(FLAGSHIP["max_iters"], device="cuda")
+            reduce_ms = time_ms(torch, lambda: mesh_lib.sum_by_rank(sums, mesh), 50)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                chunk(tots)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / n * 1e3
+            chunks = FLAGSHIP["max_iters"] // 4
+            print(f"sharded: a chunk (K=4) {chunk_ms:.4f} ms on the device's clock, {host_ms:.4f} "
+                  f"ms on the host's; B1's chained pass with its snapshot refresh {chain_ms:.4f} "
+                  f"ms; a B1 pass of `run` on the extended block {pass_ms:.4f} ms. Exchange "
+                  f"(local copies at world size 1) {chunk_ms - chain_ms:.4f} ms "
+                  f"({(chunk_ms - chain_ms) / chunk_ms:.1%} of a chunk), refresh "
+                  f"{chain_ms - pass_ms:.4f} ms ({(chain_ms - pass_ms) / chunk_ms:.1%}); the "
+                  f"run's one all-reduce of {FLAGSHIP['max_iters']} sums {reduce_ms:.4f} ms "
+                  f"({reduce_ms / (chunk_ms * chunks):.3%} of the run's chunks)")
+            out["chunk"] = dict(chunk_ms=chunk_ms, chain_ms=chain_ms, pass_ms=pass_ms,
+                                host_ms=host_ms, allreduce_ms=reduce_ms)
+
+            # the halo strategies, 1000 steps, against the plain engine
+            short = Params(**{**FLAGSHIP, "max_iters": SHARDED_STEPS})
+            plain_ref = lbm_model.run_simulation(short, obstacles, dtype=torch.float32,
+                                                 engine="torch", device="cuda")
+            strategies = {}
+            for strategy in lbm_model.STRATEGIES:
+                # through the model: the CLI's path is the ghost-band runs'
+                # above, and writing a final state takes seconds
+                label = f"engine sharded, strategy {strategy}"
+                res = lbm_model.run_simulation_sharded(short, obstacles, dtype=torch.float32,
+                                                       engine="sharded", strategy=strategy,
+                                                       num_devices=1, device="cuda")
+                check(np.array_equal(res.f_final, plain_ref.f_final),
+                      f"{label}: the state differs from the torch engine's")
+                av_err = float(np.max(np.abs(res.av_vels - plain_ref.av_vels)
+                                      / np.abs(plain_ref.av_vels)))
+                check(av_err <= SHARDED_AV_BAR, f"{label}: av_vels rel err {av_err}")
+                mlups = N * N * SHARDED_STEPS / res.compute_seconds / 1e6
+                print(f"sharded: {label}: {SHARDED_STEPS} steps, {mlups:.1f} MLUPS, state bit-equal "
+                      f"to the torch engine's, av_vels max rel err {av_err:.3e}")
+                strategies[strategy] = mlups
+            plain_mlups = N * N * SHARDED_STEPS / plain_ref.compute_seconds / 1e6
+            print(f"sharded: --engine torch on the card, {SHARDED_STEPS} steps: {plain_mlups:.1f} "
+                  "MLUPS")
+            out["strategies_mlups"] = strategies
+            out["torch_mlups"] = plain_mlups
+
+            # the blur on a mesh of one rank, against the conv engine
+            rgba = seeded_rgba(20261019, *BIG[1])
+            img_lib.save_png(tmp / "big.png", rgba)
+            conv = blur_model.run_blur(rgba, num_iters=BLUR_ITERS, engine="conv", device="cuda")
+            for key in stencil.launches:
+                stencil.launches[key] = 0
+            with Capture(blur_model, "run_blur") as captured:
+                rc, text = run_cli(blur_cli.main, ["-i", str(tmp / "big.png"), "-o",
+                                                   str(tmp / "out.png"), "-n", str(BLUR_ITERS),
+                                                   "--engine", "conv-sharded",
+                                                   "--num-devices", "1"])
+            check(rc == 0, f"blur --engine conv-sharded returned {rc}")
+            run = captured.results[0]
+            check(sum(stencil.launches.values()) == 0, "conv-sharded launched a blur kernel")
+            check(np.array_equal(run.state, conv.state) and np.array_equal(run.rgba, conv.rgba),
+                  "conv-sharded differs from the conv engine")
+            check(np.array_equal(img_lib.load_png(tmp / "out.png"), conv.rgba),
+                  "the conv-sharded PNG differs from the conv engine's image")
+            print(f"sharded: blur --engine conv-sharded --num-devices 1, {BIG[1][0]}x{BIG[1][1]} x "
+                  f"{2 * BLUR_ITERS} passes: {run.compute_seconds:.6f} s (conv "
+                  f"{conv.compute_seconds:.6f} s), state and image bit-equal to conv's")
+            out["conv_sharded_seconds"] = run.compute_seconds
+            out["conv_seconds"] = conv.compute_seconds
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2156,6 +2361,7 @@ def main() -> int:
         paths3 = phase_main_path_3d(torch, mods3)
         phase_golden_3d(torch)
         ck_launches = phase_checkpoint(torch, mods, mods3, mask)
+        sharded = phase_sharded(torch, mods, golden, mask, stencil)
 
         abs_err_b = phase_parity_blocked(torch, mods3, modsb)
         phase_paths_blocked(torch)
@@ -2199,6 +2405,13 @@ def main() -> int:
                                            "d2q9_kstep_manual": "B3"}[name]],
         "path": flagship[main_engine[name]][3],
         **({"grid": occupancy} if name == "d2q9_kstep_manual" else {}),
+        **({"sharded_launches": sharded["fused"]["launches"] + sharded["overlap"]["launches"],
+            "sharded_path": sharded["fused"]["path"],
+            "sharded_cuda_mlups": sharded["fused"]["mlups"],
+            "sharded_cuda_overlap_mlups": sharded["overlap"]["mlups"]}
+           if name == "d2q9_kstep_inplace" else {}),
+        **({"sharded_launches": sharded["two_stream"]["launches"],
+            "sharded_path": sharded["two_stream"]["path"]} if name == "d2q9_kstep" else {}),
     } for name, replaces in KERNELS.items()]
     kernels.append({
         "name": "copy_floor", "route": "cuda", "source": "lbm_tpu_torch/csrc/copy_floor.cu",

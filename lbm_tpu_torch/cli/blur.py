@@ -2,16 +2,17 @@
 
 Usage:
     python -m lbm_tpu_torch.cli.blur -i in.png -o out.png [-n 100]
-        [--engine conv|cuda|resident|auto] [--data-type float|half]
-        [--band ROWS] [--k-passes K] [--device cuda|cpu] [--blur-alpha]
+        [--engine conv|cuda|resident|conv-sharded|auto] [--num-devices N]
+        [--data-type float|half] [--band ROWS] [--k-passes K] [--device cuda|cpu]
+        [--blur-alpha]
 
-The counterpart of `python -m lbm_tpu.cli.blur` on one device, with the same
-flags; the engine 'cuda' takes the place of 'pallas'. Runs on the CUDA
-device unless `--device cpu` is given, where the kernel engines run their
-kernels' plain PyTorch version. `--data-type half` is bfloat16 storage with
-float32 arithmetic. Not ported yet, and rejected: `--engine conv-sharded` /
-`--num-devices` (ROADMAP.md A7) and `--compile-only` / `--export`
-(ROADMAP.md A8).
+The counterpart of `python -m lbm_tpu.cli.blur`, with the same flags; the
+engine 'cuda' takes the place of 'pallas'. Runs on the CUDA device unless
+`--device cpu` is given, where the kernel engines run their kernels' plain
+PyTorch version. `--data-type half` is bfloat16 storage with float32
+arithmetic. `--engine conv-sharded` runs the conv engine on --num-devices
+ranks of torch.distributed (default: every GPU on CUDA, 1 on the CPU). Not
+ported yet, and rejected: `--compile-only` / `--export` (ROADMAP.md A8).
 """
 
 from __future__ import annotations
@@ -29,10 +30,12 @@ def main(argv=None) -> int:
                         choices=["conv", "cuda", "resident", "conv-sharded", "auto"],
                         help="'conv' (depthwise conv2d), 'cuda' (kernel B10; B9 with "
                              "--k-passes), 'resident' (kernel B8: one launch, the image "
-                             "in the SMs' shared memory); auto = resident when the "
-                             "image fits there, else cuda with k-passes 4 or 2")
+                             "in the SMs' shared memory), 'conv-sharded' (conv on a mesh of "
+                             "ranks); auto = resident when the image fits there, else cuda "
+                             "with k-passes 4 or 2")
     parser.add_argument("--num-devices", type=int, default=None,
-                        help="not ported yet (ROADMAP.md A7)")
+                        help="ranks of --engine conv-sharded (default: every GPU on CUDA, "
+                             "1 on the CPU)")
     parser.add_argument("--data-type", default="float",
                         choices=["float", "half", "float32", "bfloat16"])
     parser.add_argument("--band", type=int, default=None,
@@ -52,9 +55,8 @@ def main(argv=None) -> int:
                         help="not ported yet (ROADMAP.md A8)")
     args = parser.parse_args(argv)
 
-    if args.engine == "conv-sharded" or args.num_devices is not None:
-        parser.error("--engine conv-sharded and --num-devices (the multi-device blur) "
-                     "are not ported yet: ROADMAP.md A7")
+    if args.num_devices is not None and args.engine != "conv-sharded":
+        parser.error("--num-devices applies to --engine conv-sharded only")
     if args.compile_only or args.export:
         parser.error("--compile-only and --export (ahead-of-time compilation) are not "
                      "ported yet: ROADMAP.md A8")
@@ -69,7 +71,7 @@ def main(argv=None) -> int:
     run = blur.blur_file(
         args.image, args.output, num_iters=args.num_iters, engine=args.engine,
         dtype=dtype, blur_alpha=args.blur_alpha, band=args.band,
-        k_passes=args.k_passes, device=args.device)
+        k_passes=args.k_passes, device=args.device, num_devices=args.num_devices)
     fused = f" (k_passes {run.k_passes})" if run.engine == "cuda" and run.k_passes else ""
     print(f"engine:\t{run.engine}{fused}")
     seconds = run.compute_seconds

@@ -75,6 +75,13 @@ def macroscopics(f: np.ndarray):
     return rho, u_x, u_y, u
 
 
+def average_velocity(f: np.ndarray, obstacle_mask: np.ndarray) -> float:
+    """Mean |u| over non-obstacle cells (main/LastChance.cpp:290-339)."""
+    _, _, _, u = macroscopics(f)
+    free = ~obstacle_mask
+    return float(u[free].sum() / free.sum())
+
+
 def total_density(f: np.ndarray) -> float:
     """Conserved quantity check (main/LastChance.cpp:536-552)."""
     return float(f.sum(dtype=np.float64))

@@ -34,22 +34,23 @@ class AccelWeights(NamedTuple):
         return cls(params.density * params.accel / 9.0, params.density * params.accel / 36.0)
 
 
-def stream_pull(f: torch.Tensor) -> tuple[torch.Tensor, ...]:
+def stream_pull(f: torch.Tensor, roll=torch.roll) -> tuple[torch.Tensor, ...]:
     """Periodic pull streaming: speed k at cell x comes from x - e_k.
 
     Matches main/LastChance.cpp:203-211. `f` has shape (9, ny, nx); the row
-    axis is -2 (jj, northwards), the column axis -1 (ii, eastwards).
+    axis is -2 (jj, northwards), the column axis -1 (ii, eastwards). `roll`
+    is torch.roll's stand-in for a DTensor state (`parallel.halo`).
     """
     return (
         f[0],
-        torch.roll(f[1], 1, dims=-1),  # east: from west neighbour
-        torch.roll(f[2], 1, dims=-2),  # north: from south neighbour
-        torch.roll(f[3], -1, dims=-1),  # west: from east neighbour
-        torch.roll(f[4], -1, dims=-2),  # south: from north neighbour
-        torch.roll(f[5], (1, 1), dims=(-2, -1)),  # north-east
-        torch.roll(f[6], (1, -1), dims=(-2, -1)),  # north-west
-        torch.roll(f[7], (-1, -1), dims=(-2, -1)),  # south-west
-        torch.roll(f[8], (-1, 1), dims=(-2, -1)),  # south-east
+        roll(f[1], 1, dims=-1),  # east: from west neighbour
+        roll(f[2], 1, dims=-2),  # north: from south neighbour
+        roll(f[3], -1, dims=-1),  # west: from east neighbour
+        roll(f[4], -1, dims=-2),  # south: from north neighbour
+        roll(f[5], (1, 1), dims=(-2, -1)),  # north-east
+        roll(f[6], (1, -1), dims=(-2, -1)),  # north-west
+        roll(f[7], (-1, -1), dims=(-2, -1)),  # south-west
+        roll(f[8], (-1, 1), dims=(-2, -1)),  # south-east
     )
 
 
@@ -139,6 +140,23 @@ def collide_fields(
     return f_new, u_plane
 
 
+def collide(
+    s: tuple[torch.Tensor, ...],
+    obstacle_mask: torch.Tensor,
+    accel_mask: torch.Tensor | None,
+    *,
+    omega: float,
+    accel_w1: float,
+    accel_w2: float,
+):
+    """`collide_fields` with the |u| plane reduced to the scalar tot_u."""
+    f_new, u_plane = collide_fields(
+        s, obstacle_mask, accel_mask,
+        omega=omega, accel_w1=accel_w1, accel_w2=accel_w2,
+    )
+    return f_new, u_plane.sum()
+
+
 def equilibrium(rho: torch.Tensor, u_x: torch.Tensor, u_y: torch.Tensor) -> torch.Tensor:
     """Maxwell-Boltzmann equilibrium distributions at (rho, u), in the
     `(4.5 eu)(2/3 + eu) + c_sq` grouping of `collide_fields`, so an
@@ -187,11 +205,8 @@ def step(
     accel_w2: float,
 ):
     """One fused timestep on the full periodic grid. Returns (f', tot_u)."""
-    f_new, u_plane = collide_fields(
-        stream_pull(f), obstacle_mask, accel_mask,
-        omega=omega, accel_w1=accel_w1, accel_w2=accel_w2,
-    )
-    return f_new, u_plane.sum()
+    return collide(stream_pull(f), obstacle_mask, accel_mask,
+                   omega=omega, accel_w1=accel_w1, accel_w2=accel_w2)
 
 
 def first_accelerate(

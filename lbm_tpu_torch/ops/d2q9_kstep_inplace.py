@@ -131,6 +131,104 @@ def run(
     return f, tots
 
 
+def snapshot_plain(f: torch.Tensor, tile, k_steps: int):
+    """B1's boundary snapshot of f, as the kernel lays it out
+    (csrc/d2q9_kstep.cu): hband[b, q, i] is row (b*th - K + i) mod ny of
+    plane q, vband[b, q, y, i] column (b*tw - K + i) mod nx of row y."""
+    rowmap, colmap = _snapshot_maps(f.shape[1], f.shape[2], tile, k_steps, f.device)
+    return (f[:, rowmap].permute(1, 0, 2, 3).contiguous(),
+            f[:, :, colmap].permute(2, 0, 1, 3).contiguous())
+
+
+def _snapshot_maps(ny, nx, tile, k_steps, device):
+    th, tw = tile
+    i = torch.arange(2 * k_steps, device=device)
+    rowmap = (torch.arange(-(-ny // th), device=device)[:, None] * th - k_steps + i) % ny
+    colmap = (torch.arange(-(-nx // tw), device=device)[:, None] * tw - k_steps + i) % nx
+    return rowmap, colmap
+
+
+class SnapshotPatch:
+    """Copies given rows (every column) and columns (every row) of a state
+    into a boundary snapshot of it (`snapshot_plain`'s layout): call with
+    (snapshot, f). Each band's entries that hold such a cell, and the cell,
+    are found once, as flat indices: a refresh is a gather and a scatter a
+    band."""
+
+    def __init__(self, ny: int, nx: int, tile, k_steps: int, rows, cols, device):
+        rowmap, colmap = _snapshot_maps(ny, nx, tile, k_steps, device)
+        hit_rows = torch.zeros(ny, dtype=torch.bool, device=device)
+        hit_cols = torch.zeros(nx, dtype=torch.bool, device=device)
+        hit_rows[torch.as_tensor(rows, dtype=torch.long, device=device)] = True
+        hit_cols[torch.as_tensor(cols, dtype=torch.long, device=device)] = True
+        q = torch.arange(9, device=device)
+        # hband[b, q, i, x] holds f[q, rowmap[b, i], x]
+        r = rowmap[:, None, :, None]
+        x = torch.arange(nx, device=device)[None, None, None, :]
+        src = ((q[None, :, None, None] * ny + r) * nx + x).expand(-1, -1, -1, nx)
+        hit = (hit_rows[r] | hit_cols[x]).expand_as(src)
+        self.h_dst, self.h_src = hit.reshape(-1).nonzero().squeeze(1), src[hit]
+        # vband[b, q, y, i] holds f[q, y, colmap[b, i]]
+        y = torch.arange(ny, device=device)[None, None, :, None]
+        c = colmap[:, None, None, :]
+        src = ((q[None, :, None, None] * ny + y) * nx + c).expand(-1, 9, ny, -1)
+        hit = (hit_rows[y] | hit_cols[c]).expand_as(src)
+        self.v_dst, self.v_src = hit.reshape(-1).nonzero().squeeze(1), src[hit]
+
+    def __call__(self, snap, f: torch.Tensor) -> None:
+        hband, vband = snap
+        flat = f.view(-1)
+        hband.view(-1).index_copy_(0, self.h_dst, flat.index_select(0, self.h_src))
+        vband.view(-1).index_copy_(0, self.v_dst, flat.index_select(0, self.v_src))
+
+
+class Chain:
+    """Passes of B1 over one state that the caller rewrites in part between
+    passes: the rows `rows` (every column) and the columns `cols` (every
+    row), as the ghost bands of `parallel.kstep_sharded`. Like `run`, each
+    pass writes the next one's boundary snapshot; before a pass, `__call__`
+    copies the rewritten cells from f into the snapshot that pass reads, so
+    it equals a fresh snapshot of f (`snapshot_plain`) at a fraction of its
+    cost. rows=None: the caller rewrites all of f, and every pass takes its
+    snapshot. The kernel's arguments are checked once. On the CPU each pass
+    is `d2q9_kstep.stepk_plain`.
+
+    Construct with stepk's keywords (k_steps, omega, accel_w1, accel_w2,
+    accel_row, row_offset, valid_rows, valid_cols, global_ny, tile); a call
+    is one pass, writing Sum|u| per step into `tot` (K,)."""
+
+    def __init__(self, f: torch.Tensor, mask: torch.Tensor, *, rows, cols=(), tile=None,
+                 **kw):
+        self.f, self.kw = f, kw
+        self.passes = 0
+        if f.device.type == "cpu":
+            self.mask = mask
+            return
+        self.mask = d2q9_kstep.obstacle_u8(mask)
+        k = kw["k_steps"]
+        tile, ntiles, self.scalars = d2q9_kstep.kernel_args(f, self.mask, tile=tile, **kw)
+        self.snaps = (_snapshot(f, tile, k), _snapshot(f, tile, k))
+        self.path = d2q9_kstep.launch_path(f, tile, k, True, *self.snaps[0], *self.snaps[1])
+        self.partials = torch.empty(k * ntiles, dtype=f.dtype, device=f.device)
+        self.patch = (None if rows is None else
+                      SnapshotPatch(f.shape[1], f.shape[2], tile, k, rows, cols, f.device))
+
+    def __call__(self, tot: torch.Tensor) -> None:
+        if self.f.device.type == "cpu":
+            f_new, tot[:] = d2q9_kstep.stepk_plain(self.f, self.mask, **self.kw)
+            self.f.copy_(f_new)
+        elif self.patch is None:
+            _launch(self.f, self.mask, self.snaps[0], True, None, self.partials, tot,
+                    self.path, self.scalars)
+        else:
+            snap, next_snap = self.snaps[self.passes % 2], self.snaps[(self.passes + 1) % 2]
+            if self.passes:
+                self.patch(snap, self.f)
+            _launch(self.f, self.mask, snap, self.passes == 0, next_snap, self.partials, tot,
+                    self.path, self.scalars)
+            self.passes += 1
+
+
 def simulate(params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor):
     """Full simulation on kernel B1. Same contract as `d2q9.simulate`; the
     caller's f is left as it was (first_accelerate makes the copy that the

@@ -6,7 +6,10 @@ per channel. State layout: (C, Hp, Wp) channels-first, zero-padded by
 `utils.image.pad_to_tile`, with an interior {0,1} mask (Hp, Wp) in the
 image's type; float32 or bfloat16 in memory, float32 arithmetic in both.
 
-  * `blur_step_conv`  one pass as a depthwise `conv2d` (zero outside);
+  * `blur_step_conv`  one pass as a depthwise `conv2d` (zero outside); on
+                      a DTensor sharded over a mesh's rows and columns (the
+                      engine conv-sharded), each block takes a one-cell
+                      ring from its neighbours first (`parallel.halo`);
   * `blur_step`       one pass, kernel B10 (for `blur_step_pallas`);
   * `blur_k`          k passes per trip through device memory, kernel B9
                       (for `blur_k_pallas`);
@@ -76,23 +79,41 @@ def _conv_weights(c: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(KERNEL, dtype=dtype, device=device).expand(c, 1, 3, 3).contiguous()
 
 
-def blur_step_conv(img: torch.Tensor, interior: torch.Tensor) -> torch.Tensor:
-    """One blur via depthwise conv. img: (C, H, W); interior: (H, W) {0,1}.
-    float32 in means float32 arithmetic: TF32 is switched off around this
-    call (cuDNN's default for float32 convolutions would keep about three
-    digits); bfloat16 keeps the library's default."""
+def _conv(img: torch.Tensor, interior: torch.Tensor, padding: int) -> torch.Tensor:
     c = img.shape[0]
     kern = _conv_weights(c, img.dtype, img.device)
     if img.device.type == "cuda" and img.dtype == torch.float32:
         before = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
-            out = torch.nn.functional.conv2d(img[None], kern, padding=1, groups=c)[0]
+            out = torch.nn.functional.conv2d(img[None], kern, padding=padding, groups=c)[0]
         finally:
             torch.backends.cudnn.allow_tf32 = before
     else:
-        out = torch.nn.functional.conv2d(img[None], kern, padding=1, groups=c)[0]
+        out = torch.nn.functional.conv2d(img[None], kern, padding=padding, groups=c)[0]
     return out * interior
+
+
+def blur_step_conv(img: torch.Tensor, interior: torch.Tensor) -> torch.Tensor:
+    """One blur via depthwise conv. img: (C, H, W); interior: (H, W) {0,1}.
+    float32 in means float32 arithmetic: TF32 is switched off around this
+    call (cuDNN's default for float32 convolutions would keep about three
+    digits); bfloat16 keeps the library's default.
+
+    img and interior may be DTensors sharded over the rows and columns of a
+    mesh (conv-sharded): each rank then convolves its block with a one-cell
+    ring from its neighbours, unpadded. PyTorch's own rule for a convolution
+    of a DTensor sharded over spatial dims convolves each block alone, with
+    no halo, so it is not used. The ring wraps around the image, where the
+    conv engine sees zeros; the two differ only on the outermost ring,
+    which the interior mask zeroes (`pad_to_tile`)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(img, DTensor):
+        from ..parallel import halo
+
+        return halo.with_ring(lambda ext, inner: _conv(ext, inner, 0), img, interior)
+    return _conv(img, interior, 1)
 
 
 def _up(x):  # the row above: out[y] = x[y - 1], periodic

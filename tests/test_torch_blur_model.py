@@ -78,8 +78,8 @@ def test_auto_goes_to_the_k_pass_engine_beyond_resident(num_iters, k_passes, exp
 
 def test_blur_image_rejects_what_is_not_ported_or_unknown():
     rgba = rgba_case()
-    with pytest.raises(ValueError, match="conv-sharded.*ROADMAP.md A7"):
-        blur.blur_image(rgba, engine="conv-sharded", device="cpu")
+    with pytest.raises(ValueError, match="num_devices applies to engine 'conv-sharded' only"):
+        blur.blur_image(rgba, engine="conv", num_devices=2, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         blur.blur_image(rgba, engine="pallas", device="cpu")
     with pytest.raises(ValueError, match="dtype"):
@@ -124,13 +124,16 @@ def test_cli_flags_on_the_cpu(tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--engine", "conv-sharded"], "A7"), (["--num-devices", "4"], "A7"),
-    (["--compile-only"], "A8"), (["--export", "step.bin"], "A8")])
+    (["--engine", "conv", "--num-devices", "4"], "--num-devices applies to --engine conv-sharded"),
+    (["--num-devices", "4"], "--num-devices applies to --engine conv-sharded"),
+    (["--compile-only"], "ROADMAP.md A8"), (["--export", "step.bin"], "ROADMAP.md A8")])
 def test_cli_rejects_what_is_not_ported_and_names_the_roadmap_item(tmp_path, capsys, flags, item):
+    # the multi-device blur is ported (conv-sharded); its --num-devices
+    # belongs to that engine alone
     img_lib.save_png(tmp_path / "in.png", rgba_case())
     with pytest.raises(SystemExit) as err:
         cli.main(["-i", str(tmp_path / "in.png"), "-o", str(tmp_path / "out.png"),
                   "--device", "cpu", *flags])
     assert err.value.code != 0
-    assert f"ROADMAP.md {item}" in capsys.readouterr().err
+    assert item in capsys.readouterr().err
     assert not (tmp_path / "out.png").exists()

@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_no_lbm_tpu():
                  "ops.d3q19_kstep_inplace", "ops.d3q19_kstep_blocked",
                  "ops.d3q19_kstep_inplace_blocked", "ops._build", "core.checkpoint", "models.lbm3d",
                  "cli.lbm", "cli.lbm3d", "utils.image", "ops.stencil", "models.blur",
-                 "cli.blur", "ops.d2q9_kstep_manual", "ops.copy_floor", "ops.overlap_probe"):
+                 "cli.blur", "ops.d2q9_kstep_manual", "ops.copy_floor", "ops.overlap_probe",
+                 "parallel.mesh", "parallel.partition", "parallel.launch", "parallel.halo",
+                 "parallel.kstep_sharded"):
         assert f"lbm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

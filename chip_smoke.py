@@ -91,6 +91,18 @@ Phases, each of which must pass or the script exits non-zero:
      engine's; `cli.blur --engine conv-sharded --num-devices 1` on the seeded
      4096x4096 PNG x 200 passes, bit-equal to the conv engine. MLUPS of
      sharded-cuda beside cuda-inplace's, and the path of the extended block;
+  7d. the 3-D multi-device paths in the same NCCL group: `cli.lbm3d --engine
+     sharded-cuda --num-devices 1` at 64x128x256 and 32x256x256 x 1200
+     steps (kernel B4 on the ghost-extended slab, shard 0's plane_offset
+     -K), and at 64x128x256 `--overlap` and `--engine sharded-cuda-zy
+     --mesh-shape 1 1`, each beside `--engine cuda-inplace` in the same call:
+     the final state bit-equal to it, av_vels within 1e-5, B4 alone
+     launched, never the plain engine; B6 as the local kernel
+     (`run_simulation_sharded(local_engine='two-stream')`), bit-equal; a
+     chunk split into B4's pass, the exchange and the rest, device and host,
+     beside B4's pass on the lattice; a checkpointed sharded-cuda run
+     resumed, bit-equal to an uninterrupted one; the plain `sharded` engine
+     at 16x64x128 bit-equal to the torch engine. Each run's MLUPS and path;
   7b. the blocked 3-D pair at 32x256x256 (the reference's
      `d3q19_blocked_only` shape), all of it in the phases named *_blocked:
      kernels B7 (d3q19_kstep_blocked) and B5 (d3q19_kstep_inplace_blocked) vs
@@ -179,7 +191,8 @@ Phases, each of which must pass or the script exits non-zero:
  12. one JSON line `{"kernels": [...]}` with each of the thirteen kernels'
      launches on its path, parity, time per launch, its bound, the plain
      version's time and the library's (the convolution for the blur
-     kernels, `copy_` for B12 and B11);
+     kernels, `copy_` for B12 and B11); B1's, B2's, B4's and B6's entries
+     carry their launches, path and MLUPS in the sharded phases;
  13. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero, printing no result, when CUDA is absent or the package is not
@@ -2131,13 +2144,28 @@ SHARDED_AV_BAR = 1e-6  # av_vels of the ghost-band run against B1's: Sum|u| in a
 SHARDED_TIMING_CHUNKS = 200
 
 
-def phase_sharded(torch, mods, golden, mask, stencil):
-    """Phase 7c: the multi-device paths at world size 1, in a NCCL process
-    group of this process (file:// rendezvous, cuda:0), destroyed at the end.
-    Returns {"d2q9_kstep_inplace": launches, "d2q9_kstep": launches, ...} of
-    the ghost-band runs and their measurements."""
+@contextlib.contextmanager
+def nccl_world_of_one(torch):
+    """A NCCL process group of this process alone (file:// rendezvous,
+    cuda:0), destroyed on leaving: the multi-device entry points then run
+    in-process, so the kernels' launch counts stay visible."""
     import torch.distributed as dist
 
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{Path(tmp) / 'rendezvous'}",
+                                world_size=1, rank=0, device_id=torch.device("cuda", 0))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_sharded(torch, mods, golden, mask, stencil):
+    """Phase 7c: the 2-D multi-device paths at world size 1, in the NCCL
+    process group of `nccl_world_of_one`. Returns {"d2q9_kstep_inplace":
+    launches, "d2q9_kstep": launches, ...} of the ghost-band runs and their
+    measurements."""
     from lbm_tpu_torch.cli import blur as blur_cli
     from lbm_tpu_torch.cli import lbm as cli
     from lbm_tpu_torch.core import state
@@ -2153,158 +2181,409 @@ def phase_sharded(torch, mods, golden, mask, stencil):
     params, obstacles = Params(**FLAGSHIP), Obstacles(mask)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        torch.cuda.set_device(0)
-        dist.init_process_group("nccl", init_method=f"file://{tmp / 'rendezvous'}",
-                                world_size=1, rank=0, device_id=torch.device("cuda", 0))
-        try:
-            params.to_file(tmp / "p.params")
-            obstacles.to_file(tmp / "o.dat")
-            files = ["--params", str(tmp / "p.params"), "--obstacles", str(tmp / "o.dat")]
-            ref = lbm_model.run_simulation(params, obstacles, dtype=torch.float32,
-                                           engine="cuda-inplace", device="cuda")
-            ref_mlups = N * N * FLAGSHIP["max_iters"] / ref.compute_seconds / 1e6
-            print(f"sharded: --engine cuda-inplace (B1) reference run: {ref.compute_seconds:.6f} s,"
-                  f" {ref_mlups:.1f} MLUPS")
+        params.to_file(tmp / "p.params")
+        obstacles.to_file(tmp / "o.dat")
+        files = ["--params", str(tmp / "p.params"), "--obstacles", str(tmp / "o.dat")]
+        ref = lbm_model.run_simulation(params, obstacles, dtype=torch.float32,
+                                       engine="cuda-inplace", device="cuda")
+        ref_mlups = N * N * FLAGSHIP["max_iters"] / ref.compute_seconds / 1e6
+        print(f"sharded: --engine cuda-inplace (B1) reference run: {ref.compute_seconds:.6f} s,"
+              f" {ref_mlups:.1f} MLUPS")
 
-            # the ghost-band engine through the CLI, B1 on the extended block
-            for flags in ([], ["--overlap"]):
-                label = f"--engine sharded-cuda --num-devices 1 {' '.join(flags)}".strip()
-                for m in mods:
-                    m.launches = 0
-                with CountCalls(d2q9, "collide_fields") as plain, \
-                        Capture(lbm_model, "run_simulation_sharded") as captured:
-                    rc, text = run_cli(cli.main, files + [
-                        "--engine", "sharded-cuda", "--num-devices", "1", "--dtype", "float32",
-                        "--out-dir", str(tmp / "out"), *flags])
-                launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
-                print(f"sharded: {label}:\n{text.rstrip()}")
-                check(rc == 0, f"{label}: cli returned {rc}")
-                check(launches["d2q9_kstep_inplace"] > 0, f"{label}: B1 was never launched")
-                check(launches["d2q9_kstep"] == 0 and launches["d2q9_kstep_manual"] == 0,
-                      f"{label}: another 2-D kernel was launched: {launches}")
-                check(plain.calls == 0, f"{label}: the plain engine ran {plain.calls} collisions")
-                res = captured.results[0]
-                golden_gate(tmp / "out", golden, label)
-                check(np.array_equal(res.f_final, ref.f_final),
-                      f"{label}: the final state differs from --engine cuda-inplace's")
-                av_err = float(np.max(np.abs(res.av_vels - ref.av_vels) / np.abs(ref.av_vels)))
-                check(av_err <= SHARDED_AV_BAR,
-                      f"{label}: av_vels {av_err} from cuda-inplace's > {SHARDED_AV_BAR}")
-                mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
-                path = d2q9_kstep_inplace.last_path
-                print(f"sharded: {label}: B1 {launches['d2q9_kstep_inplace']} launches on the "
-                      f"{path} path (extended block 9x{N + 2 * kstep_sharded.GHOST}x{N}), "
-                      f"{res.compute_seconds:.6f} s timed, {mlups} MLUPS against cuda-inplace's "
-                      f"{ref_mlups:.1f}; final state bit-equal to cuda-inplace's, av_vels max "
-                      f"rel err {av_err:.3e} (bar {SHARDED_AV_BAR})")
-                check(path == "box", f"{label}: B1 took the {path} path on the extended block")
-                key = "overlap" if flags else "fused"
-                out[key] = dict(launches=launches["d2q9_kstep_inplace"], path=path, mlups=mlups,
-                                seconds=res.compute_seconds, av_err=av_err)
-            out["cuda_inplace_mlups"] = ref_mlups
-
-            # the same run with B2 as the local engine
-            f0 = state.initial_distributions(params, np.float32)
-            mesh = kstep_sharded.make_row_mesh()
+        # the ghost-band engine through the CLI, B1 on the extended block
+        for flags in ([], ["--overlap"]):
+            label = f"--engine sharded-cuda --num-devices 1 {' '.join(flags)}".strip()
             for m in mods:
                 m.launches = 0
-            f_b2, av_b2 = kstep_sharded.simulate(params, f0, mask, mesh,
-                                                 local_engine="two-stream")
-            b2 = d2q9_kstep.launches
-            check(b2 > 0 and d2q9_kstep_inplace.launches == 0,
-                  "the two-stream ghost-band run did not go through B2 alone")
-            check(np.array_equal(f_b2.cpu().numpy(), ref.f_final),
-                  "the ghost-band run on B2 differs from cuda-inplace's state")
-            print(f"sharded: ghost-band run on B2 (two-stream): {b2} launches on the "
-                  f"{d2q9_kstep.last_path} path, final state bit-equal to cuda-inplace's")
-            out["two_stream"] = dict(launches=b2, path=d2q9_kstep.last_path)
+            with CountCalls(d2q9, "collide_fields") as plain, \
+                    Capture(lbm_model, "run_simulation_sharded") as captured:
+                rc, text = run_cli(cli.main, files + [
+                    "--engine", "sharded-cuda", "--num-devices", "1", "--dtype", "float32",
+                    "--out-dir", str(tmp / "out"), *flags])
+            launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+            print(f"sharded: {label}:\n{text.rstrip()}")
+            check(rc == 0, f"{label}: cli returned {rc}")
+            check(launches["d2q9_kstep_inplace"] > 0, f"{label}: B1 was never launched")
+            check(launches["d2q9_kstep"] == 0 and launches["d2q9_kstep_manual"] == 0,
+                  f"{label}: another 2-D kernel was launched: {launches}")
+            check(plain.calls == 0, f"{label}: the plain engine ran {plain.calls} collisions")
+            res = captured.results[0]
+            golden_gate(tmp / "out", golden, label)
+            check(np.array_equal(res.f_final, ref.f_final),
+                  f"{label}: the final state differs from --engine cuda-inplace's")
+            av_err = float(np.max(np.abs(res.av_vels - ref.av_vels) / np.abs(ref.av_vels)))
+            check(av_err <= SHARDED_AV_BAR,
+                  f"{label}: av_vels {av_err} from cuda-inplace's > {SHARDED_AV_BAR}")
+            mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
+            path = d2q9_kstep_inplace.last_path
+            print(f"sharded: {label}: B1 {launches['d2q9_kstep_inplace']} launches on the "
+                  f"{path} path (extended block 9x{N + 2 * kstep_sharded.GHOST}x{N}), "
+                  f"{res.compute_seconds:.6f} s timed, {mlups} MLUPS against cuda-inplace's "
+                  f"{ref_mlups:.1f}; final state bit-equal to cuda-inplace's, av_vels max "
+                  f"rel err {av_err:.3e} (bar {SHARDED_AV_BAR})")
+            check(path == "box", f"{label}: B1 took the {path} path on the extended block")
+            key = "overlap" if flags else "fused"
+            out[key] = dict(launches=launches["d2q9_kstep_inplace"], path=path, mlups=mlups,
+                            seconds=res.compute_seconds, av_err=av_err)
+        out["cuda_inplace_mlups"] = ref_mlups
 
-            # a chunk's parts: the exchange (at world size 1 local copies),
-            # the snapshot refresh, B1's pass, and the one all-reduce of a run
-            aw = d2q9.AccelWeights.from_params(params)
-            f_sh, mask_ext, _ = kstep_sharded.prepare(params, f0, mask, mesh)
-            chunk = kstep_sharded.make_chunk_fn(mesh, k_steps=4, omega=params.omega,
-                                                accel_w1=aw.w1, accel_w2=aw.w2, accel_row=N - 2,
-                                                ny=N)
+        # the same run with B2 as the local engine
+        f0 = state.initial_distributions(params, np.float32)
+        mesh = kstep_sharded.make_row_mesh()
+        for m in mods:
+            m.launches = 0
+        f_b2, av_b2 = kstep_sharded.simulate(params, f0, mask, mesh,
+                                             local_engine="two-stream")
+        b2 = d2q9_kstep.launches
+        check(b2 > 0 and d2q9_kstep_inplace.launches == 0,
+              "the two-stream ghost-band run did not go through B2 alone")
+        check(np.array_equal(f_b2.cpu().numpy(), ref.f_final),
+              "the ghost-band run on B2 differs from cuda-inplace's state")
+        print(f"sharded: ghost-band run on B2 (two-stream): {b2} launches on the "
+              f"{d2q9_kstep.last_path} path, final state bit-equal to cuda-inplace's")
+        out["two_stream"] = dict(launches=b2, path=d2q9_kstep.last_path)
+
+        # a chunk's parts: the exchange (at world size 1 local copies),
+        # the snapshot refresh, B1's pass, and the one all-reduce of a run
+        aw = d2q9.AccelWeights.from_params(params)
+        f_sh, mask_ext, _ = kstep_sharded.prepare(params, f0, mask, mesh)
+        chunk = kstep_sharded.make_chunk_fn(mesh, k_steps=4, omega=params.omega,
+                                            accel_w1=aw.w1, accel_w2=aw.w2, accel_row=N - 2,
+                                            ny=N)
+        chunk.start(f_sh.to_local(), mask_ext.to_local())
+        n = SHARDED_TIMING_CHUNKS
+        tots = torch.empty(4, device="cuda")
+        chunk_ms = time_ms(torch, lambda: chunk(tots), n)
+        chain_ms = time_ms(torch, lambda: chunk.passes(tots), n)
+        pass_ms = time_ms(torch, lambda: d2q9_kstep_inplace.run(
+            chunk.buf, chunk.mask, num_steps=4 * n, k_steps=4, omega=params.omega,
+            accel_w1=aw.w1, accel_w2=aw.w2, accel_row=N - 2), 1) / n
+        sums = torch.zeros(FLAGSHIP["max_iters"], device="cuda")
+        reduce_ms = time_ms(torch, lambda: mesh_lib.sum_by_rank(sums, mesh), 50)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            chunk(tots)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / n * 1e3
+        chunks = FLAGSHIP["max_iters"] // 4
+        print(f"sharded: a chunk (K=4) {chunk_ms:.4f} ms on the device's clock, {host_ms:.4f} "
+              f"ms on the host's; B1's chained pass with its snapshot refresh {chain_ms:.4f} "
+              f"ms; a B1 pass of `run` on the extended block {pass_ms:.4f} ms. Exchange "
+              f"(local copies at world size 1) {chunk_ms - chain_ms:.4f} ms "
+              f"({(chunk_ms - chain_ms) / chunk_ms:.1%} of a chunk), refresh "
+              f"{chain_ms - pass_ms:.4f} ms ({(chain_ms - pass_ms) / chunk_ms:.1%}); the "
+              f"run's one all-reduce of {FLAGSHIP['max_iters']} sums {reduce_ms:.4f} ms "
+              f"({reduce_ms / (chunk_ms * chunks):.3%} of the run's chunks)")
+        out["chunk"] = dict(chunk_ms=chunk_ms, chain_ms=chain_ms, pass_ms=pass_ms,
+                            host_ms=host_ms, allreduce_ms=reduce_ms)
+
+        # the halo strategies, 1000 steps, against the plain engine
+        short = Params(**{**FLAGSHIP, "max_iters": SHARDED_STEPS})
+        plain_ref = lbm_model.run_simulation(short, obstacles, dtype=torch.float32,
+                                             engine="torch", device="cuda")
+        strategies = {}
+        for strategy in lbm_model.STRATEGIES:
+            # through the model: the CLI's path is the ghost-band runs'
+            # above, and writing a final state takes seconds
+            label = f"engine sharded, strategy {strategy}"
+            res = lbm_model.run_simulation_sharded(short, obstacles, dtype=torch.float32,
+                                                   engine="sharded", strategy=strategy,
+                                                   num_devices=1, device="cuda")
+            check(np.array_equal(res.f_final, plain_ref.f_final),
+                  f"{label}: the state differs from the torch engine's")
+            av_err = float(np.max(np.abs(res.av_vels - plain_ref.av_vels)
+                                  / np.abs(plain_ref.av_vels)))
+            check(av_err <= SHARDED_AV_BAR, f"{label}: av_vels rel err {av_err}")
+            mlups = N * N * SHARDED_STEPS / res.compute_seconds / 1e6
+            print(f"sharded: {label}: {SHARDED_STEPS} steps, {mlups:.1f} MLUPS, state bit-equal "
+                  f"to the torch engine's, av_vels max rel err {av_err:.3e}")
+            strategies[strategy] = mlups
+        plain_mlups = N * N * SHARDED_STEPS / plain_ref.compute_seconds / 1e6
+        print(f"sharded: --engine torch on the card, {SHARDED_STEPS} steps: {plain_mlups:.1f} "
+              "MLUPS")
+        out["strategies_mlups"] = strategies
+        out["torch_mlups"] = plain_mlups
+
+        # the blur on a mesh of one rank, against the conv engine
+        rgba = seeded_rgba(20261019, *BIG[1])
+        img_lib.save_png(tmp / "big.png", rgba)
+        conv = blur_model.run_blur(rgba, num_iters=BLUR_ITERS, engine="conv", device="cuda")
+        for key in stencil.launches:
+            stencil.launches[key] = 0
+        with Capture(blur_model, "run_blur") as captured:
+            rc, text = run_cli(blur_cli.main, ["-i", str(tmp / "big.png"), "-o",
+                                               str(tmp / "out.png"), "-n", str(BLUR_ITERS),
+                                               "--engine", "conv-sharded",
+                                               "--num-devices", "1"])
+        check(rc == 0, f"blur --engine conv-sharded returned {rc}")
+        run = captured.results[0]
+        check(sum(stencil.launches.values()) == 0, "conv-sharded launched a blur kernel")
+        check(np.array_equal(run.state, conv.state) and np.array_equal(run.rgba, conv.rgba),
+              "conv-sharded differs from the conv engine")
+        check(np.array_equal(img_lib.load_png(tmp / "out.png"), conv.rgba),
+              "the conv-sharded PNG differs from the conv engine's image")
+        print(f"sharded: blur --engine conv-sharded --num-devices 1, {BIG[1][0]}x{BIG[1][1]} x "
+              f"{2 * BLUR_ITERS} passes: {run.compute_seconds:.6f} s (conv "
+              f"{conv.compute_seconds:.6f} s), state and image bit-equal to conv's")
+        out["conv_sharded_seconds"] = run.compute_seconds
+        out["conv_seconds"] = conv.compute_seconds
+    return out
+
+
+# the 3-D multi-device phase: the bench shape and the blocked pair's shape,
+# each through sharded-cuda beside cuda-inplace; the plain engine's size
+SHARDED_3D_SHAPES = (SHAPE_3D, SHAPE_BLOCKED)
+SHARDED_3D_AV_BAR = 1e-5  # av_vels against cuda-inplace's: Sum|u| in another order
+SHARDED_PLAIN_3D = (16, 64, 128)
+SHARDED_PLAIN_3D_STEPS = 100
+SHARDED_3D_FUSED = "--engine sharded-cuda at {}x{}x{}".format(*SHAPE_3D)
+SHARDED_3D_CHECKPOINT_STEPS = 600  # then resumed to 2x, chunks of half
+
+
+def split_chunk(torch, chunk, tots, n: int) -> dict:
+    """n calls of a ghost-plane chunk (`kstep_sharded_3d.make_chunk_fn`) with
+    CUDA events recorded around its two parts inside each call: the device
+    ms a chunk of the chunk as a whole, of its exchange, of its kernel pass,
+    and of the rest (what lies between: the copy of Sum|u| and the gaps
+    between launches), so the three parts add up to the chunk."""
+    pairs = [[torch.cuda.Event(enable_timing=True) for _ in range(2)] for _ in range(2 * n + 2)]
+    used = []
+
+    def timed(fn):
+        def call(*args, **kw):
+            begin, end = pairs[len(used)]
+            begin.record()
+            out = fn(*args, **kw)
+            end.record()
+            used.append((fn, begin, end))
+            return out
+        return call
+
+    exchange, stepk = chunk.exchange_planes, chunk.stepk
+    chunk.exchange_planes, chunk.stepk = timed(exchange), timed(stepk)
+    try:
+        chunk(tots)  # warm-up
+        torch.cuda.synchronize()
+        used.clear()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            chunk(tots)
+        stop.record()
+        stop.synchronize()
+    finally:
+        del chunk.exchange_planes
+        chunk.stepk = stepk
+    check(len(used) == 2 * n, f"the timed chunks ran {len(used)} parts, not {2 * n}")
+    total = start.elapsed_time(stop) / n
+    parts = {name: sum(b.elapsed_time(e) for fn, b, e in used if fn is part) / n
+             for name, part in (("exchange_ms", exchange), ("pass_ms", stepk))}
+    return dict(chunk_ms=total, **parts,
+                rest_ms=total - parts["exchange_ms"] - parts["pass_ms"])
+
+
+def phase_sharded_3d(torch, mods3, modsb):
+    """Phase 7d: the 3-D multi-device paths at world size 1, in the NCCL
+    process group of `nccl_world_of_one`. Returns the launches, paths and
+    MLUPS of each run and the split of a chunk."""
+    from lbm_tpu_torch.cli import lbm3d as cli3
+    from lbm_tpu_torch.core import io as lbm_io
+    from lbm_tpu_torch.models import lbm3d as lbm3d_model
+    from lbm_tpu_torch.ops import d3q19
+    from lbm_tpu_torch.parallel import kstep_sharded_3d as ks3, mesh as mesh_lib
+    d3q19_kstep, d3q19_kstep_inplace = mods3
+    all3 = (*mods3, *modsb)
+
+    def reset():
+        for m in all3:
+            m.launches = 0
+
+    def launches():
+        return {m.__name__.rsplit(".", 1)[1]: m.launches for m in all3}
+
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for nz, ny, nx in SHARDED_3D_SHAPES:
+            grid = f"{nz}x{ny}x{nx}"
+            base = ["--nz", str(nz), "--ny", str(ny), "--nx", str(nx), "-n", str(STEPS_3D),
+                    "--dtype", "float32"]
+            with Capture(d3q19, "advance") as cap:
+                rc, text = run_cli(cli3.main, base + ["--engine", "cuda-inplace", "--out-dir",
+                                                      str(tmp / "ref")])
+            check(rc == 0, f"3-D cuda-inplace at {grid}: cli returned {rc}")
+            ref_f, ref_av = (t.cpu().numpy() for t in cap.results[-1])
+            ref_mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
+            print(f"sharded 3-D: --engine cuda-inplace at {grid} x {STEPS_3D}: {ref_mlups} MLUPS "
+                  f"(reference run, B4 on the {d3q19_kstep_inplace.last_path} path)")
+            out[f"cuda_inplace_mlups {grid}"] = ref_mlups
+            runs = [("sharded-cuda", [])]
+            if (nz, ny, nx) == SHAPE_3D:
+                runs += [("sharded-cuda", ["--overlap"]),
+                         ("sharded-cuda-zy", ["--mesh-shape", "1", "1"])]
+            for engine, flags in runs:
+                label = f"--engine {engine} {' '.join(flags)} at {grid}".replace("  ", " ")
+                reset()
+                with CountCalls(d3q19, "collide_fields") as plain, \
+                        Capture(lbm3d_model, "run_simulation_sharded") as captured:
+                    rc, text = run_cli(cli3.main, base + [
+                        "--engine", engine, "--num-devices", "1", *flags, "--out-dir",
+                        str(tmp / "sharded")])
+                counts = launches()
+                print(f"sharded 3-D: {label}:\n{text.rstrip()}")
+                check(rc == 0, f"{label}: cli returned {rc}")
+                check(counts["d3q19_kstep_inplace"] > 0, f"{label}: B4 was never launched")
+                check(sum(counts.values()) == counts["d3q19_kstep_inplace"],
+                      f"{label}: another 3-D kernel was launched: {counts}")
+                check(plain.calls == 0, f"{label}: the plain engine ran {plain.calls} collisions")
+                res = captured.results[0]
+                check(np.array_equal(res.f_final, ref_f),
+                      f"{label}: the final state differs from --engine cuda-inplace's")
+                av = lbm_io.read_av_vels(tmp / "sharded" / "av_vels_3d.dat")
+                check(av.shape == (STEPS_3D,) and np.isfinite(av).all(),
+                      f"{label}: av_vels_3d.dat is malformed")
+                av_err = float(np.max(np.abs(res.av_vels[1:] - ref_av[1:]) / np.abs(ref_av[1:])))
+                check(av_err <= SHARDED_3D_AV_BAR,
+                      f"{label}: av_vels {av_err} from cuda-inplace's > {SHARDED_3D_AV_BAR}")
+                mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
+                path = d3q19_kstep_inplace.last_path
+                print(f"sharded 3-D: {label}: B4 {counts['d3q19_kstep_inplace']} launches on the "
+                      f"{path} path (blocks {'x'.join(map(str, res.block))}, K={res.k_steps}), "
+                      f"{res.compute_seconds:.6f} s timed, {mlups} MLUPS against cuda-inplace's "
+                      f"{ref_mlups}; final state bit-equal to cuda-inplace's, av_vels[1:] max rel "
+                      f"err {av_err:.3e} (bar {SHARDED_3D_AV_BAR})")
+                out["runs"][label] = dict(launches=counts["d3q19_kstep_inplace"], path=path,
+                                          mlups=mlups, seconds=res.compute_seconds,
+                                          av_err=av_err, k_steps=res.k_steps,
+                                          block=list(res.block))
+                if (nz, ny, nx) == SHAPE_3D and engine == "sharded-cuda" and not flags:
+                    fused_k, fused_f, fused_av = res.k_steps, res.f_final, res.av_vels
+            if (nz, ny, nx) != SHAPE_3D:
+                continue
+
+            # B6 as the local kernel (the two-stream oracle), timed as the CLI's runs
+            reset()
+            res = lbm3d_model.run_simulation_sharded(
+                nz, ny, nx, num_steps=STEPS_3D, num_devices=1, local_engine="two-stream",
+                device="cuda", **PHYSICS_3D)
+            counts = launches()
+            check(counts["d3q19_kstep"] > 0 and sum(counts.values()) == counts["d3q19_kstep"],
+                  f"the two-stream ghost-plane run did not go through B6 alone: {counts}")
+            check(res.kernel == "d3q19_kstep" and res.k_steps == fused_k,
+                  f"the two-stream run took {res.kernel} at K={res.k_steps}")
+            check(np.array_equal(res.f_final, ref_f),
+                  "the ghost-plane run on B6 differs from cuda-inplace's state")
+            check(np.array_equal(res.av_vels, fused_av),
+                  "the ghost-plane run's av_vels on B6 differ from B4's")
+            mlups = nz * ny * nx * STEPS_3D / res.compute_seconds / 1e6
+            print(f"sharded 3-D: ghost-plane run on B6 (two-stream) at {grid}: "
+                  f"{counts['d3q19_kstep']} launches on the {d3q19_kstep.last_path} path, "
+                  f"{res.compute_seconds:.6f} s timed, {mlups:.1f} MLUPS; state bit-equal to "
+                  "cuda-inplace's, av_vels bit-equal to B4's")
+            out["two_stream"] = dict(launches=counts["d3q19_kstep"], path=d3q19_kstep.last_path,
+                                     mlups=mlups, seconds=res.compute_seconds)
+
+            # a chunk's parts, device and host; B4 on the extended block and
+            # on the lattice
+            k = fused_k
+            mesh = ks3.make_z_mesh(1)
+            mask = d3q19.default_obstacle_mask(nz, ny, nx)
+            f0 = d3q19.initial_distributions(nz, ny, nx, PHYSICS_3D["density"], np.float32)
+            f_sh, mask_ext = ks3.prepare(f0, mask, mesh, k_steps=k,
+                                         density=PHYSICS_3D["density"])
+            chunk = ks3.make_chunk_fn(mesh, k_steps=k, accel_plane=nz - 2, nz=nz, **PHYSICS_3D)
             chunk.start(f_sh.to_local(), mask_ext.to_local())
             n = SHARDED_TIMING_CHUNKS
-            tots = torch.empty(4, device="cuda")
+            device = chunk.buf.device
+            tots = torch.empty(k, device=device)
             chunk_ms = time_ms(torch, lambda: chunk(tots), n)
-            chain_ms = time_ms(torch, lambda: chunk.passes(tots), n)
-            pass_ms = time_ms(torch, lambda: d2q9_kstep_inplace.run(
-                chunk.buf, chunk.mask, num_steps=4 * n, k_steps=4, omega=params.omega,
-                accel_w1=aw.w1, accel_w2=aw.w2, accel_row=N - 2), 1) / n
-            sums = torch.zeros(FLAGSHIP["max_iters"], device="cuda")
+            split = split_chunk(torch, chunk, tots, n)
+            pass_ms = time_ms(torch, lambda: chunk.stepk(chunk.buf, chunk.mask, **chunk.kwargs), n)
+            lattice = torch.from_numpy(ref_f).to(device)
+            mask_t = torch.from_numpy(mask).to(device)
+            lattice_ms = time_ms(torch, lambda: d3q19_kstep_inplace.stepk(
+                lattice, mask_t, k_steps=k, accel_plane=nz - 2, **PHYSICS_3D), n)
+            sums = torch.zeros(STEPS_3D, device=device)
             reduce_ms = time_ms(torch, lambda: mesh_lib.sum_by_rank(sums, mesh), 50)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(n):
                 chunk(tots)
+            enqueue_ms = (time.perf_counter() - t0) / n * 1e3
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) / n * 1e3
-            chunks = FLAGSHIP["max_iters"] // 4
-            print(f"sharded: a chunk (K=4) {chunk_ms:.4f} ms on the device's clock, {host_ms:.4f} "
-                  f"ms on the host's; B1's chained pass with its snapshot refresh {chain_ms:.4f} "
-                  f"ms; a B1 pass of `run` on the extended block {pass_ms:.4f} ms. Exchange "
-                  f"(local copies at world size 1) {chunk_ms - chain_ms:.4f} ms "
-                  f"({(chunk_ms - chain_ms) / chunk_ms:.1%} of a chunk), refresh "
-                  f"{chain_ms - pass_ms:.4f} ms ({(chain_ms - pass_ms) / chunk_ms:.1%}); the "
-                  f"run's one all-reduce of {FLAGSHIP['max_iters']} sums {reduce_ms:.4f} ms "
-                  f"({reduce_ms / (chunk_ms * chunks):.3%} of the run's chunks)")
-            out["chunk"] = dict(chunk_ms=chunk_ms, chain_ms=chain_ms, pass_ms=pass_ms,
-                                host_ms=host_ms, allreduce_ms=reduce_ms)
+            ext = chunk.buf.shape[1]
+            total = split["chunk_ms"]
+            print(f"sharded 3-D: a chunk (K={k}) at {grid}, world size 1: {chunk_ms:.4f} ms on "
+                  f"the device's clock; {host_ms:.4f} ms a chunk on the host's with the device "
+                  f"waited for, {enqueue_ms:.4f} ms to enqueue one. Inside the same chunks, "
+                  f"timed by events around their parts ({total:.4f} ms a chunk so timed): the "
+                  f"exchange (local copies at world size 1) {split['exchange_ms']:.4f} ms "
+                  f"({split['exchange_ms'] / total:.1%}), B4's pass on the extended block "
+                  f"(19x{ext}x{ny}x{nx}, {chunk.kwargs['valid_planes']} valid) "
+                  f"{split['pass_ms']:.4f} ms ({split['pass_ms'] / total:.1%}), the rest (the "
+                  f"Sum|u| copy, the gaps between launches) {split['rest_ms']:.4f} ms "
+                  f"({split['rest_ms'] / total:.1%}). B4's pass alone on the extended block "
+                  f"{pass_ms:.4f} ms, on the {nz}-plane lattice {lattice_ms:.4f} ms "
+                  f"(x{ext / nz:.4f} planes: {pass_ms / lattice_ms:.4f}x the time); the run's "
+                  f"one all-reduce of {STEPS_3D} sums {reduce_ms:.4f} ms")
+            out["chunk"] = dict(k_steps=k, chunk_ms=chunk_ms, split=split, host_ms=host_ms,
+                                enqueue_ms=enqueue_ms, pass_alone_ms=pass_ms,
+                                lattice_pass_ms=lattice_ms, extended_planes=ext,
+                                allreduce_ms=reduce_ms)
+            del chunk, lattice
 
-            # the halo strategies, 1000 steps, against the plain engine
-            short = Params(**{**FLAGSHIP, "max_iters": SHARDED_STEPS})
-            plain_ref = lbm_model.run_simulation(short, obstacles, dtype=torch.float32,
-                                                 engine="torch", device="cuda")
-            strategies = {}
-            for strategy in lbm_model.STRATEGIES:
-                # through the model: the CLI's path is the ghost-band runs'
-                # above, and writing a final state takes seconds
-                label = f"engine sharded, strategy {strategy}"
-                res = lbm_model.run_simulation_sharded(short, obstacles, dtype=torch.float32,
-                                                       engine="sharded", strategy=strategy,
-                                                       num_devices=1, device="cuda")
-                check(np.array_equal(res.f_final, plain_ref.f_final),
-                      f"{label}: the state differs from the torch engine's")
-                av_err = float(np.max(np.abs(res.av_vels - plain_ref.av_vels)
-                                      / np.abs(plain_ref.av_vels)))
-                check(av_err <= SHARDED_AV_BAR, f"{label}: av_vels rel err {av_err}")
-                mlups = N * N * SHARDED_STEPS / res.compute_seconds / 1e6
-                print(f"sharded: {label}: {SHARDED_STEPS} steps, {mlups:.1f} MLUPS, state bit-equal "
-                      f"to the torch engine's, av_vels max rel err {av_err:.3e}")
-                strategies[strategy] = mlups
-            plain_mlups = N * N * SHARDED_STEPS / plain_ref.compute_seconds / 1e6
-            print(f"sharded: --engine torch on the card, {SHARDED_STEPS} steps: {plain_mlups:.1f} "
-                  "MLUPS")
-            out["strategies_mlups"] = strategies
-            out["torch_mlups"] = plain_mlups
+            # a checkpointed run, resumed, against an uninterrupted one
+            steps = SHARDED_3D_CHECKPOINT_STEPS
+            reset()
+            ck = ["--nz", str(nz), "--ny", str(ny), "--nx", str(nx), "--dtype", "float32",
+                  "--engine", "sharded-cuda", "--num-devices", "1",
+                  "--checkpoint-every", str(steps // 2)]
+            with Capture(lbm3d_model, "run_simulation_with_checkpoints") as captured:
+                for argv in (["-n", str(steps), "--out-dir", str(tmp / "ck")],
+                             ["-n", str(2 * steps), "--resume", "--out-dir", str(tmp / "ck")],
+                             ["-n", str(2 * steps), "--out-dir", str(tmp / "whole")]):
+                    rc, text = run_cli(cli3.main, ck + argv)
+                    check(rc == 0, f"checkpointed sharded-cuda {argv}: cli returned {rc}")
+            (f_a, av_a, _, _), (f_r, av_r, _, run_r), (f_w, av_w, _, _) = captured.results
+            check(run_r == steps and av_r.shape == (2 * steps,),
+                  f"the resumed sharded-cuda run ran {run_r} steps")
+            check(np.array_equal(f_r, f_w) and np.array_equal(av_r, av_w)
+                  and np.array_equal(av_r[:steps], av_a),
+                  "the resumed sharded-cuda run differs from an uninterrupted one")
+            ck_launches = launches()["d3q19_kstep_inplace"]
+            print(f"sharded 3-D: --engine sharded-cuda --checkpoint-every {steps // 2} at {grid}: "
+                  f"{steps} steps, resumed to {2 * steps}: state and av_vels bit-equal to an "
+                  f"uninterrupted run; B4 {ck_launches} launches")
+            out["checkpoint_launches"] = ck_launches
 
-            # the blur on a mesh of one rank, against the conv engine
-            rgba = seeded_rgba(20261019, *BIG[1])
-            img_lib.save_png(tmp / "big.png", rgba)
-            conv = blur_model.run_blur(rgba, num_iters=BLUR_ITERS, engine="conv", device="cuda")
-            for key in stencil.launches:
-                stencil.launches[key] = 0
-            with Capture(blur_model, "run_blur") as captured:
-                rc, text = run_cli(blur_cli.main, ["-i", str(tmp / "big.png"), "-o",
-                                                   str(tmp / "out.png"), "-n", str(BLUR_ITERS),
-                                                   "--engine", "conv-sharded",
-                                                   "--num-devices", "1"])
-            check(rc == 0, f"blur --engine conv-sharded returned {rc}")
-            run = captured.results[0]
-            check(sum(stencil.launches.values()) == 0, "conv-sharded launched a blur kernel")
-            check(np.array_equal(run.state, conv.state) and np.array_equal(run.rgba, conv.rgba),
-                  "conv-sharded differs from the conv engine")
-            check(np.array_equal(img_lib.load_png(tmp / "out.png"), conv.rgba),
-                  "the conv-sharded PNG differs from the conv engine's image")
-            print(f"sharded: blur --engine conv-sharded --num-devices 1, {BIG[1][0]}x{BIG[1][1]} x "
-                  f"{2 * BLUR_ITERS} passes: {run.compute_seconds:.6f} s (conv "
-                  f"{conv.compute_seconds:.6f} s), state and image bit-equal to conv's")
-            out["conv_sharded_seconds"] = run.compute_seconds
-            out["conv_seconds"] = conv.compute_seconds
-        finally:
-            dist.destroy_process_group()
+        # the plain engine on DTensors at a small size, against the torch engine
+        nz, ny, nx = SHARDED_PLAIN_3D
+        grid = f"{nz}x{ny}x{nx}"
+        reset()
+        res = lbm3d_model.run_simulation_sharded(nz, ny, nx, num_steps=SHARDED_PLAIN_3D_STEPS,
+                                                 engine="sharded", num_devices=1, device="cuda",
+                                                 **PHYSICS_3D)
+        check(sum(launches().values()) == 0, "the plain 'sharded' engine launched a kernel")
+        f_t, av_t = d3q19.simulate(nz, ny, nx, num_steps=SHARDED_PLAIN_3D_STEPS, engine="torch",
+                                   device="cuda", **PHYSICS_3D)
+        check(np.array_equal(res.f_final, f_t.cpu().numpy()),
+              "the 'sharded' engine's state differs from the torch engine's")
+        av_t = av_t.cpu().numpy()
+        av_err = float(np.max(np.abs(res.av_vels[1:] - av_t[1:]) / np.abs(av_t[1:])))
+        check(av_err <= SHARDED_3D_AV_BAR, f"the 'sharded' engine's av_vels: {av_err}")
+        mlups = nz * ny * nx * SHARDED_PLAIN_3D_STEPS / res.compute_seconds / 1e6
+        t0 = time.perf_counter()
+        d3q19.simulate(nz, ny, nx, num_steps=SHARDED_PLAIN_3D_STEPS, engine="torch",
+                       device="cuda", **PHYSICS_3D)[1].cpu()
+        plain_mlups = nz * ny * nx * SHARDED_PLAIN_3D_STEPS / (time.perf_counter() - t0) / 1e6
+        print(f"sharded 3-D: --engine sharded (the plain step on DTensors) at {grid} x "
+              f"{SHARDED_PLAIN_3D_STEPS}: {mlups:.1f} MLUPS (mesh "
+              f"{'x'.join(map(str, res.mesh_shape))}), state bit-equal to the torch engine's "
+              f"({plain_mlups:.1f} MLUPS on the host's clock), av_vels[1:] max rel err "
+              f"{av_err:.3e}")
+        out["plain_sharded_mlups"] = mlups
+        out["torch_mlups"] = plain_mlups
     return out
 
 
@@ -2361,7 +2640,9 @@ def main() -> int:
         paths3 = phase_main_path_3d(torch, mods3)
         phase_golden_3d(torch)
         ck_launches = phase_checkpoint(torch, mods, mods3, mask)
-        sharded = phase_sharded(torch, mods, golden, mask, stencil)
+        with nccl_world_of_one(torch):
+            sharded = phase_sharded(torch, mods, golden, mask, stencil)
+            sharded3 = phase_sharded_3d(torch, mods3, modsb)
 
         abs_err_b = phase_parity_blocked(torch, mods3, modsb)
         phase_paths_blocked(torch)
@@ -2433,6 +2714,16 @@ def main() -> int:
         "main_path_32x256x256": dict(zip(("launches", "seconds", "mlups", "path"),
                                          paths_b[f"{name} 32x256x256"])),
         "checkpoint_launches": ck_launches.get(name, 0),
+        **({"sharded_launches": sum(r["launches"] for r in sharded3["runs"].values())
+                                + sharded3["checkpoint_launches"],
+            "sharded_path": sharded3["runs"][SHARDED_3D_FUSED]["path"],
+            "sharded_cuda_mlups": sharded3["runs"][SHARDED_3D_FUSED]["mlups"],
+            "sharded_cuda_mlups_by_run": {k: r["mlups"] for k, r in sharded3["runs"].items()},
+            "sharded_chunk": sharded3["chunk"]}
+           if name == "d3q19_kstep_inplace" else
+           {"sharded_launches": sharded3["two_stream"]["launches"],
+            "sharded_path": sharded3["two_stream"]["path"],
+            "sharded_cuda_mlups": sharded3["two_stream"]["mlups"]}),
     } for name, replaces in KERNELS_3D.items()]
     kernels += [{
         "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/d3q19_blocked.cu",

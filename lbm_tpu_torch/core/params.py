@@ -64,6 +64,10 @@ class Params:
         )
 
     @property
+    def one_minus_omega(self) -> float:
+        return 1.0 - self.omega
+
+    @property
     def viscosity(self) -> float:
         # nu = (2/omega - 1) / 6   (main/LastChance.cpp:531)
         return 1.0 / 6.0 * (2.0 / self.omega - 1.0)
@@ -109,6 +113,9 @@ class Obstacles:
         with open(path, "w") as fh:
             for y, x in zip(ys, xs):
                 fh.write(f"{x} {y} 1\n")
+
+    def at(self, x: int, y: int) -> bool:
+        return bool(self.mask[y, x])
 
     @property
     def ny(self) -> int:

@@ -28,6 +28,10 @@ from .d3q19_lattice import (  # noqa: F401  (re-exported for callers)
 )
 
 ENGINES = ("torch", "cuda", "cuda-inplace", "cuda-blocked", "cuda-inplace-blocked")
+# the multi-device engines (`parallel/`): 'sharded' (the plain step on a
+# (z, y)-sharded DTensor), 'sharded-cuda' (ghost planes around B4 over a
+# z-mesh) and 'sharded-cuda-zy' (ghost planes and rows on a (z, y) mesh)
+SHARDED_ENGINES = ("sharded", "sharded-cuda", "sharded-cuda-zy")
 
 
 def _e_dot_u(k: int, u_x, u_y, u_z):
@@ -61,13 +65,17 @@ def equilibrium(rho, u_x, u_y, u_z) -> torch.Tensor:
     return torch.stack(outs)
 
 
-def stream_pull(f: torch.Tensor) -> list[torch.Tensor]:
-    """Periodic pull: speed k at x comes from x - e_k."""
-    return [
-        torch.roll(f[k], tuple(int(d) for d in E[k]), dims=(-3, -2, -1))
-        if E[k].any() else f[k]
-        for k in range(NUM_SPEEDS)
-    ]
+def stream_pull(f: torch.Tensor, roll=torch.roll) -> list[torch.Tensor]:
+    """Periodic pull: speed k at x comes from x - e_k, rolled along the axes
+    it moves on. `roll` has `torch.roll`'s signature
+    (`parallel.halo.dtensor_roll` for a DTensor, which gathers each rolled
+    axis)."""
+    out = []
+    for k in range(NUM_SPEEDS):
+        axes = [a for a in range(3) if E[k, a]]
+        out.append(roll(f[k], tuple(int(E[k, a]) for a in axes), dims=tuple(a - 3 for a in axes))
+                   if axes else f[k])
+    return out
 
 
 def collide_fields(
@@ -138,10 +146,13 @@ def step(
     omega: float,
     density: float,
     accel: float,
+    roll=torch.roll,
 ):
-    """One fused timestep on the full periodic grid. Returns (f', tot_u)."""
+    """One fused timestep on the full periodic grid. Returns (f', tot_u).
+    On DTensors (with roll=`parallel.halo.dtensor_roll`) tot_u comes out as
+    partial sums, one a rank."""
     f_new, u = collide_fields(
-        stream_pull(f), obstacle_mask, accel_mask,
+        stream_pull(f, roll=roll), obstacle_mask, accel_mask,
         omega=omega, density=density, accel=accel,
     )
     return f_new, u.sum()
@@ -284,9 +295,48 @@ def simulate(
     engine: str = "torch",
     k_steps: int | None = None,
     device=None,
+    num_devices: int | None = None,
+    overlap: bool = False,
+    mesh_shape: tuple | None = None,
 ):
     """Lid-driven-style 3-D run on `device` (default: CUDA): `advance` from
-    `initial_state`. Returns (f_final, av_vels) as tensors on the device."""
+    `initial_state`. Returns (f_final, av_vels) as tensors on the device.
+
+    The multi-device engines (SHARDED_ENGINES) run on `num_devices` ranks of
+    torch.distributed (default: every GPU on CUDA, 1 on the CPU), through
+    `parallel.launch` (in the process group the caller is in, else on ranks
+    it starts: NCCL on CUDA, gloo on the CPU): 'sharded-cuda' the ghost-plane
+    path over a z-mesh (`parallel.kstep_sharded_3d.simulate`; overlap=True
+    rides the exchange under an interior kernel), 'sharded-cuda-zy' over a
+    (z, y) mesh of `mesh_shape` (n_z, n_y) and 'sharded' `step` on a
+    DTensor state (`models.lbm3d.setup_engine`). k_steps=None takes the
+    kernels' preferred K among those the z-split admits
+    (`kstep_sharded_3d.choose_k`); the reference takes 2, and the state
+    does not depend on K."""
+    if overlap and engine != "sharded-cuda":
+        raise ValueError(
+            f"overlap=True is only implemented for engine='sharded-cuda' (ghost-plane "
+            f"exchange/compute overlap), not engine={engine!r}")
+    if mesh_shape is not None and engine != "sharded-cuda-zy":
+        raise ValueError(f"mesh_shape applies to engine='sharded-cuda-zy' only, not {engine!r}")
+    if engine in SHARDED_ENGINES:
+        from ..models.lbm import default_num_devices, resolve_device
+        from ..models.lbm3d import simulate_engine
+        from ..parallel import launch
+
+        device = resolve_device(device)
+        n = num_devices or default_num_devices(device)
+        launch.check_world(n, device.type)
+        f, av = launch.run(
+            simulate_engine, n, engine, nz, ny, nx, num_steps=num_steps,
+            omega=omega, density=density, accel=accel, dtype=dtype, k_steps=k_steps,
+            overlap=overlap, mesh_shape=mesh_shape,
+            obstacle_mask=None if obstacle_mask is None else np.asarray(obstacle_mask, bool),
+            device_type=device.type)
+        return f.to(device), av.to(device)
+    if num_devices is not None:
+        raise ValueError(f"num_devices applies to the multi-device engines "
+                         f"{SHARDED_ENGINES}, not {engine!r}")
     f, mask = initial_state(nz, ny, nx, density=density, obstacle_mask=obstacle_mask,
                             dtype=dtype, device=device)
     return advance(f, mask, num_steps=num_steps, omega=omega, density=density, accel=accel,

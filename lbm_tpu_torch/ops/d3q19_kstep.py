@@ -141,13 +141,17 @@ def pass_ms(dtype, kernel: str) -> tuple:
 PREFERRED_K = 4
 
 
-def choose_k(*step_counts: int) -> int:
+def choose_k(*step_counts: int, admit=None) -> int:
     """Steps per pass for a run: PREFERRED_K where it divides every one of
     `step_counts` (the total, and the chunk of a checkpointed run); else, of
     the K that do, the one at which a pass of B4 costs the least a step in
     float32 (`pass_ms`). So 6 steps run at K = 2, not at K = 3, where B4
-    pays its swap."""
-    ks = [k for k in range(1, MAX_K + 1) if all(n % k == 0 for n in step_counts)]
+    pays its swap. `admit(k)`, where given, must also hold of the K (the
+    sharded runs' plan of planes); 1 when no K is admitted."""
+    ks = [k for k in range(1, MAX_K + 1)
+          if all(n % k == 0 for n in step_counts) and (admit is None or admit(k))]
+    if not ks:
+        return 1
     if PREFERRED_K in ks:
         return PREFERRED_K
     ms = pass_ms(torch.float32, "b4")

@@ -366,15 +366,24 @@ def run_implicit(f, obstacle_mask, accel_mask, *, num_steps, omega, accel_w1, ac
     `d2q9.stream_pull`) on the DTensors, PyTorch's DTensor choosing the
     collectives: an all-gather of each rolled dim (`dtensor_roll`), the rest
     elementwise on the blocks. Returns (f_final DTensor, tot_u (num_steps,)
-    as a plain tensor, the same on every rank). Sum|u| comes out as partial
-    sums, one a rank (Partial placements); they are added by
+    as a plain tensor, the same on every rank), as `run_global_step`."""
+    def step(f):
+        return d2q9.collide(d2q9.stream_pull(f, roll=dtensor_roll), obstacle_mask, accel_mask,
+                            omega=omega, accel_w1=accel_w1, accel_w2=accel_w2)
+
+    return run_global_step(step, f, num_steps)
+
+
+def run_global_step(step, f: DTensor, num_steps: int):
+    """num_steps of step(f) -> (f', Sum|u|) on a DTensor state. Sum|u| comes
+    out as partial sums, one a rank (Partial placements); they are added by
     `mesh.sum_by_rank`, in rank order, not by the all-reduce PyTorch would
     choose, whose order follows the vector's length (so a run in chunks
-    would round otherwise than a whole one)."""
+    would round otherwise than a whole one). Returns (f_final DTensor, tot_u
+    (num_steps,) as a plain tensor, the same on every rank)."""
     tots = []
     for _ in range(num_steps):
-        f, tot = d2q9.collide(d2q9.stream_pull(f, roll=dtensor_roll), obstacle_mask, accel_mask,
-                              omega=omega, accel_w1=accel_w1, accel_w2=accel_w2)
+        f, tot = step(f)
         if not all(isinstance(p, Partial) and p.reduce_op == "sum" for p in tot.placements):
             raise RuntimeError(f"the implicit step's Sum|u| came out as {tot.placements}, "
                                "not partial sums")

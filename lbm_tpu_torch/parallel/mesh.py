@@ -140,6 +140,20 @@ def _mesh2d(rows: int, cols: int, group) -> DeviceMesh:
                       mesh_dim_names=(ROW_AXIS, COL_AXIS))
 
 
+def make_mesh1d(n: int) -> DeviceMesh:
+    """A one-axis ('ry',) mesh over the n ranks of the initialised process
+    group, rank r at index r (the reference's `Mesh(devices, ('ry',))`)."""
+    world = dist.get_world_size()
+    if n != world:
+        raise ValueError(f"a mesh of {n} ranks needs {n} ranks; the process group has {world}")
+    return _mesh1d(n, dist.distributed_c10d._get_default_group())
+
+
+@functools.lru_cache(maxsize=8)
+def _mesh1d(n: int, group) -> DeviceMesh:
+    return DeviceMesh(device_type(), torch.arange(n), mesh_dim_names=(ROW_AXIS,))
+
+
 def make_mesh(n_devices: int | None = None, ny: int = 1024, nx: int = 1024, *,
               require_even: bool = False) -> DeviceMesh:
     """Mesh over the best (rows, cols) factorisation for a ny x nx grid, over
@@ -187,20 +201,25 @@ def block_coords(mesh: DeviceMesh) -> tuple[int, int]:
 # `mesh[axis]` builds a sub-mesh (~0.2 ms) and `mesh.mesh` a tensor (~0.05
 # ms), more than a chunk's exchange costs at world size 1.
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
-    return mesh.size((ROW_AXIS, COL_AXIS).index(axis))
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def coordinate(mesh: DeviceMesh, axis: str) -> int:
+    """This rank's index along `axis`."""
+    return int(mesh.get_coordinate()[mesh.mesh_dim_names.index(axis)])
 
 
 def neighbour(mesh: DeviceMesh, axis: str, direction: int) -> int:
     """Global rank of the rank `direction` blocks away along `axis`
     (periodic), on a mesh of `make_mesh2d` (rank r at (r // cols, r %
-    cols))."""
-    r, c = block_coords(mesh)
-    rows, cols = mesh.shape
-    if axis == ROW_AXIS:
-        r = (r + direction) % rows
-    else:
-        c = (c + direction) % cols
-    return r * cols + c
+    cols)) or `make_mesh1d` (rank r at r)."""
+    coords = [int(c) for c in mesh.get_coordinate()]
+    dim = mesh.mesh_dim_names.index(axis)
+    coords[dim] = (coords[dim] + direction) % mesh.shape[dim]
+    rank = 0
+    for c, n in zip(coords, mesh.shape):
+        rank = rank * n + c
+    return rank
 
 
 def shard(x, mesh: DeviceMesh, placements, device=None) -> DTensor:

@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_no_lbm_tpu():
                  "cli.lbm", "cli.lbm3d", "utils.image", "ops.stencil", "models.blur",
                  "cli.blur", "ops.d2q9_kstep_manual", "ops.copy_floor", "ops.overlap_probe",
                  "parallel.mesh", "parallel.partition", "parallel.launch", "parallel.halo",
-                 "parallel.kstep_sharded"):
+                 "parallel.kstep_sharded", "parallel.kstep_sharded_3d", "dryrun"):
         assert f"lbm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

@@ -103,6 +103,21 @@ Phases, each of which must pass or the script exits non-zero:
      beside B4's pass on the lattice; a checkpointed sharded-cuda run
      resumed, bit-equal to an uninterrupted one; the plain `sharded` engine
      at 16x64x128 bit-equal to the torch engine. Each run's MLUPS and path;
+  7e. the host-side and tooling modules: the flagship, 200 steps, through
+     `cli.lbm --engine auto --trace-dir` (a torch.profiler trace with CUDA
+     activity: B2's kernel named with 50 launches in the timed run, their
+     summed device time beside the run's CUDA-event time, the device's idle
+     share in the run's window; no device event fails the phase, naming
+     CUPTI); `--debug-nans` on `auto` (B2) and `cuda-inplace` (B1), the
+     state bit-equal to the run without it and its cost a launch, and a
+     seeded NaN raising FloatingPointError on B2's first pass;
+     `--compile-only --export` on the card and `cli.lbm_runner` on the
+     exported step (outputs bit-equal to `--engine torch`, av_vels within
+     4e-4 of auto's, MLUPS); `--engine native` in float64 at 256x256 x 1,000
+     steps against `--engine cuda` (1e-12, MLUPS on the host); the native
+     writer's final_state.dat byte-identical to the Python writer's; then,
+     in the NCCL group of one, `cli.halo_bench` at 1024^2 x 200 steps, every
+     strategy;
   7b. the blocked 3-D pair at 32x256x256 (the reference's
      `d3q19_blocked_only` shape), all of it in the phases named *_blocked:
      kernels B7 (d3q19_kstep_blocked) and B5 (d3q19_kstep_inplace_blocked) vs
@@ -192,7 +207,8 @@ Phases, each of which must pass or the script exits non-zero:
      launches on its path, parity, time per launch, its bound, the plain
      version's time and the library's (the convolution for the blur
      kernels, `copy_` for B12 and B11); B1's, B2's, B4's and B6's entries
-     carry their launches, path and MLUPS in the sharded phases;
+     carry their launches, path and MLUPS in the sharded phases, B1's and
+     B2's their launches in phase 7e, and B2's the measurements of 7e;
  13. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero, printing no result, when CUDA is absent or the package is not
@@ -2587,6 +2603,213 @@ def phase_sharded_3d(torch, mods3, modsb):
     return out
 
 
+# the host-side and tooling phase: a traced flagship run of 200 steps (B2 at
+# K = 4: 50 launches in the timed run), the export pair at 1024^2, the native
+# engine against the cuda engine at 256^2, and the halo strategies' bench
+TOOLING_STEPS = 200
+TOOLING_K = 4
+B2_KERNEL = "kstep_box_kernel"  # kstep_box_kernel<T, false, mode>: B2's box path
+RUNNER_AV_BAR = 4e-4  # the exported step's av_vels against auto's (the bench gate)
+NATIVE_SHAPE = (256, 256)
+NATIVE_STEPS = 1000
+NATIVE_AV_BAR = 1e-12  # f64: the serial engine against B2, Sum|u| in another order
+
+
+def phase_tooling(torch, mods, mask):
+    """Phase 7e: the host-side and tooling modules on the card. Returns the
+    launches of B2 and B1 on their runs here and the measurements."""
+    from lbm_tpu_torch.cli import lbm as cli
+    from lbm_tpu_torch.cli import lbm_runner
+    from lbm_tpu_torch.core import io as lbm_io
+    from lbm_tpu_torch.core import state
+    from lbm_tpu_torch.core.params import Obstacles, Params
+    from lbm_tpu_torch.models import lbm as lbm_model
+    from lbm_tpu_torch.ops import d2q9
+    from lbm_tpu_torch.utils import native_io, profiling
+    d2q9_kstep, d2q9_kstep_inplace, _ = mods
+
+    out = {"launches": {m.__name__.rsplit(".", 1)[1]: 0 for m in mods}}
+    params = Params(**{**FLAGSHIP, "max_iters": TOOLING_STEPS})
+    passes = TOOLING_STEPS // TOOLING_K
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        params.to_file(tmp / "p.params")
+        Obstacles(mask).to_file(tmp / "o.dat")
+        files = ["--params", str(tmp / "p.params"), "--obstacles", str(tmp / "o.dat"),
+                 "--dtype", "float32"]
+
+        def cli_run(label, argv, kernel=None):
+            """cli.lbm with the launch counts set to 0 just before; returns the
+            run's LbmResult, its text and the launches of each 2-D kernel."""
+            for m in mods:
+                m.launches = 0
+            with CountCalls(d2q9, "collide_fields") as plain, \
+                    Capture(lbm_model, "run_simulation") as captured:
+                rc, text = run_cli(cli.main, files + argv)
+            launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+            for name, n in launches.items():
+                out["launches"][name] += n
+            check(rc == 0, f"{label}: cli returned {rc}")
+            if kernel is not None:
+                check(plain.calls == 0, f"{label}: the plain engine ran {plain.calls} collisions")
+                check(launches[kernel] > 0 and sum(launches.values()) == launches[kernel],
+                      f"{label}: launches {launches}, not {kernel} alone")
+            return captured.results[0], text, launches
+
+        # 1. the flagship through auto, traced
+        label = f"tooling: --engine auto --trace-dir, {TOOLING_STEPS} steps"
+        traced, text, launches = cli_run(label, ["--engine", "auto", "--out-dir",
+                                                 str(tmp / "auto"), "--trace-dir",
+                                                 str(tmp / "trace")], "d2q9_kstep")
+        print(f"{label}:\n{text.rstrip()}")
+        check(traced.engine == "cuda", f"{label}: auto chose {traced.engine}, not cuda (B2)")
+        check(launches["d2q9_kstep"] == 2 * passes,
+              f"{label}: B2 launched {launches['d2q9_kstep']} times, not {2 * passes} "
+              "(warm-up and timed run)")
+        summary = profiling.kernel_summary(tmp / "trace" / profiling.TRACE_FILE)
+        check(summary["device_events"] > 0,
+              f"{label}: the trace holds no device event in the timed run: torch.profiler "
+              "recorded no CUDA activity (CUPTI)")
+        names = [name for name in summary["kernels"] if B2_KERNEL in name]
+        check(len(names) == 1, f"{label}: B2's kernel is not named once in the trace: "
+                               f"{sorted(summary['kernels'])}")
+        b2 = summary["kernels"][names[0]]
+        check(b2["launches"] == passes,
+              f"{label}: the trace has {b2['launches']} launches of B2, not {passes}")
+        events_ms = traced.compute_seconds * 1e3
+        for name, k in sorted(summary["kernels"].items(), key=lambda kv: -kv[1]["device_us"]):
+            print(f"trace: {k['launches']} x {name}: {k['device_us'] / 1e3:.4f} ms on the device")
+        print(f"trace: B2 ({names[0]}) {b2['launches']} launches, {b2['device_us'] / 1e3:.4f} ms "
+              f"summed device time, {b2['device_us'] / b2['launches']:.3f} us a launch; the run's "
+              f"CUDA-event time {events_ms:.4f} ms (traced); window {summary['window_us'] / 1e3:.4f}"
+              f" ms, device busy {summary['busy_us'] / 1e3:.4f} ms, idle share "
+              f"{summary['idle_share']:.4f}")
+        out["trace"] = dict(kernel=names[0], launches=b2["launches"],
+                            device_ms=b2["device_us"] / 1e3, events_ms=events_ms,
+                            window_ms=summary["window_us"] / 1e3,
+                            busy_ms=summary["busy_us"] / 1e3, idle_share=summary["idle_share"],
+                            device_events=summary["device_events"])
+
+        # 2. --debug-nans: the same state with the flag as without; a seeded NaN
+        # raises on B2's first pass
+        debug = {}
+        for engine, kernel in (("auto", "d2q9_kstep"), ("cuda-inplace", "d2q9_kstep_inplace")):
+            runs = {}
+            for flag in ([], ["--debug-nans"]):
+                label = f"tooling: --engine {engine} {' '.join(flag)}".rstrip()
+                runs[bool(flag)], _, _ = cli_run(
+                    label, ["--engine", engine, "--out-dir", str(tmp / f"{engine}{len(flag)}"),
+                            *flag], kernel)
+            check(np.array_equal(runs[True].f_final, runs[False].f_final)
+                  and np.array_equal(runs[True].av_vels, runs[False].av_vels),
+                  f"--engine {engine} --debug-nans changed the run")
+            cost_us = (runs[True].compute_seconds - runs[False].compute_seconds) / passes * 1e6
+            print(f"tooling: --engine {engine} --debug-nans: state and av_vels bit-equal to the "
+                  f"run without it; {runs[False].compute_seconds * 1e3:.4f} ms -> "
+                  f"{runs[True].compute_seconds * 1e3:.4f} ms for {passes} launches, "
+                  f"{cost_us:.2f} us a launch")
+            debug[engine] = dict(ms=runs[False].compute_seconds * 1e3,
+                                 debug_ms=runs[True].compute_seconds * 1e3, us_a_launch=cost_us)
+        f_nan = state.initial_distributions(params, np.float32)
+        f_nan[2, N // 3, N // 2] = np.nan
+        f_nan, m_nan = state.to_torch(f_nan, mask, device="cuda")
+        aw = d2q9.AccelWeights.from_params(params)
+        d2q9_kstep.launches = 0
+        previous = profiling.enable_nan_debugging(True)
+        try:
+            d2q9_kstep.run(f_nan, m_nan, num_steps=TOOLING_STEPS, k_steps=TOOLING_K,
+                           omega=params.omega, accel_w1=aw.w1, accel_w2=aw.w2,
+                           accel_row=N - 2)
+            raised = None
+        except FloatingPointError as err:
+            raised = str(err)
+        finally:
+            profiling.enable_nan_debugging(previous)
+        check(raised is not None and "steps 1-4 of kernel B2" in raised
+              and d2q9_kstep.launches == 1,
+              f"a seeded NaN under --debug-nans: {raised!r} after {d2q9_kstep.launches} launches"
+              " (want FloatingPointError on B2's first pass)")
+        print(f"tooling: a seeded NaN raised on B2's first pass: {raised}")
+        out["debug_nans"] = debug
+
+        # 3. the export pair on the card: the plain step, then the runner
+        rc, text = run_cli(cli.main, ["--params", str(tmp / "p.params"), "--compile-only",
+                                      "--export", str(tmp / "step.pt2")])
+        print(f"tooling: --compile-only --export:\n{text.rstrip()}")
+        check(rc == 0 and (tmp / "step.pt2").exists(), "--compile-only --export failed")
+        rc, text = run_cli(lbm_runner.main, ["--exe", str(tmp / "step.pt2"), *files[:4],
+                                             "--out-dir", str(tmp / "runner")])
+        print(f"tooling: lbm_runner:\n{text.rstrip()}")
+        check(rc == 0, f"lbm_runner returned {rc}")
+        torch_run, _, _ = cli_run("tooling: --engine torch", ["--engine", "torch", "--out-dir",
+                                                             str(tmp / "torch")])
+        for name in ("av_vels.dat", "final_state.dat"):
+            check((tmp / "runner" / name).read_bytes() == (tmp / "torch" / name).read_bytes(),
+                  f"lbm_runner's {name} differs from --engine torch's")
+        runner_av = lbm_io.read_av_vels(tmp / "runner" / "av_vels.dat")
+        err = float(np.max(np.abs(runner_av - traced.av_vels) / np.abs(traced.av_vels)))
+        check(err <= RUNNER_AV_BAR, f"lbm_runner's av_vels {err} from auto's > {RUNNER_AV_BAR}")
+        runner_mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
+        torch_mlups = N * N * TOOLING_STEPS / torch_run.compute_seconds / 1e6
+        print(f"tooling: lbm_runner {runner_mlups} MLUPS (the torch engine {torch_mlups:.1f}); "
+              f"outputs bit-equal to --engine torch's, av_vels max rel err {err:.3e} from auto's "
+              f"(bar {RUNNER_AV_BAR})")
+        out["runner"] = dict(mlups=runner_mlups, torch_mlups=torch_mlups, av_err=err)
+
+        # 4. the native engine in float64 against B2, and 5. the native writers
+        check(native_io.load() is not None,
+              f"the native library did not build: {native_io.last_build_error}")
+        ny, nx = NATIVE_SHAPE
+        small = Params(**{**FLAGSHIP, "nx": nx, "ny": ny, "max_iters": NATIVE_STEPS})
+        small.to_file(tmp / "s.params")
+        Obstacles(random_mask(np.random.default_rng(20261018), ny, nx)).to_file(tmp / "s.dat")
+        files = ["--params", str(tmp / "s.params"), "--obstacles", str(tmp / "s.dat"),
+                 "--dtype", "float64"]
+        native, text, _ = cli_run("tooling: --engine native", ["--engine", "native", "--out-dir",
+                                                              str(tmp / "native")])
+        print(f"tooling: --engine native at {ny}x{nx}, {NATIVE_STEPS} steps, float64:\n"
+              f"{text.rstrip()}")
+        cuda, _, _ = cli_run("tooling: --engine cuda", ["--engine", "cuda", "--out-dir",
+                                                       str(tmp / "cuda")], "d2q9_kstep")
+        err = float(np.max(np.abs(native.av_vels - cuda.av_vels) / np.abs(cuda.av_vels)))
+        check(err <= NATIVE_AV_BAR, f"--engine native's av_vels {err} from cuda's > "
+                                    f"{NATIVE_AV_BAR}")
+        native_mlups = ny * nx * NATIVE_STEPS / native.compute_seconds / 1e6
+        print(f"tooling: --engine native {native_mlups:.1f} MLUPS on the host, --engine cuda "
+              f"{ny * nx * NATIVE_STEPS / cuda.compute_seconds / 1e6:.1f}; av_vels max rel err "
+              f"{err:.3e} (bar {NATIVE_AV_BAR})")
+        saved = lbm_io._try_native
+        lbm_io._try_native = lambda: None  # the Python writer
+        try:
+            lbm_io.write_final_state(tmp / "python.dat", small,
+                                     Obstacles.from_file(tmp / "s.dat", small).mask,
+                                     native.f_final)
+        finally:
+            lbm_io._try_native = saved
+        check((tmp / "python.dat").read_bytes()
+              == (tmp / "native" / "final_state.dat").read_bytes(),
+              "the native writer's final_state.dat differs from the Python writer's")
+        print("tooling: the native writer's final_state.dat is byte-identical to the Python "
+              "writer's")
+        out["native"] = dict(mlups=native_mlups, av_err=err)
+    return out
+
+
+def phase_halo_bench():
+    """Phase 7e's halo bench, in the NCCL group of one: every strategy at
+    1024^2, 200 steps. Returns {strategy: MLUPS}."""
+    from lbm_tpu_torch.cli import halo_bench
+
+    rc, text = run_cli(halo_bench.main, ["--ny", str(N), "--nx", str(N), "-n",
+                                         str(TOOLING_STEPS), "--num-devices", "1"])
+    print(f"tooling: halo_bench --ny {N} --nx {N} -n {TOOLING_STEPS}:\n{text.rstrip()}")
+    check(rc == 0, f"halo_bench returned {rc}")
+    rows = [line.split(",") for line in text.strip().splitlines()[1:]]
+    check([r[0] for r in rows] == ["implicit", "ppermute", "manytensors", "allgather", "naive"]
+          and all(r[1] == "cuda" for r in rows), f"halo_bench rows: {rows}")
+    return {r[0]: float(r[7]) for r in rows}
+
+
 def main() -> int:
     import torch
 
@@ -2640,9 +2863,11 @@ def main() -> int:
         paths3 = phase_main_path_3d(torch, mods3)
         phase_golden_3d(torch)
         ck_launches = phase_checkpoint(torch, mods, mods3, mask)
+        tooling = phase_tooling(torch, mods, mask)
         with nccl_world_of_one(torch):
             sharded = phase_sharded(torch, mods, golden, mask, stencil)
             sharded3 = phase_sharded_3d(torch, mods3, modsb)
+            tooling["halo_bench_mlups"] = phase_halo_bench()
 
         abs_err_b = phase_parity_blocked(torch, mods3, modsb)
         phase_paths_blocked(torch)
@@ -2693,6 +2918,9 @@ def main() -> int:
            if name == "d2q9_kstep_inplace" else {}),
         **({"sharded_launches": sharded["two_stream"]["launches"],
             "sharded_path": sharded["two_stream"]["path"]} if name == "d2q9_kstep" else {}),
+        "tooling_launches": tooling["launches"][name],
+        **({"tooling": {k: v for k, v in tooling.items() if k != "launches"}}
+           if name == "d2q9_kstep" else {}),
     } for name, replaces in KERNELS.items()]
     kernels.append({
         "name": "copy_floor", "route": "cuda", "source": "lbm_tpu_torch/csrc/copy_floor.cu",

@@ -4,15 +4,18 @@ Usage:
     python -m lbm_tpu_torch.cli.blur -i in.png -o out.png [-n 100]
         [--engine conv|cuda|resident|conv-sharded|auto] [--num-devices N]
         [--data-type float|half] [--band ROWS] [--k-passes K] [--device cuda|cpu]
-        [--blur-alpha]
+        [--blur-alpha] [--compile-only [--export FILE]]
 
 The counterpart of `python -m lbm_tpu.cli.blur`, with the same flags; the
 engine 'cuda' takes the place of 'pallas'. Runs on the CUDA device unless
 `--device cpu` is given, where the kernel engines run their kernels' plain
 PyTorch version. `--data-type half` is bfloat16 storage with float32
 arithmetic. `--engine conv-sharded` runs the conv engine on --num-devices
-ranks of torch.distributed (default: every GPU on CUDA, 1 on the CPU). Not
-ported yet, and rejected: `--compile-only` / `--export` (ROADMAP.md A8).
+ranks of torch.distributed (default: every GPU on CUDA, 1 on the CPU).
+`--compile-only` exports one pass of the conv engine
+(`ops.stencil.blur_step_conv`) with torch.export at the padded shape the run
+would blur, on the device, prints its operation count and exits; `--export
+FILE` saves it (the reference's stencil executable).
 """
 
 from __future__ import annotations
@@ -50,24 +53,26 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--blur-alpha", action="store_true")
     parser.add_argument("--compile-only", action="store_true",
-                        help="not ported yet (ROADMAP.md A8)")
+                        help="export one blur pass of the conv engine with torch.export at "
+                             "this image's padded shape and exit (no blur)")
     parser.add_argument("--export", default=None, metavar="FILE",
-                        help="not ported yet (ROADMAP.md A8)")
+                        help="with --compile-only: save the exported pass")
     args = parser.parse_args(argv)
 
     if args.num_devices is not None and args.engine != "conv-sharded":
         parser.error("--num-devices applies to --engine conv-sharded only")
-    if args.compile_only or args.export:
-        parser.error("--compile-only and --export (ahead-of-time compilation) are not "
-                     "ported yet: ROADMAP.md A8")
-    if not args.output:
-        parser.error("-o/--output is required")
+    if args.export and not args.compile_only:
+        parser.error("--export applies to --compile-only")
+    if not args.output and not args.compile_only:
+        parser.error("-o/--output is required unless --compile-only")
 
     import torch
 
     from ..models import blur
 
     dtype = torch.bfloat16 if args.data_type in ("half", "bfloat16") else torch.float32
+    if args.compile_only:
+        return _compile_only(args.image, dtype, blur.resolve_device(args.device), args.export)
     run = blur.blur_file(
         args.image, args.output, num_iters=args.num_iters, engine=args.engine,
         dtype=dtype, blur_alpha=args.blur_alpha, band=args.band,
@@ -77,6 +82,32 @@ def main(argv=None) -> int:
     seconds = run.compute_seconds
     print(f"{args.num_iters}(x2) iterations took {seconds:.6f}s "
           f"({seconds * 1e6:.0f} us)")
+    return 0
+
+
+def _compile_only(image, dtype, device, export_path) -> int:
+    """--compile-only: export `blur_step_conv` on `device` at the padded
+    shape of the runtime path (`models.blur.run_blur`); print its operation
+    count, and save it to export_path when given."""
+    import torch
+
+    from ..ops import stencil
+    from ..utils import image as img_lib, profiling
+
+    fimg = img_lib.to_float_image(img_lib.load_png(image))
+    padded, interior, _ = img_lib.pad_to_tile(fimg.intensities, row_mult=32)
+    x = torch.from_numpy(padded).to(device=device, dtype=dtype)
+    inter = torch.from_numpy(interior).to(device=device, dtype=dtype)
+    with profiling.timed("export"):
+        if export_path:
+            program, nbytes = profiling.export_step(stencil.blur_step_conv, x, inter,
+                                                    path=export_path)
+        else:
+            program = profiling.export(stencil.blur_step_conv, x, inter)
+    print(f"exported pass: ops.stencil.blur_step_conv on {device.type}, {tuple(x.shape)} "
+          f"{str(dtype).replace('torch.', '')}, {profiling.operation_count(program)} operations")
+    if export_path:
+        print(f"exported {nbytes} bytes to {export_path}")
     return 0
 
 

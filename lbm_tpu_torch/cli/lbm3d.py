@@ -8,7 +8,7 @@ Usage:
     python -m lbm_tpu_torch.cli.lbm3d --nz 64 --ny 128 --nx 256 -n 1200
         [--omega 1.85] [--density 0.1] [--accel 0.005]
         [--engine cuda-inplace|cuda|cuda-inplace-blocked|cuda-blocked|torch
-                  |sharded-cuda|sharded-cuda-zy|sharded]
+                  |native|sharded-cuda|sharded-cuda-zy|sharded]
         [--num-devices N] [--overlap] [--mesh-shape NZ NY]
         [--dtype float32|float64]
         [--device cuda|cpu] [--out-dir .]
@@ -23,7 +23,9 @@ step, the 'slab' kind) or B5 (K steps of every tile per trip, the 'blocked'
 kind), whichever `pick_engine` names for the shape. 'cuda' is the two-stream
 pair B6 / B7 chosen the same way; 'cuda-inplace-blocked' and 'cuda-blocked'
 run B5 and B7 whatever the rule says, as passing `by=` does in the
-reference; 'torch' is the plain PyTorch engine. Writes av_vels_3d.dat and
+reference; 'torch' is the plain PyTorch engine; 'native' the serial C++
+engine on the host (built with g++ at first use; it never asks CUDA, so it
+runs without --device cpu). Writes av_vels_3d.dat and
 prints the engine, the kind of kernel and its K, then the `==done==` block.
 
 The multi-device engines run on --num-devices ranks of torch.distributed
@@ -54,12 +56,13 @@ def main(argv=None) -> int:
     parser.add_argument("--accel", type=float, default=0.005)
     parser.add_argument("--engine", default="cuda-inplace",
                         choices=["torch", "cuda", "cuda-inplace", "cuda-blocked",
-                                 "cuda-inplace-blocked", "sharded", "sharded-cuda",
+                                 "cuda-inplace-blocked", "native", "sharded", "sharded-cuda",
                                  "sharded-cuda-zy"],
                         help="compute path: 'cuda-inplace' (one lattice in memory: kernel "
                              "B4 or B5 as pick_engine names), 'cuda' (two-stream: B6 or "
                              "B7), 'cuda-inplace-blocked' (B5), 'cuda-blocked' (B7), "
-                             "'torch' (plain PyTorch); on a mesh of ranks 'sharded-cuda' "
+                             "'torch' (plain PyTorch), 'native' (the serial C++ engine on "
+                             "the host); on a mesh of ranks 'sharded-cuda' "
                              "(ghost planes around B4 over z), 'sharded-cuda-zy' (a (z, y) "
                              "mesh, see --mesh-shape) or 'sharded' (the plain step on a "
                              "DTensor)")
@@ -113,11 +116,13 @@ def main(argv=None) -> int:
 
     from ..core import io
     from ..models import lbm3d as lbm3d_model
-    from ..models.lbm import default_num_devices, resolve_device
+    from ..models.lbm import default_num_devices, numpy_dtype, resolve_device
     from ..ops import d3q19
     from ..parallel import launch
 
-    device = resolve_device(args.device)
+    native = args.engine == "native"
+    # the native engine runs on the host: it never asks CUDA
+    device = None if native else resolve_device(args.device)
     dtype = {"float32": torch.float32, "float64": torch.float64}[args.dtype]
     cells = args.nz * args.ny * args.nx
     out = Path(args.out_dir)
@@ -146,7 +151,7 @@ def main(argv=None) -> int:
                                              (args.nz, args.ny, args.nx), n)
         kernel_line = f"ghost planes, {k_steps} step{'s' if k_steps > 1 else ''} per pass"
         mesh_line = str(n)
-    elif args.engine != "torch":
+    elif args.engine not in ("torch", "native"):
         _, kind, k_steps, _ = d3q19.resolve_engine(
             args.engine, args.nz, args.ny, args.nx, (args.num_steps, chunk), dtype=dtype,
             device=device)
@@ -168,6 +173,17 @@ def main(argv=None) -> int:
         mlups = steps_run * cells / dt / 1e6 if steps_run else 0.0
         if not steps_run:
             print(f"checkpoint already at step {args.num_steps}: nothing to run")
+    elif native:
+        from ..ops import d3q19_native
+
+        d3q19_native.require()  # built and loaded outside the timed run
+        t0 = time.perf_counter()
+        f_final, av_np = d3q19_native.simulate(
+            args.nz, args.ny, args.nx, num_steps=args.num_steps, omega=args.omega,
+            density=args.density, accel=args.accel, dtype=numpy_dtype(dtype))
+        dt = time.perf_counter() - t0
+        time_label = "Total compute time"
+        mlups = args.num_steps * cells / dt / 1e6
     elif not sharded:
         f0, mask = d3q19.initial_state(args.nz, args.ny, args.nx, density=args.density,
                                        dtype=dtype, device=device)

@@ -9,7 +9,10 @@ are byte-identical to it for the same arrays. Formats:
 
 The obstacle column holds the correct flag (the original writer transposes
 its index, main/LastChance.cpp:614); the checker compares only columns 0, 1
-and 5. The native C++ writer of the JAX package is not ported.
+and 5. The writers go through the native C++ library (`native/lbmio.cpp`,
+`utils.native_io`) when it loads, else through the pure-Python code below;
+the bytes are the same either way. A native writer that fails raises
+OSError.
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ from .state import macroscopics
 
 
 def write_av_vels(path: str | Path, av_vels: np.ndarray) -> None:
+    native = _try_native()
+    if native is not None:
+        native.write_av_vels(str(path), np.asarray(av_vels))
+        return
     with open(path, "w") as fh:
         fh.writelines(f"{i}:\t{float(v):.12E}\n" for i, v in enumerate(np.asarray(av_vels)))
 
@@ -54,8 +61,13 @@ def final_state_fields(params: Params, obstacle_mask: np.ndarray, f: np.ndarray)
 def write_final_state_arrays(path: str | Path, u_x, u_y, u, pressure,
                              obstacle_mask) -> None:
     """Write per-cell fields in the final_state.dat row format
-    (`x y u_x u_y u pressure obstacle`, %.12E)."""
+    (`x y u_x u_y u pressure obstacle`, %.12E). Native fast path when the
+    library loads."""
     ny, nx = obstacle_mask.shape
+    native = _try_native()
+    if native is not None:
+        native.write_final_state(str(path), u_x, u_y, u, pressure, obstacle_mask)
+        return
     with open(path, "w") as fh:
         for jj in range(ny):
             ux_r, uy_r, u_r, p_r, o_r = u_x[jj], u_y[jj], u[jj], pressure[jj], obstacle_mask[jj]
@@ -76,3 +88,19 @@ def write_final_state(
 def read_final_state(path: str | Path) -> np.ndarray:
     """Returns an (N, 7) float64 array of the final_state columns."""
     return np.loadtxt(path, dtype=np.float64, ndmin=2)
+
+
+_NATIVE = None
+_NATIVE_CHECKED = False
+
+
+def _try_native():
+    """The native I/O library (utils.native_io), built on first use; None
+    when it cannot be built or loaded. Asked once a process."""
+    global _NATIVE, _NATIVE_CHECKED
+    if not _NATIVE_CHECKED:
+        from ..utils import native_io
+
+        _NATIVE_CHECKED = True
+        _NATIVE = native_io.load()
+    return _NATIVE

@@ -3,8 +3,10 @@
 A copy of `lbm_tpu.core.params` (the port imports nothing of `lbm_tpu`). File
 formats are those of the original `lbm::Params` / `lbm::Obstacles`
 (main/include/LbmParams.hpp:16-128), so its `params/*.params` and
-`params/obstacles_*.dat` load unchanged. The obstacle reader is the
-pure-Python one; the native fast path of the JAX package is not ported.
+`params/obstacles_*.dat` load unchanged. The obstacle reader takes the
+native library's fast path (`utils.native_io`) where it is already built,
+and the pure-Python reader otherwise, or where the native one refuses a
+file (for the Python reader's precise error).
 """
 
 from __future__ import annotations
@@ -87,6 +89,14 @@ class Obstacles:
 
     @classmethod
     def from_file(cls, path: str | Path, params: Params) -> "Obstacles":
+        from ..utils import native_io
+
+        native = native_io.load(auto_build=False)
+        if native is not None:
+            try:
+                return cls(native.read_obstacles(str(path), params.ny, params.nx))
+            except ValueError:
+                pass  # the Python reader names what is wrong
         mask = np.zeros((params.ny, params.nx), dtype=np.bool_)
         for line in Path(path).read_text().splitlines():
             parts = line.split()

@@ -7,11 +7,11 @@ applies: chunking is bit-identical to one uninterrupted run of the same
 engine at the same K; atomic .npz checkpoints; resume validates the grid and
 physics signature). Engines: 'torch' (plain) and the kernel engines of
 `ops.d3q19.resolve_engine`: 'cuda' (kernel B6 or B7), 'cuda-inplace' (B4 or
-B5), 'cuda-blocked' (B7) and 'cuda-inplace-blocked' (B5); and
-'sharded-cuda', the ghost-plane path over a z-mesh of ranks
-(`parallel.kstep_sharded_3d`), whose checkpoint holds the gathered global
-state (valid planes only), so that it resumes on another z-mesh.
-`run_simulation_sharded` times a run of any multi-device engine
+B5), 'cuda-blocked' (B7) and 'cuda-inplace-blocked' (B5); 'native', the
+serial C++ engine on the host (`ops.d3q19_native`); and 'sharded-cuda', the
+ghost-plane path over a z-mesh of ranks (`parallel.kstep_sharded_3d`), whose
+checkpoint holds the gathered global state (valid planes only), so that it
+resumes on another z-mesh. `run_simulation_sharded` times a run of any multi-device engine
 (`ops.d3q19.SHARDED_ENGINES`) for the CLI.
 
 The 3-D checkpoint records no K. The state a kernel engine leaves does not
@@ -89,12 +89,18 @@ def run_simulation_with_checkpoints(
     CUDA, 1 on the CPU; `parallel.launch`) and checkpoints the gathered
     global state (valid planes only), so a checkpoint written on one z-mesh
     resumes on any other; rank 0 writes it. The other multi-device engines
-    are refused: they have no chunked runner, as in the reference."""
-    device = resolve_device(device)
+    are refused: they have no chunked runner, as in the reference.
+    engine='native' runs on the host whatever `device` says."""
     if obstacle_mask is None:
         obstacle_mask = d3q19.default_obstacle_mask(nz, ny, nx)
     mask_np = np.asarray(obstacle_mask, bool)
     physics = dict(omega=omega, density=density, accel=accel)
+    if engine == "native":
+        if num_devices is not None or k_steps is not None:
+            raise ValueError("engine 'native' takes no num_devices or k_steps")
+        return _checkpointed_native(mask_np, Path(checkpoint_path), num_steps, checkpoint_every,
+                                    physics, dtype, resume)
+    device = resolve_device(device)
     if engine in d3q19.SHARDED_ENGINES:
         if engine != "sharded-cuda":
             raise ValueError(
@@ -129,6 +135,27 @@ def run_simulation_with_checkpoints(
 
     return _chunks(run_chunk, lambda f: f, f, start, num_steps, checkpoint_every, av_parts,
                    (~mask).sum().to(f.dtype), Path(checkpoint_path), physics, write=True)
+
+
+def _checkpointed_native(mask_np, ck_path: Path, num_steps, checkpoint_every, physics, dtype,
+                         resume):
+    """run_simulation_with_checkpoints' 'native' engine: each chunk a call
+    of `d3q19_native.run`, which advances the numpy state in place."""
+    from ..ops import d3q19_native
+
+    np_dtype = numpy_dtype(dtype)
+    nz = mask_np.shape[0]
+    f_host, start, av_parts = _start_or_resume(ck_path, resume, mask_np.shape, physics, np_dtype,
+                                               num_steps, None)
+    f = np.ascontiguousarray(f_host)
+
+    def run_chunk(f, n):
+        tot = d3q19_native.run(f, mask_np, num_steps=n, accel_plane=nz - 2, **physics)
+        # Sum|u| in the state's type, as d3q19_native.simulate divides it
+        return f, torch.from_numpy(tot.astype(np_dtype))
+
+    return _chunks(run_chunk, torch.from_numpy, f, start, num_steps, checkpoint_every, av_parts,
+                   torch.tensor(np_dtype((~mask_np).sum())), ck_path, physics, write=True)
 
 
 def _check_k(k_steps, num_steps, checkpoint_every):

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.params import Params
+from ..utils import profiling
 
 
 class AccelWeights(NamedTuple):
@@ -209,6 +210,26 @@ def step(
                    omega=omega, accel_w1=accel_w1, accel_w2=accel_w2)
 
 
+class Step(torch.nn.Module):
+    """`step` as a module of (f, mask) -> (f', tot_u), with the
+    accelerated-row mask (a buffer) and the scalars of `params` baked in:
+    the step that `torch.export` exports (`cli.lbm --compile-only`). The
+    obstacle mask stays an input, so one exported step serves any obstacle
+    file of its grid (the reference's compile-then-run split). f is not
+    changed."""
+
+    def __init__(self, params: Params, dtype=torch.float32, device=None):
+        super().__init__()
+        aw = AccelWeights.from_params(params)
+        self.omega, self.accel_w1, self.accel_w2 = params.omega, aw.w1, aw.w2
+        self.register_buffer("accel_mask", accel_row_mask(params.ny, params.nx, params.ny - 2,
+                                                          dtype=dtype, device=device))
+
+    def forward(self, f: torch.Tensor, obstacle_mask: torch.Tensor):
+        return step(f, obstacle_mask, self.accel_mask, omega=self.omega,
+                    accel_w1=self.accel_w1, accel_w2=self.accel_w2)
+
+
 def first_accelerate(
     f: torch.Tensor,
     obstacle_mask: torch.Tensor,
@@ -253,10 +274,12 @@ def run(
     """`num_steps` fused timesteps in a Python loop. Returns (f_final,
     tot_u per step of shape (num_steps,)), both on f's device."""
     tots = []
-    for _ in range(num_steps):
+    for i in range(num_steps):
         f, tot_u = step(f, obstacle_mask, accel_mask,
                         omega=omega, accel_w1=accel_w1, accel_w2=accel_w2)
         tots.append(tot_u)
+        if profiling.NAN_DEBUG:
+            profiling.check_nans(f, i + 1, "the torch engine")
     if not tots:
         return f, torch.zeros(0, dtype=f.dtype, device=f.device)
     return f, torch.stack(tots)

@@ -47,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from ..core.params import Params
+from ..utils import profiling
 from . import d2q9
 
 # Launches of kernel B2 (one per K-step pass); callers may reset it.
@@ -409,6 +410,8 @@ def run_plain(f, mask, *, num_steps: int, k_steps: int, mode: str = "full", **kw
     for i in range(num_steps // k_steps):
         f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps,
                                                              mode=mode, **kw)
+        if profiling.NAN_DEBUG:
+            profiling.check_nans(f, (i + 1) * k_steps, "a K-step pass (plain version)", k_steps)
     return f, tots
 
 
@@ -442,6 +445,8 @@ def run(
         out = bufs[i % 2]
         _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars)
         f = out
+        if profiling.NAN_DEBUG:
+            profiling.check_nans(f, (i + 1) * k_steps, "kernel B2 (d2q9_kstep)", k_steps)
     return f, tots
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..core.params import Params
+from ..utils import profiling
 from . import d2q9_kstep
 
 # Launches of kernel B1 (one per K-step pass); callers may reset it.
@@ -128,6 +129,8 @@ def run(
     for i in range(num_steps // k_steps):
         _launch(f, mask_u8, snaps[i % 2], i == 0, snaps[(i + 1) % 2], partials,
                 tots[i * k_steps:(i + 1) * k_steps], path, scalars)
+        if profiling.NAN_DEBUG:
+            profiling.check_nans(f, (i + 1) * k_steps, "kernel B1 (d2q9_kstep_inplace)", k_steps)
     return f, tots
 
 

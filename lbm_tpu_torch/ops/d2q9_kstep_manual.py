@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..core.params import Params
+from ..utils import profiling
 from . import d2q9_kstep
 
 # Launches of kernel B3 (one per K-step pass); callers may reset it.
@@ -236,6 +237,8 @@ def run(
         out = bufs[i % 2]
         _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars)
         f = out
+        if profiling.NAN_DEBUG:
+            profiling.check_nans(f, (i + 1) * k_steps, "kernel B3 (d2q9_kstep_manual)", k_steps)
     return f, tots
 
 

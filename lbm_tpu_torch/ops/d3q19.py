@@ -27,7 +27,8 @@ from .d3q19_lattice import (  # noqa: F401  (re-exported for callers)
     E, NUM_SPEEDS, OPPOSITE, W, initial_distributions,
 )
 
-ENGINES = ("torch", "cuda", "cuda-inplace", "cuda-blocked", "cuda-inplace-blocked")
+# 'native' is the serial C++ engine on the host (ops/d3q19_native.py)
+ENGINES = ("torch", "cuda", "cuda-inplace", "cuda-blocked", "cuda-inplace-blocked", "native")
 # the multi-device engines (`parallel/`): 'sharded' (the plain step on a
 # (z, y)-sharded DTensor), 'sharded-cuda' (ghost planes around B4 over a
 # z-mesh) and 'sharded-cuda-zy' (ghost planes and rows on a (z, y) mesh)
@@ -312,13 +313,27 @@ def simulate(
     DTensor state (`models.lbm3d.setup_engine`). k_steps=None takes the
     kernels' preferred K among those the z-split admits
     (`kstep_sharded_3d.choose_k`); the reference takes 2, and the state
-    does not depend on K."""
+    does not depend on K.
+
+    engine='native' runs the serial C++ engine on the host
+    (`d3q19_native.simulate`) whatever `device` says, and returns CPU
+    tensors."""
     if overlap and engine != "sharded-cuda":
         raise ValueError(
             f"overlap=True is only implemented for engine='sharded-cuda' (ghost-plane "
             f"exchange/compute overlap), not engine={engine!r}")
     if mesh_shape is not None and engine != "sharded-cuda-zy":
         raise ValueError(f"mesh_shape applies to engine='sharded-cuda-zy' only, not {engine!r}")
+    if engine == "native":
+        from ..models.lbm import numpy_dtype
+        from . import d3q19_native
+
+        if num_devices is not None or k_steps is not None:
+            raise ValueError("engine 'native' takes no num_devices or k_steps")
+        f, av = d3q19_native.simulate(nz, ny, nx, num_steps=num_steps, omega=omega,
+                                      density=density, accel=accel,
+                                      obstacle_mask=obstacle_mask, dtype=numpy_dtype(dtype))
+        return torch.from_numpy(f), torch.from_numpy(av)
     if engine in SHARDED_ENGINES:
         from ..models.lbm import default_num_devices, resolve_device
         from ..models.lbm3d import simulate_engine

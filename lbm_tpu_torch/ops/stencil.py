@@ -74,14 +74,18 @@ RESIDENT_MAX_TILE_W = 1021
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-@functools.lru_cache(maxsize=8)
-def _conv_weights(c: int, dtype, device) -> torch.Tensor:
+def _make_conv_weights(c: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(KERNEL, dtype=dtype, device=device).expand(c, 1, 3, 3).contiguous()
+
+
+_conv_weights = functools.lru_cache(maxsize=8)(_make_conv_weights)
 
 
 def _conv(img: torch.Tensor, interior: torch.Tensor, padding: int) -> torch.Tensor:
     c = img.shape[0]
-    kern = _conv_weights(c, img.dtype, img.device)
+    # torch.export traces with fake tensors, which the cache must never keep
+    kern = (_make_conv_weights if torch.compiler.is_compiling() else _conv_weights)(
+        c, img.dtype, img.device)
     if img.device.type == "cuda" and img.dtype == torch.float32:
         before = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False

@@ -36,6 +36,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..core.params import Params
 from ..ops import d2q9
+from ..utils import profiling
 from . import mesh as mesh_lib
 
 ROW, COL = mesh_lib.ROW_AXIS, mesh_lib.COL_AXIS
@@ -292,6 +293,8 @@ def run_sharded(
     tots = torch.empty(num_steps, dtype=f.dtype, device=f.to_local().device)
     for i in range(num_steps):
         f, tots[i] = step(f, obstacle_mask, accel_mask)
+        if profiling.NAN_DEBUG:
+            profiling.check_nans(f, i + 1, f"the sharded step ({exchange})")
     return f, tots
 
 
@@ -382,8 +385,10 @@ def run_global_step(step, f: DTensor, num_steps: int):
     would round otherwise than a whole one). Returns (f_final DTensor, tot_u
     (num_steps,) as a plain tensor, the same on every rank)."""
     tots = []
-    for _ in range(num_steps):
+    for i in range(num_steps):
         f, tot = step(f)
+        if profiling.NAN_DEBUG:
+            profiling.check_nans(f, i + 1, "the global step")
         if not all(isinstance(p, Partial) and p.reduce_op == "sum" for p in tot.placements):
             raise RuntimeError(f"the implicit step's Sum|u| came out as {tot.placements}, "
                                "not partial sums")

@@ -33,6 +33,7 @@ from torch.distributed.tensor import DTensor
 
 from ..core.params import Params
 from ..ops import d2q9, d2q9_kstep, d2q9_kstep_inplace
+from ..utils import profiling
 from . import halo as halo_lib, mesh as mesh_lib
 
 ROW, COL = mesh_lib.ROW_AXIS, mesh_lib.COL_AXIS
@@ -462,6 +463,8 @@ def run(
     tots = torch.empty(num_steps, dtype=f_loc.dtype, device=f_loc.device)
     for i in range(num_steps // k_steps):
         chunk(tots[i * k_steps:(i + 1) * k_steps])
+        if profiling.NAN_DEBUG:
+            profiling.check_nans(chunk.own(), (i + 1) * k_steps, "a ghost-band chunk", k_steps)
     return (DTensor.from_local(chunk.own().contiguous(), mesh, f.placements, run_check=False),
             mesh_lib.sum_by_rank(tots, mesh))
 

@@ -125,11 +125,11 @@ def test_cli_flags_on_the_cpu(tmp_path, capsys, flags):
 
 @pytest.mark.parametrize("flags,item", [
     (["--engine", "conv", "--num-devices", "4"], "--num-devices applies to --engine conv-sharded"),
-    (["--num-devices", "4"], "--num-devices applies to --engine conv-sharded"),
-    (["--compile-only"], "ROADMAP.md A8"), (["--export", "step.bin"], "ROADMAP.md A8")])
+    (["--num-devices", "4"], "--num-devices applies to --engine conv-sharded")])
 def test_cli_rejects_what_is_not_ported_and_names_the_roadmap_item(tmp_path, capsys, flags, item):
     # the multi-device blur is ported (conv-sharded); its --num-devices
-    # belongs to that engine alone
+    # belongs to that engine alone. --compile-only and --export are ported
+    # (test_cli_compile_only_exports_the_conv_pass)
     img_lib.save_png(tmp_path / "in.png", rgba_case())
     with pytest.raises(SystemExit) as err:
         cli.main(["-i", str(tmp_path / "in.png"), "-o", str(tmp_path / "out.png"),
@@ -137,3 +137,19 @@ def test_cli_rejects_what_is_not_ported_and_names_the_roadmap_item(tmp_path, cap
     assert err.value.code != 0
     assert item in capsys.readouterr().err
     assert not (tmp_path / "out.png").exists()
+
+
+@pytest.mark.parametrize("flags,dtype", [([], "float32"), (["--export"], "float32"),
+                                         (["--data-type", "half", "--export"], "bfloat16")])
+def test_cli_compile_only_exports_the_conv_pass(tmp_path, capsys, flags, dtype):
+    # no -o: nothing is blurred; the pass is exported at the padded shape of
+    # the runtime path (4, 24 -> 32, 40 -> 128), as the reference's CLI does
+    img_lib.save_png(tmp_path / "in.png", rgba_case())
+    export = [str(tmp_path / "pass.pt2")] if "--export" in flags else []
+    assert cli.main(["-i", str(tmp_path / "in.png"), "--device", "cpu", "--compile-only",
+                     *flags, *export]) == 0
+    text = capsys.readouterr().out
+    assert f"ops.stencil.blur_step_conv on cpu, (4, 32, 128) {dtype}" in text
+    assert (tmp_path / "pass.pt2").exists() == bool(export)
+    if export:
+        assert f"bytes to {export[0]}" in text

@@ -51,7 +51,10 @@ def test_port_imports_no_jax_and_no_lbm_tpu():
                  "cli.lbm", "cli.lbm3d", "utils.image", "ops.stencil", "models.blur",
                  "cli.blur", "ops.d2q9_kstep_manual", "ops.copy_floor", "ops.overlap_probe",
                  "parallel.mesh", "parallel.partition", "parallel.launch", "parallel.halo",
-                 "parallel.kstep_sharded", "parallel.kstep_sharded_3d", "dryrun"):
+                 "parallel.kstep_sharded", "parallel.kstep_sharded_3d", "dryrun",
+                 "ops.d2q9_native", "ops.d3q19_native", "utils.native_io", "utils.profiling",
+                 "utils.roll_slices", "cli.lbm_runner", "cli.halo_bench", "cli.partition_stats",
+                 "cli.viz_partition", "cli.flow_viz"):
         assert f"lbm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

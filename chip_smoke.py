@@ -7,8 +7,9 @@ Run from the root of the repository, with no arguments:
 
 Phases, each of which must pass or the script exits non-zero:
   1. prints the card's name and power limit; builds the CUDA kernels from
-     the eight sources of lbm_tpu_torch/csrc/ with nvcc (one process per
-     source, all started together) and prints the build time; prints what
+     the eight sources of lbm_tpu_torch/csrc/ with nvcc, and the per_speed
+     variant of the two 3-D sources (one process per library, all started
+     together) and prints the build time; prints what
      `nvcc -Xptxas -v` says of the four sources on TMA (B12 and B11, on
      csrc/tile_copy.cuh, d2q9_kstep.cu and d2q9_manual.cu, whose box paths
      move B1's, B2's and B3's regions by TMA) and the blocks an SM of B1, B2
@@ -145,6 +146,27 @@ Phases, each of which must pass or the script exits non-zero:
      blocked engines <= 1.5e-3; float64 `cuda-blocked`, 200 steps, <= 1e-10).
      Checkpoint/resume through `cuda-inplace-blocked`, bit-equal to an
      uninterrupted run;
+  7f. bfloat16 storage (A3) and the A9 switches: B1, B2 and B3 on a
+     bfloat16 state at 1024^2 (K = 1, 2, 4, 8) and 64x1001 (K = 4) against
+     `stepk_plain` on the card, every value within one unit (the share that
+     differs printed), Sum|u| (float32) within 1e-5, B1 == B2 == B3, each on
+     the thread path; B2 with shared_reciprocal in float32 (box and thread
+     path, 1e-5) and bfloat16; each one's ms a bfloat16 pass beside
+     float32's in the same call and the bound (37 B a cell). The flagship
+     through `cli.lbm --engine auto --dtype bfloat16` (its kernel alone,
+     never the plain engine; MLUPS beside float32's; av_vels[:100] against
+     `run_plain` on the card within 1e-4); checkpointed bfloat16 runs
+     through auto, cuda-inplace and cuda-manual resumed, the lattice (|V2),
+     av_vels and final_state.dat equal to the whole run's. B4, B5, B6 and
+     B7 at 64x128x256 and 32x256x256 (K = 1..4; B5, B7 to 2) against
+     `stepk_plain` (one unit; the line says whether bit-equal), B4 == B6
+     and B5 == B7; B4's memory on top of a bfloat16 lattice;
+     `ops.d3q19.simulate(dtype=torch.bfloat16)` through each 3-D engine
+     (its kernel alone); a checkpointed bfloat16 run through B4 resumed, bit
+     for bit; each one's ms a pass beside float32's and the bound (77 B a
+     cell). Last, in a child process with LBM_D3Q19_GROUPING=reference (the
+     per_speed libraries, built with the others), B4-B7 in float32 against
+     the plain per-speed step (1e-5) and unequal to the paired grouping;
   8. blur kernels vs plain version, from numpy-seeded images: B10
      (stencil.blur_step) one pass, B9 (blur_k) at k = 1..8 and bands of 64
      and 100 rows (100 divides none of the heights) on its vector path, and
@@ -209,6 +231,8 @@ Phases, each of which must pass or the script exits non-zero:
      kernels, `copy_` for B12 and B11); B1's, B2's, B4's and B6's entries
      carry their launches, path and MLUPS in the sharded phases, B1's and
      B2's their launches in phase 7e, and B2's the measurements of 7e;
+     B1-B7 their bfloat16 ms, bound, path and launches (`bf16`), B2 its
+     shared_reciprocal cases, B4-B7 the per-speed grouping's numbers;
  13. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero, printing no result, when CUDA is absent or the package is not
@@ -220,6 +244,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2810,6 +2835,437 @@ def phase_halo_bench():
     return {r[0]: float(r[7]) for r in rows}
 
 
+# ---------------------------------------------- bfloat16 storage and A9 ----
+
+# a bfloat16 pass moves 9 (19) values in and out a cell and the mask byte
+BF16_BYTES_2D = 2 * 9 * 2 + 1
+BF16_BYTES_3D = 2 * 19 * 2 + 1
+BF16_AV_BAR = 1e-4  # the bf16 flagship's av_vels[:100] against run_plain on the card
+BF16_AV_PREFIX = 100
+BF16_CK_STEPS = 400  # 2-D checkpointed bfloat16 runs: this many steps in two chunks
+BF16_CK_SHAPE_3D = (32, 64, 128)
+BF16_CK_STEPS_3D = 40
+
+
+def bf16_held(torch, what, got, ref):
+    """A bfloat16 kernel state against its plain version's: within one unit
+    in the last place everywhere. The two round the same float32 pass once,
+    and the plain version's bfloat16 route divides as the kernels do
+    (`d2q9.collide_fields(tensor_scalars=True)`), so bit-equal is expected;
+    the line says which held. Prints and returns (units, share that
+    differs)."""
+    torch.cuda.synchronize()
+    check(got.dtype == torch.bfloat16 and ref.dtype == torch.bfloat16,
+          f"{what}: not a bfloat16 state ({got.dtype}, {ref.dtype})")
+    ulps = ulps_bf16(torch, got, ref)
+    share = float((got.view(torch.int16) != ref.view(torch.int16)).float().mean())
+    print(f"bf16 parity {what}: {ulps} unit(s) at most, {share:.3e} of values differ")
+    check(ulps <= 1, f"{what}: {ulps} bfloat16 units from the plain version")
+    return ulps, share
+
+
+def bf16_bound(cells: int, bytes_a_cell: int, flops: float):
+    t_bytes = bytes_a_cell * cells / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_bf16_2d(torch, mods):
+    """B1, B2 and B3 on a bfloat16 state against `stepk_plain` on the card
+    (1024^2 at K = 1, 2, 4, 8; 64x1001 at K = 4, edge tiles): within one
+    unit, Sum|u| (float32) within the float32 bar, B1 == B2 == B3 bit for
+    bit, each on the thread path. A9: B2 with shared_reciprocal in float32
+    on both paths and in bfloat16 against the plain version's. Then each
+    kernel's time a bfloat16 launch at 1024^2, K = 4, beside float32's.
+    Returns {kernel: dict of its bfloat16 numbers}."""
+    from lbm_tpu_torch.core import state
+    d2q9_kstep, d2q9_kstep_inplace, d2q9_kstep_manual = mods
+    names = ("d2q9_kstep", "d2q9_kstep_inplace", "d2q9_kstep_manual")
+    rng = np.random.default_rng(20261018)
+    aw = dict(omega=1.85, accel_w1=0.1 * 0.01 / 9, accel_w2=0.1 * 0.01 / 36)
+    out = {name: {} for name in names}
+    for (ny, nx), ks in (((N, N), (1, 2, 4, 8)), ((64, 1001), (4,))):
+        f_np, mask_np = random_state(rng, ny, nx), random_mask(rng, ny, nx)
+        f, mask = state.to_torch(f_np, mask_np, device="cuda", dtype=torch.bfloat16)
+        for k in ks:
+            kw = dict(k_steps=k, accel_row=ny - 2, **aw)
+            ref_f, ref_tot = d2q9_kstep.stepk_plain(f, mask, **kw)
+            got = {"d2q9_kstep": d2q9_kstep.stepk(f, mask, **kw),
+                   "d2q9_kstep_inplace": d2q9_kstep_inplace.stepk(f.clone(), mask, **kw),
+                   "d2q9_kstep_manual": d2q9_kstep_manual.stepk(f, mask, **kw)}
+            for name, mod in zip(names, mods):
+                check(mod.last_path == "thread", f"{name} bf16 took the {mod.last_path} path")
+                kf, kt = got[name]
+                ulps, share = bf16_held(torch, f"{name} {ny}x{nx} K={k} ({mod.last_path} path)",
+                                        kf, ref_f)
+                et = rel_err(kt, ref_tot)
+                check(kt.dtype == torch.float32 and et <= BARS["float32"],
+                      f"{name} bf16 K={k}: Sum|u| rel err {et} > {BARS['float32']}")
+                if (ny, k) == (N, 4):
+                    out[name].update(ulps=ulps, share=share, path=mod.last_path,
+                                     max_abs_err=float((kf.float() - ref_f.float()).abs().max()))
+            b2 = got["d2q9_kstep"]
+            for name in names[1:]:
+                check(torch.equal(got[name][0], b2[0]) and torch.equal(got[name][1], b2[1]),
+                      f"{name} bf16 is not bit-equal to B2 ({ny}x{nx} K={k})")
+            print(f"bf16 parity B1 == B2 == B3 bit for bit ({ny}x{nx} K={k}); Sum|u| within "
+                  f"{BARS['float32']}")
+        del f, ref_f, got, b2
+
+    # A9: B2's shared_reciprocal (the collision takes 1/rho once)
+    f_np, mask_np = random_state(rng, N, N), random_mask(rng, N, N)
+    for dname, dtype, k in (("float32", torch.float32, 4), ("float32", torch.float32, 2),
+                            ("bfloat16", torch.bfloat16, 4)):
+        f, mask = state.to_torch(f_np, mask_np, device="cuda", dtype=dtype)
+        kw = dict(k_steps=k, accel_row=N - 2, shared_reciprocal=True, **aw)
+        ref_f, ref_tot = d2q9_kstep.stepk_plain(f, mask, **kw)
+        kf, kt = d2q9_kstep.stepk(f, mask, **kw)
+        path = d2q9_kstep.last_path
+        if dtype == torch.bfloat16:
+            bf16_held(torch, f"B2 shared_reciprocal K={k} ({path} path)", kf, ref_f)
+        else:
+            ef = rel_err(kf, ref_f)
+            print(f"A9 B2 shared_reciprocal float32 K={k} ({path} path): state max rel err "
+                  f"{ef:.3e} (bar {BARS['float32']})")
+            check(ef <= BARS["float32"], f"B2 shared_reciprocal K={k}: state rel err {ef}")
+            plain_f, _ = d2q9_kstep.stepk(f, mask, k_steps=k, accel_row=N - 2, **aw)
+            check(not torch.equal(plain_f, kf),
+                  "B2 with shared_reciprocal equals B2 without: the switch did nothing")
+        et = rel_err(kt, ref_tot)
+        check(et <= BARS["float32"], f"B2 shared_reciprocal {dname} K={k}: Sum|u| rel err {et}")
+        out["d2q9_kstep"].setdefault("shared_reciprocal_paths", []).append(f"{dname} K={k} {path}")
+    del f, ref_f, kf
+
+    # time a bfloat16 launch of each at the main path's shape, beside float32's
+    f_np, mask_np = random_state(rng, N, N), random_mask(rng, N, N)
+    kw = dict(accel_row=N - 2, **aw)
+    passes, k = 500, 4
+    for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        f, mask = state.to_torch(f_np, mask_np, device="cuda", dtype=dtype)
+        for name, mod in zip(names, mods):
+            g = f.clone()
+            t = time_ms(torch, lambda: mod.run(g, mask, num_steps=k * passes, k_steps=k, **kw),
+                        1) / passes
+            out[name][f"{dname}_ms"] = t
+            print(f"bf16 timing {name:19s} {dname:8s}: {t:.4f} ms per K={k} launch "
+                  f"({N * N * k / t / 1e3:.0f} MLUPS, {mod.last_path} path)")
+    plain_ms = time_ms(torch, lambda: d2q9_kstep.stepk_plain(f, mask, k_steps=k, **kw), 10)
+    bound = bf16_bound(N * N, BF16_BYTES_2D, FLOP_PER_CELL_STEP * k * N * N)
+    for name in names:
+        out[name].update(plain_ms=plain_ms, bound=bound, k_steps=k)
+        print(f"bf16 timing {name:19s}: bound {bound[0]:.5f} ms ({bound[1]}: {BF16_BYTES_2D} B a "
+              f"cell), plain version {plain_ms:.4f} ms")
+    return out
+
+
+def phase_bf16_main_path(torch, mods, mask, f32_mlups):
+    """The flagship through `cli.lbm --engine auto --dtype bfloat16`
+    (20,000 steps): the kernel `choose_engine` names for bfloat16 alone
+    launched, never the plain engine; MLUPS beside float32's; av_vels[:100]
+    against `run_plain` on the card within BF16_AV_BAR. Then checkpointed
+    bfloat16 runs through `auto`, `cuda-inplace` and `cuda-manual`
+    (BF16_CK_STEPS in two chunks, then resumed from the first): the resumed
+    final state and av_vels equal the whole run's bit for bit. Returns
+    {kernel: launches}, the picked kernel and the flagship's
+    (seconds, mlups)."""
+    from lbm_tpu_torch.cli import lbm as cli
+    from lbm_tpu_torch.core import io as lbm_io
+    from lbm_tpu_torch.core import state
+    from lbm_tpu_torch.core.params import Obstacles, Params
+    from lbm_tpu_torch.ops import d2q9
+    d2q9_kstep = mods[0]
+    by_engine = engine_modules(mods)
+    steps = FLAGSHIP["max_iters"]
+    picked = d2q9_kstep.choose_engine(N, N, torch.bfloat16, num_steps=steps)
+    mod = by_engine[picked]
+    kernel = mod.__name__.rsplit(".", 1)[1]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        params, obstacles = Params(**FLAGSHIP), Obstacles(mask)
+        params.to_file(tmp / "input.params")
+        obstacles.to_file(tmp / "obstacles.dat")
+        base = ["--params", str(tmp / "input.params"), "--obstacles", str(tmp / "obstacles.dat"),
+                "--dtype", "bfloat16"]
+        for m in mods:
+            m.launches = 0
+        with CountCalls(d2q9, "collide_fields") as plain:
+            rc, text = run_cli(cli.main, base + ["--engine", "auto", "--out-dir", str(tmp / "a")])
+        print(f"bf16 main path --engine auto --dtype bfloat16:\n{text.rstrip()}")
+        check(rc == 0, f"cli returned {rc}")
+        check(re.search(rf"^engine:\s+{picked}$", text, re.M) is not None,
+              f"--engine auto --dtype bfloat16 did not choose {picked}")
+        check(mod.launches > 0 and all(m.launches == 0 for m in mods if m is not mod),
+              f"--engine auto --dtype bfloat16 did not go through {kernel} alone")
+        check(plain.calls == 0, f"bf16 main path: the plain engine ran {plain.calls} collisions")
+        launches[kernel] = mod.launches
+        seconds = float(re.search(r"Total compute time:\s+([0-9.eE+-]+)", text).group(1))
+        mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
+        print(f"bf16 main path ({kernel}, {mod.last_path} path): {mod.launches} launches, "
+              f"{seconds:.6f} s timed, {mlups} MLUPS against float32's {f32_mlups} MLUPS "
+              f"({mlups / f32_mlups:.3f} x)")
+        av = lbm_io.read_av_vels(tmp / "a" / "av_vels.dat")
+        check(av.shape == (steps,) and np.isfinite(av).all(), "bf16 av_vels.dat is malformed")
+        # the plain version on the card over the prefix, from the same start
+        p100 = Params(**{**FLAGSHIP, "max_iters": BF16_AV_PREFIX})
+        f0, tmask = state.to_torch(state.initial_distributions(p100, torch.bfloat16), mask,
+                                   device="cuda")
+        _, plain_av = d2q9_kstep.simulate_with(d2q9_kstep.run_plain, p100, f0, tmask)
+        plain_av = plain_av.double().cpu().numpy()
+        err = float(np.abs(av[:BF16_AV_PREFIX] - plain_av).max() / np.abs(plain_av).max())
+        print(f"bf16 av_vels[:{BF16_AV_PREFIX}] vs run_plain on the card: max rel err {err:.3e} "
+              f"(bar {BF16_AV_BAR})")
+        check(err <= BF16_AV_BAR, f"bf16 av_vels prefix rel err {err} > {BF16_AV_BAR}")
+
+        # checkpointed bfloat16 runs: resumed == whole, bit for bit
+        n = BF16_CK_STEPS
+        for engine in ("auto", "cuda-inplace", "cuda-manual"):
+            m = by_engine[d2q9_kstep.choose_engine(N, N, torch.bfloat16, num_steps=n)
+                          if engine == "auto" else engine]
+            name = m.__name__.rsplit(".", 1)[1]
+            for mm in mods:
+                mm.launches = 0
+            runs = {"whole": ["--num-steps", str(n)],
+                    "part": ["--num-steps", str(n // 2)],
+                    "resumed": ["--num-steps", str(n), "--resume"]}
+            for label, extra in runs.items():
+                d = tmp / f"ck_{engine}_{'whole' if label == 'whole' else 'part'}"
+                rc, text = run_cli(cli.main, base + ["--engine", engine, "--out-dir", str(d),
+                                                     "--checkpoint-every", str(n // 2), *extra])
+                check(rc == 0, f"bf16 checkpointed cli ({engine}, {label}) returned {rc}")
+            check(m.launches > 0 and all(mm.launches == 0 for mm in mods if mm is not m),
+                  f"bf16 checkpointed --engine {engine} did not go through {name} alone")
+            launches[name] = launches.get(name, 0) + m.launches
+            whole, part = tmp / f"ck_{engine}_whole", tmp / f"ck_{engine}_part"
+            with np.load(whole / "checkpoint.npz") as a, np.load(part / "checkpoint.npz") as b:
+                check(a["f"].dtype == np.dtype("V2") and a["f"].tobytes() == b["f"].tobytes(),
+                      f"bf16 --engine {engine}: the resumed lattice differs from the whole run's")
+                check(np.array_equal(a["av_vels"], b["av_vels"]),
+                      f"bf16 --engine {engine}: resumed av_vels differ from the whole run's")
+            for fname in ("final_state.dat", "av_vels.dat"):
+                check((whole / fname).read_bytes() == (part / fname).read_bytes(),
+                      f"bf16 --engine {engine}: resumed {fname} differs from the whole run's")
+            print(f"bf16 checkpoint 1024x1024 --engine {engine} ({name}, {m.launches} launches, "
+                  f"{m.last_path} path): {n // 2} steps, resumed to {n}: the lattice (|V2), "
+                  "av_vels and final_state.dat equal the whole run's bit for bit")
+    return launches, kernel, (seconds, mlups)
+
+
+def phase_bf16_3d(torch, mods3, modsb):
+    """B4, B5, B6 and B7 on a bfloat16 state against `stepk_plain` on the
+    card at 64x128x256 and 32x256x256 (B4, B6 at K = 1..4, B5, B7 at K = 1,
+    2), within one unit (the float32 pass is bit-equal, so bit-equal is
+    expected; the line says which held); B4 == B6, B5 == B7 bit for bit;
+    B4's peak device memory; `ops.d3q19.simulate(dtype=torch.bfloat16)`
+    through each engine (each kernel launched alone, never the plain engine,
+    finite av_vels); a checkpointed bfloat16 run through B4, resumed, bit
+    for bit. Then each kernel's time a bfloat16 pass beside float32's.
+    Returns {kernel: dict of its bfloat16 numbers}."""
+    from lbm_tpu_torch.core import state
+    from lbm_tpu_torch.models import lbm3d as lbm3d_model
+    from lbm_tpu_torch.ops import d3q19
+    d3q19_kstep, d3q19_kstep_inplace = mods3
+    d3q19_kstep_blocked, d3q19_kstep_inplace_blocked = modsb
+    kernels = {"d3q19_kstep": d3q19_kstep, "d3q19_kstep_inplace": d3q19_kstep_inplace,
+               "d3q19_kstep_blocked": d3q19_kstep_blocked,
+               "d3q19_kstep_inplace_blocked": d3q19_kstep_inplace_blocked}
+    out = {name: {"bit_equal": True} for name in kernels}
+    rng = np.random.default_rng(20261019)
+    for shape in (SHAPE_3D, SHAPE_BLOCKED):
+        nz, ny, nx = shape
+        f, mask = state.to_torch3d(random_state_3d(rng, nz, ny, nx),
+                                   random_mask_3d(rng, nz, ny, nx), device="cuda",
+                                   dtype=torch.bfloat16)
+        for k in (1, 2, 3, 4):
+            kw = dict(k_steps=k, accel_plane=nz - 2, **PHYSICS_3D)
+            ref_f, ref_tot = d3q19_kstep.stepk_plain(f, mask, **kw)
+            pairs = [("d3q19_kstep", "d3q19_kstep_inplace")]
+            if k <= d3q19_kstep_blocked.PREFERRED_K:
+                pairs.append(("d3q19_kstep_blocked", "d3q19_kstep_inplace_blocked"))
+            for two, inplace in pairs:
+                got = {}
+                for name in (two, inplace):
+                    mod = kernels[name]
+                    g = f.clone() if name == inplace else f
+                    kf, kt = mod.stepk(g, mask, **kw)
+                    ulps, share = bf16_held(
+                        torch, f"{name} {nz}x{ny}x{nx} K={k} ({mod.last_path} path)", kf, ref_f)
+                    et = rel_err(kt, ref_tot)
+                    check(kt.dtype == torch.float32 and et <= BARS["float32"],
+                          f"{name} bf16 K={k}: Sum|u| rel err {et}")
+                    out[name]["bit_equal"] &= ulps == 0
+                    main = SHAPE_BLOCKED if "blocked" in name else SHAPE_3D
+                    if shape == main and k == 2:
+                        out[name].update(path=mod.last_path, max_abs_err=float(
+                            (kf.float() - ref_f.float()).abs().max()))
+                    got[name] = (kf, kt)
+                # the state bit-equal; Sum|u| too where both take one block
+                # (B5 and B7 may pick other tiles: Sum|u| in another order)
+                check(torch.equal(got[two][0], got[inplace][0])
+                      and ("blocked" in two or torch.equal(got[two][1], got[inplace][1])),
+                      f"bf16 {inplace} is not bit-equal to {two} ({nz}x{ny}x{nx} K={k})")
+                del got
+            del ref_f
+        # B4's device memory: the bfloat16 lattice, and a float32 scratch
+        # lattice for K > 1 (19 x 4 B a cell beside the lattice's 19 x 2)
+        g = f.clone()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        d3q19_kstep_inplace.run(g, mask, num_steps=8, k_steps=4, accel_plane=nz - 2,
+                                **PHYSICS_3D)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        lattice = g.numel() * g.element_size()
+        print(f"bf16 memory B4 run {nz}x{ny}x{nx} (K=4): allocated on top of the lattice "
+              f"{extra} B, {extra / lattice:.4f} bfloat16 lattices (a float32 scratch is 2)")
+        if shape == SHAPE_3D:
+            out["d3q19_kstep_inplace"]["extra_lattices"] = extra / lattice
+        del f, g
+    for name, o in out.items():
+        print(f"bf16 parity {name}: {'bit-equal' if o['bit_equal'] else 'within one unit'} "
+              "to the plain version in every case")
+
+    # the 3-D entry point in bfloat16, each engine's kernel alone
+    launches = {}
+    for engine, name, shape, steps in (
+            ("cuda-inplace", "d3q19_kstep_inplace", SHAPE_3D, 48),
+            ("cuda", "d3q19_kstep", SHAPE_3D, 48),
+            ("cuda-inplace-blocked", "d3q19_kstep_inplace_blocked", SHAPE_BLOCKED, 48),
+            ("cuda-blocked", "d3q19_kstep_blocked", SHAPE_BLOCKED, 48)):
+        for m in kernels.values():
+            m.launches = 0
+        with CountCalls(d3q19, "collide_fields") as plain:
+            f_final, av = d3q19.simulate(*shape, num_steps=steps, engine=engine,
+                                         dtype=torch.bfloat16, device="cuda", **PHYSICS_3D)
+        mod = kernels[name]
+        check(f_final.dtype == torch.bfloat16 and torch.isfinite(av).all(),
+              f"d3q19.simulate bf16 --engine {engine}: not a finite bfloat16 run")
+        check(mod.launches > 0 and all(m.launches == 0 for m in kernels.values() if m is not mod),
+              f"d3q19.simulate bf16 --engine {engine} did not go through {name} alone")
+        check(plain.calls == 0, f"d3q19.simulate bf16 {engine}: the plain engine ran")
+        launches[name] = mod.launches
+        print(f"bf16 d3q19.simulate {'x'.join(map(str, shape))} x {steps} --engine {engine}: "
+              f"{name} {mod.launches} launches ({mod.last_path} path), av_vels[-1] "
+              f"{float(av[-1]):.6e}")
+
+    # a checkpointed bfloat16 run through B4, resumed, against the whole run
+    nz, ny, nx = BF16_CK_SHAPE_3D
+    n = BF16_CK_STEPS_3D
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(checkpoint_every=n // 2, dtype=torch.bfloat16, engine="cuda-inplace",
+                  device="cuda", **PHYSICS_3D)
+        d3q19_kstep_inplace.launches = 0
+        whole = lbm3d_model.run_simulation_with_checkpoints(
+            nz, ny, nx, num_steps=n, checkpoint_path=Path(tmp) / "whole.npz", **kw)
+        lbm3d_model.run_simulation_with_checkpoints(
+            nz, ny, nx, num_steps=n // 2, checkpoint_path=Path(tmp) / "part.npz", **kw)
+        resumed = lbm3d_model.run_simulation_with_checkpoints(
+            nz, ny, nx, num_steps=n, checkpoint_path=Path(tmp) / "part.npz", resume=True, **kw)
+        check(d3q19_kstep_inplace.launches > 0, "the bf16 3-D checkpointed run did not launch B4")
+        check(torch.equal(whole[0], resumed[0]) and np.array_equal(whole[1], resumed[1]),
+              "bf16 3-D: the resumed run differs from the whole run")
+        launches["d3q19_kstep_inplace"] += d3q19_kstep_inplace.launches
+        print(f"bf16 checkpoint 3-D {nz}x{ny}x{nx} (B4, {d3q19_kstep_inplace.launches} launches):"
+              f" {n // 2} steps, resumed to {n}: state and av_vels equal the whole run's bit for "
+              "bit")
+
+    # time a pass of each, bfloat16 beside float32
+    for shape, names, k in ((SHAPE_3D, ("d3q19_kstep", "d3q19_kstep_inplace"), 4),
+                            (SHAPE_BLOCKED, ("d3q19_kstep_blocked", "d3q19_kstep_inplace_blocked"),
+                             d3q19_kstep_blocked.PREFERRED_K)):
+        nz, ny, nx = shape
+        f_np, mask_np = random_state_3d(rng, nz, ny, nx), random_mask_3d(rng, nz, ny, nx)
+        kw = dict(accel_plane=nz - 2, **PHYSICS_3D)
+        passes = 100
+        for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            f, mask = state.to_torch3d(f_np, mask_np, device="cuda", dtype=dtype)
+            for name in names:
+                mod = kernels[name]
+                g = f.clone()
+                t = time_ms(torch, lambda: mod.run(g, mask, num_steps=k * passes, k_steps=k,
+                                                   **kw), 1) / passes
+                out[name][f"{dname}_ms"] = t
+                print(f"bf16 timing {name:27s} {dname:8s} {nz}x{ny}x{nx}: {t:.4f} ms per K={k} "
+                      f"pass ({nz * ny * nx * k / t / 1e3:.0f} MLUPS, {mod.last_path} path)")
+        plain_ms = time_ms(torch, lambda: d3q19_kstep.stepk_plain(f, mask, k_steps=k, **kw), 3)
+        bound = bf16_bound(nz * ny * nx, BF16_BYTES_3D, FLOP_PER_CELL_STEP_3D * k * nz * ny * nx)
+        for name in names:
+            out[name].update(plain_ms=plain_ms, bound=bound, k_steps=k, launches=launches[name])
+            print(f"bf16 timing {name:27s}: bound {bound[0]:.5f} ms ({bound[1]}: "
+                  f"{BF16_BYTES_3D} B a cell), plain version {plain_ms:.4f} ms")
+        del f, g
+    return out
+
+
+def grouping_child() -> int:
+    """Run in a process with LBM_D3Q19_GROUPING=reference (`phase_grouping`):
+    B4, B5, B6 and B7 in float32 at the per-speed grouping against the plain
+    per-speed step; the state must also differ from the paired grouping's.
+    Prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from lbm_tpu_torch.core import state
+    from lbm_tpu_torch.ops import (d3q19, d3q19_kstep, d3q19_kstep_blocked, d3q19_kstep_inplace,
+                                   d3q19_kstep_inplace_blocked)
+    check(d3q19.GROUPING != "paired" and d3q19.kernel_variant() == "per_speed",
+          f"the child runs the {d3q19.GROUPING} grouping")
+    result = {}
+    rng = np.random.default_rng(20261020)
+    for shape, mods, k in ((SHAPE_3D, (d3q19_kstep, d3q19_kstep_inplace), 4),
+                           (SHAPE_BLOCKED, (d3q19_kstep_blocked, d3q19_kstep_inplace_blocked), 2)):
+        nz, ny, nx = shape
+        f, mask = state.to_torch3d(random_state_3d(rng, nz, ny, nx),
+                                   random_mask_3d(rng, nz, ny, nx), device="cuda",
+                                   dtype=torch.float32)
+        kw = dict(k_steps=k, accel_plane=nz - 2, **PHYSICS_3D)
+        ref_f, ref_tot = d3q19_kstep.stepk_plain(f, mask, **kw)
+        d3q19.GROUPING = "paired"
+        paired_f, _ = d3q19_kstep.stepk_plain(f, mask, **kw)
+        d3q19.GROUPING = "reference"
+        for mod in mods:
+            g = f.clone()
+            kf, kt = mod.stepk(g, mask, **kw)
+            torch.cuda.synchronize()
+            name = mod.__name__.rsplit(".", 1)[1]
+            result[name] = dict(
+                shape=list(shape), k=k, path=mod.last_path,
+                state_rel_err=rel_err(kf, ref_f), tot_rel_err=rel_err(kt, ref_tot),
+                bit_equal=bool(torch.equal(kf, ref_f)),
+                differs_from_paired=not torch.equal(kf, paired_f),
+                max_abs_from_paired=float((kf - paired_f).abs().max()))
+        del f, ref_f, paired_f, g
+    print(json.dumps({"grouping": d3q19.GROUPING, "kernels": result}))
+    return 0
+
+
+def phase_grouping(torch):
+    """A9: the per-speed D3Q19 grouping on the card, in a process with
+    LBM_D3Q19_GROUPING=reference (the grouping is fixed at import, as in the
+    JAX package): its library (the per_speed build variant) built and each of
+    B4-B7 within the float32 bar of the plain per-speed step, and not equal
+    to the paired grouping's state. Returns the child's numbers."""
+    env = dict(os.environ, LBM_D3Q19_GROUPING="reference")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "sys.exit(chip_smoke.grouping_child())")
+    res = subprocess.run([sys.executable, "-c", code, str(REPO)], capture_output=True,
+                         text=True, env=env, timeout=600, cwd=str(REPO))
+    check(res.returncode == 0, f"the grouping child failed ({res.returncode}):\n"
+                               f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    for name, r in got["kernels"].items():
+        print(f"A9 grouping {got['grouping']}: {name} {'x'.join(map(str, r['shape']))} "
+              f"K={r['k']} float32 ({r['path']} path): state max rel err "
+              f"{r['state_rel_err']:.3e} ({'bit-equal' if r['bit_equal'] else 'not bit-equal'}"
+              f"), Sum|u| {r['tot_rel_err']:.3e}; differs from the paired grouping by up to "
+              f"{r['max_abs_from_paired']:.3e}")
+        check(r["state_rel_err"] <= BARS["float32"] and r["tot_rel_err"] <= BARS["float32"],
+              f"A9 grouping: {name} off the plain per-speed step")
+        check(r["differs_from_paired"], f"A9 grouping: {name} equals the paired grouping")
+    return got["kernels"]
+
+
 def main() -> int:
     import torch
 
@@ -2834,8 +3290,12 @@ def main() -> int:
         card = card_line()
         print(card)
         t0 = time.perf_counter()
-        for name, lib_path in _build.build_all().items():
-            _build.load(name)
+        # with the per-speed grouping's libraries of the 3-D sources, which the
+        # A9 phase's child process loads
+        variants = {"d3q19_kstep": ["per_speed"], "d3q19_blocked": ["per_speed"]}
+        for name, lib_path in _build.build_all(variants).items():
+            if ":" not in name:
+                _build.load(name)
             print(f"built {lib_path.relative_to(REPO)}")
         print(f"built and loaded the kernels in {time.perf_counter() - t0:.1f} s")
         phase_ptxas(torch, d2q9_kstep, d2q9_kstep_manual)
@@ -2876,6 +3336,12 @@ def main() -> int:
         phase_golden_blocked(torch)
         ck_launches["d3q19_kstep_inplace_blocked"] = phase_checkpoint_blocked(torch, mods3, modsb)
 
+        bf16_2d = phase_bf16_2d(torch, mods)
+        bf16_launches, bf16_kernel, bf16_flagship = phase_bf16_main_path(
+            torch, mods, mask, flagship["auto"][2])
+        bf16_3d = phase_bf16_3d(torch, mods3, modsb)
+        grouping = phase_grouping(torch)
+
         abs_err_blur = phase_blur_parity(torch, stencil)
         times_blur = phase_blur_timing(torch, stencil)
         paths_blur = phase_blur_main_path(torch, stencil)
@@ -2885,6 +3351,14 @@ def main() -> int:
     except Failure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
+
+    def bf16_entry(o, launches, **extra):
+        """A kernel's bfloat16 numbers: ms a pass beside float32's in the same
+        call, the bound of a bfloat16 pass, its path and launches."""
+        return {"ms": o["bfloat16_ms"], "float32_ms_same_call": o["float32_ms"],
+                "plain_ms": o["plain_ms"], "bound_ms": o["bound"][0], "bound_by": o["bound"][1],
+                "k_steps": o["k_steps"], "path": o.get("path"), "launches": launches,
+                "max_abs_err": o.get("max_abs_err"), **extra}
 
     # each 2-D kernel's main-path run: `auto` for the kernel it picked, else
     # its engine by name (the other flagship runs are listed beside it)
@@ -2921,6 +3395,13 @@ def main() -> int:
         "tooling_launches": tooling["launches"][name],
         **({"tooling": {k: v for k, v in tooling.items() if k != "launches"}}
            if name == "d2q9_kstep" else {}),
+        "bf16": bf16_entry(
+            bf16_2d[name], bf16_launches.get(name, 0),
+            ulps=bf16_2d[name]["ulps"], share_differing=bf16_2d[name]["share"],
+            **({"flagship_seconds": bf16_flagship[0], "flagship_mlups": bf16_flagship[1]}
+               if name == bf16_kernel else {})),
+        **({"shared_reciprocal": bf16_2d[name]["shared_reciprocal_paths"]}
+           if name == "d2q9_kstep" else {}),
     } for name, replaces in KERNELS.items()]
     kernels.append({
         "name": "copy_floor", "route": "cuda", "source": "lbm_tpu_torch/csrc/copy_floor.cu",
@@ -2952,6 +3433,11 @@ def main() -> int:
            {"sharded_launches": sharded3["two_stream"]["launches"],
             "sharded_path": sharded3["two_stream"]["path"],
             "sharded_cuda_mlups": sharded3["two_stream"]["mlups"]}),
+        "bf16": bf16_entry(bf16_3d[name], bf16_3d[name]["launches"],
+                           bit_equal=bf16_3d[name]["bit_equal"],
+                           **({"extra_lattices": bf16_3d[name]["extra_lattices"]}
+                              if "extra_lattices" in bf16_3d[name] else {})),
+        "grouping_per_speed": grouping[name],
     } for name, replaces in KERNELS_3D.items()]
     kernels += [{
         "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/d3q19_blocked.cu",
@@ -2963,6 +3449,9 @@ def main() -> int:
             *SHAPE_BLOCKED, d3q19_kstep_blocked.PREFERRED_K)),
         "main_path_seconds": paths_b[name][1], "main_path_mlups": paths_b[name][2],
         "checkpoint_launches": ck_launches.get(name, 0), "path": paths_ms_b[name],
+        "bf16": bf16_entry(bf16_3d[name], bf16_3d[name]["launches"],
+                           bit_equal=bf16_3d[name]["bit_equal"]),
+        "grouping_per_speed": grouping[name],
     } for name, replaces in KERNELS_3D_BLOCKED.items()]
     for name, replaces in KERNELS_BLUR.items():
         t = dict(times_blur[name])

@@ -4,7 +4,7 @@ Usage:
     python -m lbm_tpu_torch.cli.lbm --params input_1024x1024.params \
         --obstacles obstacles_1024x1024.dat
         [--engine auto|cuda-inplace|cuda|cuda-manual|torch|native|sharded|sharded-cuda]
-        [--dtype float32|float64] [--device cuda|cpu] [--num-steps N] [--out-dir .]
+        [--dtype float32|float64|bfloat16] [--device cuda|cpu] [--num-steps N] [--out-dir .]
         [--num-devices N] [--strategy implicit|ppermute|manytensors|allgather|naive]
         [--overlap] [--partition-json FILE]
         [--checkpoint-every N] [--checkpoint FILE] [--resume]
@@ -25,6 +25,12 @@ on CUDA, gloo on the CPU) unless it runs inside a process group already
 (torchrun): `sharded` takes a halo strategy each step, `sharded-cuda` ghost
 bands every K steps around kernel B1 (`--overlap`: the row exchange under the
 interior kernel). `--partition-json` writes the device partitioning as JSON.
+
+`--dtype bfloat16` stores the lattice in bfloat16 on the single-device
+engines, as the JAX package does: the kernel engines step in float32 and
+round the state once a K-step pass, the `torch` engine rounds every
+operation. `native`, the sharded engines and --compile-only take float32 and
+float64 only.
 
 `--engine native` is the serial C++ engine on the host (native/*.cpp, built
 with g++ at first use); it never asks CUDA. The tooling flags, after the
@@ -63,7 +69,7 @@ def main(argv=None) -> int:
                              "ranks) or 'sharded-cuda' (ghost bands every K steps around B1, "
                              "over a row mesh); 'native' (the serial C++ engine on the "
                              "host, built with g++ at first use)")
-    parser.add_argument("--dtype", default="float32", choices=["float32", "float64"])
+    parser.add_argument("--dtype", default="float32", choices=["float32", "float64", "bfloat16"])
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--num-steps", type=int, default=None,
                         help="override max_iters from the params file")
@@ -114,6 +120,13 @@ def main(argv=None) -> int:
         parser.error("--export applies to --compile-only")
     if args.obstacles is None and not args.compile_only:
         parser.error("--obstacles is required unless --compile-only")
+    if args.dtype == "bfloat16" and args.engine == "native":
+        parser.error("--engine native takes float32 or float64")
+    if args.dtype == "bfloat16" and sharded:
+        parser.error(f"--dtype bfloat16 is not implemented on the sharded engines yet "
+                     f"({lbm_model.SHARDED_BF16})")
+    if args.dtype == "bfloat16" and args.compile_only:
+        parser.error("--compile-only exports a float32 or float64 step")
 
     import torch
 
@@ -121,7 +134,8 @@ def main(argv=None) -> int:
     from ..utils import profiling
 
     params = Params.from_file(args.params)
-    dtype = {"float32": torch.float32, "float64": torch.float64}[args.dtype]
+    dtype = {"float32": torch.float32, "float64": torch.float64,
+             "bfloat16": torch.bfloat16}[args.dtype]
     if args.cache_dir:
         print(f"build directory: {profiling.set_build_dir(args.cache_dir)}")
     if args.compile_only:

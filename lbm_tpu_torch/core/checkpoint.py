@@ -7,6 +7,11 @@ far, the step index and the grid signature. Resuming and running the
 remaining steps is bit-identical to an uninterrupted run: every chunk runs
 the same kernels in the same order, and their Sum|u| is reduced in a fixed
 order (tests/test_torch_checkpoint.py, and chip_smoke.py on the card).
+
+A bfloat16 lattice (a host tensor, `state.host_state`) is written as the JAX
+package writes its ml_dtypes array: the bfloat16 bits as `|V2`. `load`
+reads such an `f` back as a bfloat16 tensor, so a bfloat16 run resumes bit
+for bit (the JAX package cannot cast `|V2` back and raises there).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .params import Params
 
@@ -23,7 +29,7 @@ FORMAT_VERSION = 1
 
 @dataclasses.dataclass
 class Checkpoint:
-    f: np.ndarray          # (9, ny, nx) lattice at `step`
+    f: np.ndarray          # (9, ny, nx) lattice at `step` (bfloat16: a tensor)
     av_vels: np.ndarray    # per-step av_vels for steps [0, step)
     step: int
     params: Params
@@ -35,6 +41,26 @@ class Checkpoint:
     @property
     def steps_done(self) -> int:
         return self.step
+
+
+BF16_BITS = np.dtype("V2")  # how np.savez stores an ml_dtypes bfloat16 array
+
+
+def lattice_array(f) -> np.ndarray:
+    """The lattice as it goes into the file: a numpy array as it is, a
+    bfloat16 tensor as its bits in `|V2`."""
+    if isinstance(f, torch.Tensor):
+        if f.dtype != torch.bfloat16:
+            raise ValueError(f"a tensor lattice must be bfloat16, got {f.dtype}")
+        return f.detach().cpu().contiguous().view(torch.int16).numpy().view(BF16_BITS)
+    return np.asarray(f)
+
+
+def lattice_of(a: np.ndarray):
+    """The lattice of a file: `|V2` bits as a bfloat16 tensor, else as is."""
+    if a.dtype == BF16_BITS:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return a
 
 
 def _atomic_savez(path: Path, **arrays) -> None:
@@ -49,7 +75,7 @@ def _atomic_savez(path: Path, **arrays) -> None:
 def save(path: str | Path, f: np.ndarray, av_vels: np.ndarray, step: int,
          params: Params, k_steps: int | None = None) -> None:
     _atomic_savez(
-        Path(path), version=FORMAT_VERSION, f=np.asarray(f),
+        Path(path), version=FORMAT_VERSION, f=lattice_array(f),
         av_vels=np.asarray(av_vels, np.float64), step=int(step),
         nx=params.nx, ny=params.ny, max_iters=params.max_iters,
         reynolds_dim=params.reynolds_dim, density=params.density,
@@ -72,7 +98,7 @@ def load(path: str | Path, expect: Params | None = None) -> Checkpoint:
             accel=float(z["accel"]), omega=float(z["omega"]),
         )
         recorded_k = int(z["k_steps"]) if "k_steps" in z.files else 0
-        ck = Checkpoint(f=z["f"], av_vels=z["av_vels"], step=int(z["step"]),
+        ck = Checkpoint(f=lattice_of(z["f"]), av_vels=z["av_vels"], step=int(z["step"]),
                         params=params, k_steps=recorded_k or None)
     if expect is not None and any(
         getattr(params, k) != getattr(expect, k)
@@ -91,7 +117,7 @@ def load(path: str | Path, expect: Params | None = None) -> Checkpoint:
 
 @dataclasses.dataclass
 class Checkpoint3D:
-    f: np.ndarray          # (19, nz, ny, nx) lattice at `step`
+    f: np.ndarray          # (19, nz, ny, nx) lattice at `step` (bfloat16: a tensor)
     av_vels: np.ndarray    # per-step av_vels for steps [0, step)
     step: int
     shape: tuple           # (nz, ny, nx)
@@ -103,7 +129,7 @@ class Checkpoint3D:
 def save3d(path: str | Path, f: np.ndarray, av_vels: np.ndarray, step: int,
            *, omega: float, density: float, accel: float) -> None:
     """Atomic write, like `save`, with the 3-D grid/physics signature."""
-    f = np.asarray(f)
+    f = lattice_array(f)
     _atomic_savez(
         Path(path), version=FORMAT_VERSION, kind="d3q19", f=f,
         av_vels=np.asarray(av_vels, np.float64), step=int(step),
@@ -122,7 +148,7 @@ def load3d(path: str | Path, expect_shape: tuple | None = None,
         if str(z.get("kind", "")) != "d3q19":
             raise ValueError(f"{path} is not a 3-D (d3q19) checkpoint")
         ck = Checkpoint3D(
-            f=z["f"], av_vels=z["av_vels"], step=int(z["step"]),
+            f=lattice_of(z["f"]), av_vels=z["av_vels"], step=int(z["step"]),
             shape=(int(z["nz"]), int(z["ny"]), int(z["nx"])),
             omega=float(z["omega"]), density=float(z["density"]),
             accel=float(z["accel"]),

@@ -13,6 +13,10 @@ and 5. The writers go through the native C++ library (`native/lbmio.cpp`,
 `utils.native_io`) when it loads, else through the pure-Python code below;
 the bytes are the same either way. A native writer that fails raises
 OSError.
+
+A bfloat16 state (a host tensor, `state.host_state`) has its fields computed
+per operation in bfloat16, as the JAX package computes them on an ml_dtypes
+array, and written from their exact float32 values: the same bytes.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .params import Params
 from .state import macroscopics
@@ -42,8 +47,30 @@ def read_av_vels(path: str | Path) -> np.ndarray:
     return np.asarray(vals, dtype=np.float64)
 
 
-def final_state_fields(params: Params, obstacle_mask: np.ndarray, f: np.ndarray):
+def _fields_bf16(params: Params, obstacle_mask: np.ndarray, f: torch.Tensor):
+    """`final_state_fields` of a host bfloat16 state: every operation in
+    bfloat16, in numpy's order (the sum over speeds one speed after the
+    other); float32 arrays of the results."""
+    def c(x):
+        return torch.tensor(x, dtype=torch.bfloat16)
+
+    rho = f[0] + f[1] + f[2] + f[3] + f[4] + f[5] + f[6] + f[7] + f[8]
+    u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7])) / rho
+    u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8])) / rho
+    u = torch.sqrt(u_x * u_x + u_y * u_y)
+    c_sq = c(1.0) / c(3.0)
+    pressure = rho * c_sq
+    obs = torch.from_numpy(np.asarray(obstacle_mask, bool))
+    zero = c(0.0)
+    fields = (torch.where(obs, zero, u_x), torch.where(obs, zero, u_y), torch.where(obs, zero, u),
+              torch.where(obs, c(params.density) * c_sq, pressure))
+    return tuple(x.float().numpy() for x in fields)
+
+
+def final_state_fields(params: Params, obstacle_mask: np.ndarray, f):
     """Per-cell (u_x, u_y, u, pressure) with obstacle-cell conventions applied."""
+    if isinstance(f, torch.Tensor):
+        return _fields_bf16(params, obstacle_mask, f)
     dtype = f.dtype
     _, u_x, u_y, u = macroscopics(f)
     rho = f.sum(axis=0, dtype=dtype)

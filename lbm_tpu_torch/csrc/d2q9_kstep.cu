@@ -72,6 +72,15 @@
 //     (B1);
 //   * the thread path (kstep_kernel), any other shape: the threads load every
 //     value of the region (cell_source) and store every value of the tile.
+// bfloat16 storage: the thread path loads a region of a bfloat16 state into
+// float buffers, runs the K steps in float and rounds once, at the store of
+// the tile (and of B1's ring), as the TPU kernels compute in float32 and
+// cast at the store; Sum|u| is float. bfloat16 takes no box path: TMA would
+// land the region in shared memory as bfloat16, where the steps need float,
+// and at the flagship's K = 4 its region would start 8 bytes off 16 (the
+// trap above). A bfloat16 pass moves 37 bytes a cell against float32's 73.
+// B2 also takes shared_reciprocal (d2q9_kstep_recip_*): the collision takes
+// 1/rho once and multiplies, as collide_fields(shared_reciprocal=True).
 // The library is compiled with -fmad=false: every product, sum and division
 // rounds on its own, as in collide_fields. The plain PyTorch version on CUDA
 // still differs by about 1e-6 relative in float32 (1e-15 in float64): PyTorch
@@ -83,6 +92,8 @@
 // kernels allocate nothing; the caller passes every buffer.
 
 #include <string.h>
+
+#include <type_traits>
 
 #include "d2q9_box.cuh"
 #include "tile_copy.cuh"
@@ -148,9 +159,11 @@ __device__ __forceinline__ int pick(const int (&a)[4], int s) {
 // its own boundary and its bottom (right) K to the next, by direct index
 // arithmetic: the general pieces below cost B1 about 1% more on an H100
 // (PERF.md).
-template <typename T, bool kEdge>
-__device__ __forceinline__ void write_ring(const T* buf, T* next_hband, T* next_vband,
+template <typename B, typename T, bool kEdge>
+__device__ __forceinline__ void write_ring(const B* buf, T* next_hband, T* next_vband,
                                            const Tiles& t, const Region& g) {
+  using storage::load;
+  using storage::put;
   const int k = t.k, two_k = 2 * k;
   if constexpr (!kEdge) {
     const float inv_tw = 1.0f / g.tw;
@@ -164,7 +177,7 @@ __device__ __forceinline__ void write_ring(const T* buf, T* next_hband, T* next_
       T* dst = next_hband + ((size_t)b * 9 * two_k + i) * t.nx + g.c0 + c;
 #pragma unroll
       for (int q = 0; q < 9; ++q)
-        dst[(size_t)q * two_k * t.nx] = buf[q * g.plane + (ir + k) * g.rw + (c + k)];
+        put(dst[(size_t)q * two_k * t.nx], load(buf[q * g.plane + (ir + k) * g.rw + (c + k)]));
     }
     const float inv_two_k = 1.0f / two_k;
     for (int idx = threadIdx.x; idx < g.th * two_k; idx += kThreads) {
@@ -177,7 +190,7 @@ __device__ __forceinline__ void write_ring(const T* buf, T* next_hband, T* next_
       T* dst = next_vband + ((size_t)b * 9 * t.ny + g.r0 + r) * two_k + i;
 #pragma unroll
       for (int q = 0; q < 9; ++q)
-        dst[(size_t)q * t.ny * two_k] = buf[q * g.plane + (r + k) * g.rw + (ic + k)];
+        put(dst[(size_t)q * t.ny * two_k], load(buf[q * g.plane + (r + k) * g.rw + (ic + k)]));
     }
     return;
   }
@@ -193,7 +206,7 @@ __device__ __forceinline__ void write_ring(const T* buf, T* next_hband, T* next_
              + g.c0 + c;
     const int src = (pick(rows.first, s) + rr + k) * g.rw + (c + k);
 #pragma unroll
-    for (int q = 0; q < 9; ++q) dst[(size_t)q * two_k * t.nx] = buf[q * g.plane + src];
+    for (int q = 0; q < 9; ++q) put(dst[(size_t)q * two_k * t.nx], load(buf[q * g.plane + src]));
   }
   const RingPieces cols = ring_pieces(t.nx, t.tw, t.ntx(), g.tx, g.tw, k);
   const int ncol = cols.count[0] + cols.count[1] + cols.count[2] + cols.count[3];
@@ -206,23 +219,27 @@ __device__ __forceinline__ void write_ring(const T* buf, T* next_hband, T* next_
              + pick(cols.slot, s) + rest;
     const int src = (r + k) * g.rw + (pick(cols.first, s) + rest + k);
 #pragma unroll
-    for (int q = 0; q < 9; ++q) dst[(size_t)q * t.ny * two_k] = buf[q * g.plane + src];
+    for (int q = 0; q < 9; ++q) put(dst[(size_t)q * t.ny * two_k], load(buf[q * g.plane + src]));
   }
 }
 
-template <typename T, bool kInPlace, int kMode, bool kEdge>
+// The thread path. T is the storage type; the region buffers, the steps and
+// the partials are of the compute type C (a bfloat16 state is loaded into
+// float buffers and rounded once, at the store of the tile and of the ring).
+template <typename T, bool kInPlace, int kMode, bool kEdge, bool kRecip = false>
 __global__ void __launch_bounds__(kThreads)
 kstep_kernel(const T* f, const uint8_t* __restrict__ mask, T* out,
              const T* __restrict__ hband, const T* __restrict__ vband,
              T* __restrict__ next_hband, T* __restrict__ next_vband,
-             T* __restrict__ partials, Tiles t, Window win, int accel_row,
-             Coef<T> p) {
+             typename storage::Compute<T>::type* __restrict__ partials, Tiles t, Window win,
+             int accel_row, Coef<typename storage::Compute<T>::type> p) {
+  using C = typename storage::Compute<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k = t.k;
   const int full_plane = t.full_plane();
-  T* buf_a = reinterpret_cast<T*>(smem_raw);
-  T* buf_b = buf_a + 9 * full_plane;
-  T* red = buf_b + 9 * full_plane;  // 2 * kWarps, alternating by step parity
+  C* buf_a = reinterpret_cast<C*>(smem_raw);
+  C* buf_b = buf_a + 9 * full_plane;
+  C* red = buf_b + 9 * full_plane;  // 2 * kWarps, alternating by step parity
   uint8_t* m = reinterpret_cast<uint8_t*>(red + 2 * kWarps);
   uint8_t* row_flag = m + full_plane;
   uint8_t* col_flag = row_flag + t.th + 2 * k;
@@ -243,30 +260,31 @@ kstep_kernel(const T* f, const uint8_t* __restrict__ mask, T* out,
     size_t stride;
     const T* src = cell_source<T, kInPlace>(f, hband, vband, t, g, r, c, gr, gc, stride);
 #pragma unroll
-    for (int q = 0; q < 9; ++q) buf_a[q * g.plane + idx] = src[q * stride];
+    for (int q = 0; q < 9; ++q) buf_a[q * g.plane + idx] = storage::load(src[q * stride]);
   }
   __syncthreads();
 
-  T* src = buf_a;
-  T* dst = buf_b;
+  C* src = buf_a;
+  C* dst = buf_b;
   if constexpr (kMode == kCopy) {
     if (tid == 0)
-      for (int j = 0; j < k; ++j) partials[(size_t)j * ntiles + bid] = T(0);
+      for (int j = 0; j < k; ++j) partials[(size_t)j * ntiles + bid] = C(0);
   } else {
     for (int j = 1; j <= k; ++j) {
-      const T acc = step_region<T, kMode, false>(src, dst, m, row_flag, col_flag, t, g, j, p);
+      const C acc = step_region<C, C, C, kMode, false, kRecip>(src, dst, m, row_flag, col_flag,
+                                                              t, g, j, p);
       // the barrier inside block_sum also orders this step's writes of dst
       // before the next step's reads
-      const T tot = block_sum<T>(acc, red + (j & 1) * kWarps);
+      const C tot = block_sum<C>(acc, red + (j & 1) * kWarps);
       if (tid == 0) partials[(size_t)(j - 1) * ntiles + bid] = tot;
-      T* tmp = src;
+      C* tmp = src;
       src = dst;
       dst = tmp;
     }
   }
 
-  store_interior<T>(src, out, t, g);
-  if (kInPlace && next_hband != nullptr) write_ring<T, kEdge>(src, next_hband, next_vband, t, g);
+  store_interior(src, out, t, g);
+  if (kInPlace && next_hband != nullptr) write_ring<C, T, kEdge>(src, next_hband, next_vband, t, g);
 }
 
 // ----------------------------------------------------------- box path ----
@@ -320,7 +338,7 @@ __device__ __forceinline__ void write_ring_cols(const T* tile, T* next_vband, co
   }
 }
 
-template <typename T, bool kInPlace, int kMode>
+template <typename T, bool kInPlace, int kMode, bool kRecip = false>
 __global__ void __launch_bounds__(kThreads)
 kstep_box_kernel(const __grid_constant__ Maps maps, const T* f, const uint8_t* __restrict__ mask,
                  T* out, const T* __restrict__ hband, const T* __restrict__ vband,
@@ -432,10 +450,11 @@ kstep_box_kernel(const __grid_constant__ Maps maps, const T* f, const uint8_t* _
     for (int j = 1; j <= k; ++j) {
       T acc;
       if (j < k) {
-        acc = step_region<T, kMode, false>(src, dst, m, row_flag, col_flag, t, g, j, p);
+        acc = step_region<T, T, T, kMode, false, kRecip>(src, dst, m, row_flag, col_flag, t, g,
+                                                         j, p);
       } else {
-        acc = step_region<T, kMode, true>(src, dst, m, row_flag, col_flag, dense, at_origin, j,
-                                          p);
+        acc = step_region<T, T, T, kMode, true, kRecip>(src, dst, m, row_flag, col_flag, dense,
+                                                        at_origin, j, p);
         tile_copy::fence_proxy_async();  // the dense tile, before the box store reads it
       }
       // the barrier inside block_sum also orders this step's writes of dst
@@ -522,35 +541,36 @@ bool box_fits(const Tiles& t, int elem, bool in_place, const void* f, const void
   return ok;
 }
 
-template <typename T>
+template <typename C>
 int sum_partials(const void* partials, void* tot, Tiles t, cudaStream_t stream) {
-  sum_partials_kernel<T><<<t.k, kThreads, 0, stream>>>(
-      static_cast<const T*>(partials), t.ntx() * t.nty(), static_cast<T*>(tot));
+  sum_partials_kernel<C><<<t.k, kThreads, 0, stream>>>(
+      static_cast<const C*>(partials), t.ntx() * t.nty(), static_cast<C*>(tot));
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kInPlace, int kMode, bool kEdge>
+template <typename T, bool kInPlace, int kMode, bool kEdge, bool kRecip>
 int launch_edge(const void* f, const void* mask, void* out, const void* hband,
                 const void* vband, void* next_hband, void* next_vband,
                 void* partials, void* tot, Tiles t, Window win,
                 int accel_row, double omega, double w1, double w2,
                 cudaStream_t stream) {
-  const Coef<T> p{T(omega), T(1.0 - omega), T(w1), T(w2)};
-  const size_t smem = smem_bytes(t, sizeof(T));
+  using C = typename storage::Compute<T>::type;
+  const Coef<C> p{C(omega), C(1.0 - omega), C(w1), C(w2)};
+  const size_t smem = smem_bytes(t, sizeof(C));
   cudaError_t err = cudaFuncSetAttribute(
-      kstep_kernel<T, kInPlace, kMode, kEdge>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kstep_kernel<T, kInPlace, kMode, kEdge, kRecip>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(t.ntx(), t.nty());
-  kstep_kernel<T, kInPlace, kMode, kEdge><<<grid, kThreads, smem, stream>>>(
+  kstep_kernel<T, kInPlace, kMode, kEdge, kRecip><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(f), static_cast<const uint8_t*>(mask),
       static_cast<T*>(out), static_cast<const T*>(hband),
       static_cast<const T*>(vband), static_cast<T*>(next_hband),
-      static_cast<T*>(next_vband), static_cast<T*>(partials), t, win,
+      static_cast<T*>(next_vband), static_cast<C*>(partials), t, win,
       accel_row, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return sum_partials<T>(partials, tot, t, stream);
+  return sum_partials<C>(partials, tot, t, stream);
 }
 
 // The tensor maps of a box-path launch, each encoded once per pointer and
@@ -570,7 +590,7 @@ int encode_maps(Maps& maps, const Tiles& t, int elem, bool in_place, const void*
   return rc;
 }
 
-template <typename T, bool kInPlace, int kMode>
+template <typename T, bool kInPlace, int kMode, bool kRecip>
 int launch_box(const void* f, const void* mask, void* out, const void* hband,
                const void* vband, void* next_hband, void* next_vband,
                void* partials, void* tot, Tiles t, Window win,
@@ -583,57 +603,71 @@ int launch_box(const void* f, const void* mask, void* out, const void* hband,
   if (rc) return rc;
   const Coef<T> p{T(omega), T(1.0 - omega), T(w1), T(w2)};
   const size_t smem = box_smem(t, E).total;
-  cudaError_t err = cudaFuncSetAttribute(kstep_box_kernel<T, kInPlace, kMode>,
+  cudaError_t err = cudaFuncSetAttribute(kstep_box_kernel<T, kInPlace, kMode, kRecip>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kstep_box_kernel<T, kInPlace, kMode><<<dim3(t.ntx(), t.nty()), kThreads, smem, stream>>>(
-      maps, static_cast<const T*>(f), static_cast<const uint8_t*>(mask), static_cast<T*>(out),
-      static_cast<const T*>(hband), static_cast<const T*>(vband), static_cast<T*>(next_hband),
-      static_cast<T*>(next_vband), static_cast<T*>(partials), t, win, accel_row, p);
+  kstep_box_kernel<T, kInPlace, kMode, kRecip>
+      <<<dim3(t.ntx(), t.nty()), kThreads, smem, stream>>>(
+          maps, static_cast<const T*>(f), static_cast<const uint8_t*>(mask),
+          static_cast<T*>(out), static_cast<const T*>(hband), static_cast<const T*>(vband),
+          static_cast<T*>(next_hband), static_cast<T*>(next_vband), static_cast<T*>(partials),
+          t, win, accel_row, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return sum_partials<T>(partials, tot, t, stream);
 }
 
-template <typename T, bool kInPlace, int kMode>
+// A bfloat16 state runs on the thread path only: the box path would land the
+// region in shared memory as bfloat16, where the steps need float
+// (d2q9_kstep.choose_path gives it the thread path; a box launch is refused).
+template <typename T>
+constexpr bool kHasBoxPath = !std::is_same<T, __nv_bfloat16>::value;
+
+template <typename T, bool kInPlace, int kMode, bool kRecip>
 int launch_mode(const void* f, const void* mask, void* out, const void* hband,
                 const void* vband, void* next_hband, void* next_vband,
                 void* partials, void* tot, Tiles t, Window win,
                 int accel_row, int path, double omega, double w1, double w2,
                 cudaStream_t stream) {
-  if (path == kBoxPath)
-    return launch_box<T, kInPlace, kMode>(f, mask, out, hband, vband, next_hband, next_vband,
-                                          partials, tot, t, win, accel_row, omega, w1, w2,
-                                          stream);
+  if (path == kBoxPath) {
+    if constexpr (kHasBoxPath<T>)
+      return launch_box<T, kInPlace, kMode, kRecip>(f, mask, out, hband, vband, next_hband,
+                                                    next_vband, partials, tot, t, win,
+                                                    accel_row, omega, w1, w2, stream);
+    return (int)cudaErrorInvalidValue;
+  }
   if (path != kThreadPath) return (int)cudaErrorInvalidValue;
   return has_edges(t)
-      ? launch_edge<T, kInPlace, kMode, true>(f, mask, out, hband, vband, next_hband, next_vband,
-                                              partials, tot, t, win, accel_row, omega, w1, w2,
-                                              stream)
-      : launch_edge<T, kInPlace, kMode, false>(f, mask, out, hband, vband, next_hband,
-                                               next_vband, partials, tot, t, win, accel_row,
-                                               omega, w1, w2, stream);
+      ? launch_edge<T, kInPlace, kMode, true, kRecip>(f, mask, out, hband, vband, next_hband,
+                                                      next_vband, partials, tot, t, win,
+                                                      accel_row, omega, w1, w2, stream)
+      : launch_edge<T, kInPlace, kMode, false, kRecip>(f, mask, out, hband, vband, next_hband,
+                                                       next_vband, partials, tot, t, win,
+                                                       accel_row, omega, w1, w2, stream);
 }
 
-template <typename T, bool kInPlace>
+// kRecip (B2's shared_reciprocal) changes the collision only, so it takes
+// the full mode alone.
+template <typename T, bool kInPlace, bool kRecip = false>
 int launch(const void* f, const void* mask, void* out, const void* hband,
            const void* vband, void* next_hband, void* next_vband,
            void* partials, void* tot, int path, Tiles t, Window win,
            int accel_row, int mode, double omega, double w1, double w2,
            cudaStream_t stream) {
-  switch (mode) {
-    case kFull:
-      return launch_mode<T, kInPlace, kFull>(f, mask, out, hband, vband, next_hband,
-                                             next_vband, partials, tot, t, win, accel_row, path,
-                                             omega, w1, w2, stream);
-    case kStreamOnly:
-      return launch_mode<T, kInPlace, kStreamOnly>(f, mask, out, hband, vband, next_hband,
-                                                   next_vband, partials, tot, t, win,
-                                                   accel_row, path, omega, w1, w2, stream);
-    case kCopy:
-      return launch_mode<T, kInPlace, kCopy>(f, mask, out, hband, vband, next_hband,
-                                             next_vband, partials, tot, t, win, accel_row, path,
-                                             omega, w1, w2, stream);
+  if (mode == kFull)
+    return launch_mode<T, kInPlace, kFull, kRecip>(f, mask, out, hband, vband, next_hband,
+                                                   next_vband, partials, tot, t, win, accel_row,
+                                                   path, omega, w1, w2, stream);
+  if constexpr (!kRecip) {
+    if (mode == kStreamOnly)
+      return launch_mode<T, kInPlace, kStreamOnly, false>(f, mask, out, hband, vband,
+                                                          next_hband, next_vband, partials, tot,
+                                                          t, win, accel_row, path, omega, w1,
+                                                          w2, stream);
+    if (mode == kCopy)
+      return launch_mode<T, kInPlace, kCopy, false>(f, mask, out, hband, vband, next_hband,
+                                                    next_vband, partials, tot, t, win,
+                                                    accel_row, path, omega, w1, w2, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -661,16 +695,23 @@ int launch_inplace(void* f, const void* mask, void* hband, void* vband,
 }
 
 // Blocks of the full-mode kernel of `path` resident on one SM of the current
-// device for this tile and K; 0 on an error.
+// device for this tile and K; 0 on an error (and for a bfloat16 box path).
 template <typename T, bool kInPlace>
 int blocks_per_sm(int path, Tiles t) {
-  const void* kernel = path == kBoxPath
-                           ? (const void*)kstep_box_kernel<T, kInPlace, kFull>
-                           : (const void*)kstep_kernel<T, kInPlace, kFull, false>;
-  const size_t smem = path == kBoxPath ? (size_t)box_smem(t, sizeof(T)).total
-                                       : smem_bytes(t, sizeof(T));
+  using C = typename storage::Compute<T>::type;
+  const void* kernel = nullptr;
+  size_t smem = smem_bytes(t, sizeof(C));
+  if (path == kBoxPath) {
+    if constexpr (kHasBoxPath<T>) {
+      kernel = (const void*)kstep_box_kernel<T, kInPlace, kFull>;
+      smem = (size_t)box_smem(t, sizeof(T)).total;
+    }
+  } else {
+    kernel = (const void*)kstep_kernel<T, kInPlace, kFull, false>;
+  }
   int per_sm = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+  if (kernel == nullptr ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
           cudaSuccess)
@@ -684,7 +725,8 @@ extern "C" {
 
 // B2: out = K steps of f (out must not alias f); tot[K] per-step Sum|u|;
 // partials holds K * ceil(ny/th) * ceil(nx/tw) values of scratch. path is a
-// Path (d2q9_kstep.PATHS), mode a d2q9::Mode.
+// Path (d2q9_kstep.PATHS), mode a d2q9::Mode. In the _bf16 entries f and out
+// are bfloat16, partials and tot float, and path must be the thread path.
 int d2q9_kstep_f32(const void* f, const void* mask, void* out, void* partials,
                    void* tot, int path, D2Q9_ARGS) {
   return launch<float, false>(f, mask, out, nullptr, nullptr, nullptr, nullptr,
@@ -695,6 +737,29 @@ int d2q9_kstep_f64(const void* f, const void* mask, void* out, void* partials,
   return launch<double, false>(f, mask, out, nullptr, nullptr, nullptr, nullptr,
                                partials, tot, path, D2Q9_PASS);
 }
+int d2q9_kstep_bf16(const void* f, const void* mask, void* out, void* partials,
+                    void* tot, int path, D2Q9_ARGS) {
+  return launch<__nv_bfloat16, false>(f, mask, out, nullptr, nullptr, nullptr, nullptr,
+                                      partials, tot, path, D2Q9_PASS);
+}
+
+// B2 with shared_reciprocal (lbm_tpu/ops/d2q9_pallas.py): the collision
+// takes 1/rho once and multiplies. Full mode only; otherwise as above.
+int d2q9_kstep_recip_f32(const void* f, const void* mask, void* out, void* partials,
+                         void* tot, int path, D2Q9_ARGS) {
+  return launch<float, false, true>(f, mask, out, nullptr, nullptr, nullptr, nullptr,
+                                    partials, tot, path, D2Q9_PASS);
+}
+int d2q9_kstep_recip_f64(const void* f, const void* mask, void* out, void* partials,
+                         void* tot, int path, D2Q9_ARGS) {
+  return launch<double, false, true>(f, mask, out, nullptr, nullptr, nullptr, nullptr,
+                                     partials, tot, path, D2Q9_PASS);
+}
+int d2q9_kstep_recip_bf16(const void* f, const void* mask, void* out, void* partials,
+                          void* tot, int path, D2Q9_ARGS) {
+  return launch<__nv_bfloat16, false, true>(f, mask, out, nullptr, nullptr, nullptr, nullptr,
+                                            partials, tot, path, D2Q9_PASS);
+}
 
 // B1: f = K steps of f, in place. hband/vband hold the boundary snapshot:
 // ceil(ny/th) * 9 * 2K * nx and ceil(nx/tw) * 9 * ny * 2K values. With
@@ -702,7 +767,8 @@ int d2q9_kstep_f64(const void* f, const void* mask, void* out, void* partials,
 // boundaries as a previous pass left them in its next_hband/next_vband.
 // next_hband and next_vband (same sizes, or null) receive the snapshot for
 // the next pass; they need th >= K, tw >= K, ny >= K and nx >= K. partials
-// holds K * ceil(ny/th) * ceil(nx/tw) values.
+// holds K * ceil(ny/th) * ceil(nx/tw) values. In the _bf16 entry f and the
+// snapshots are bfloat16, partials and tot float; thread path only.
 int d2q9_kstep_inplace_f32(void* f, const void* mask, void* hband, void* vband,
                            int take_snapshot, void* next_hband, void* next_vband,
                            void* partials, void* tot, int path, D2Q9_ARGS) {
@@ -715,13 +781,23 @@ int d2q9_kstep_inplace_f64(void* f, const void* mask, void* hband, void* vband,
   return launch_inplace<double>(f, mask, hband, vband, take_snapshot, next_hband,
                                 next_vband, partials, tot, path, D2Q9_PASS);
 }
+int d2q9_kstep_inplace_bf16(void* f, const void* mask, void* hband, void* vband,
+                            int take_snapshot, void* next_hband, void* next_vband,
+                            void* partials, void* tot, int path, D2Q9_ARGS) {
+  return launch_inplace<__nv_bfloat16>(f, mask, hband, vband, take_snapshot, next_hband,
+                                       next_vband, partials, tot, path, D2Q9_PASS);
+}
 
 // Blocks of B1 (in_place) or B2 in full mode on `path` that one SM of the
-// current device holds at this tile and K, itemsize 4 or 8; 0 on an error.
+// current device holds at this tile and K, itemsize 2 (bfloat16), 4 or 8; 0
+// on an error.
 int d2q9_kstep_blocks(int itemsize, int in_place, int path, int th, int tw, int k) {
   const Tiles t{th, tw, th, tw, k};
   if (itemsize == 8)
     return in_place ? blocks_per_sm<double, true>(path, t) : blocks_per_sm<double, false>(path, t);
+  if (itemsize == 2)
+    return in_place ? blocks_per_sm<__nv_bfloat16, true>(path, t)
+                    : blocks_per_sm<__nv_bfloat16, false>(path, t);
   return in_place ? blocks_per_sm<float, true>(path, t) : blocks_per_sm<float, false>(path, t);
 }
 

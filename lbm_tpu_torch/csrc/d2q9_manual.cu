@@ -49,6 +49,12 @@
 //     do not wrap, else one value at a time), the next mask in registers
 //     (8 a thread: a region of at most 2,048 cells), the last step straight
 //     to device memory. Shared memory 105,728 B at 16x32, K=4, f32.
+//     A bfloat16 state takes this path alone: its buffers hold float (the
+//     same 105,728 B), a stage receives the region as bfloat16 in its
+//     first half (16 bytes a copy where the region rows allow it, else 4
+//     where pairs do not wrap, else one value at a time by plain loads,
+//     since cp.async takes no 2-byte copy), the first step reads it so, and
+//     the last step rounds to bfloat16 once, at its store.
 // The last round of tiles is only partly full (1024^2 at 16x32: 2,048 tiles
 // over 264 blocks, 7.76 rounds).
 //
@@ -56,6 +62,8 @@
 // every launch and allocates nothing.
 
 #include <string.h>
+
+#include <type_traits>
 
 #include "d2q9_box.cuh"
 #include "tile_copy.cuh"
@@ -116,6 +124,21 @@ __device__ __forceinline__ void issue_region(const T* f, T* stage, const Tiles& 
       cp_async16(stage + q * g.plane + r * g.rw + v * V,
                  f + q * gplane + (size_t)gr * t.nx + cstart + v * V);
     }
+  } else if (sizeof(T) == 2 && cstart % 2 == 0 && g.rw % 2 == 0 && t.nx % 2 == 0 &&
+             reinterpret_cast<uintptr_t>(f) % 4 == 0) {
+    // bfloat16 in pairs: cp.async copies 4, 8 or 16 bytes. An even column
+    // of an even-width grid starts a pair that does not wrap.
+    const int np = g.rw / 2;
+    const float inv_np = 1.0f / np, inv_rh = 1.0f / g.rh;
+    for (int idx = threadIdx.x; idx < 9 * g.rh * np; idx += kThreads) {
+      const int row = div_small(idx, inv_np);
+      const int v = idx - row * np;
+      const int q = div_small(row, inv_rh);
+      const int r = row - q * g.rh;
+      const int gr = wrap(g.r0 - k + r, t.ny);
+      cp_async<4>(stage + q * g.plane + r * g.rw + 2 * v,
+                  f + q * gplane + (size_t)gr * t.nx + wrap(cstart + 2 * v, t.nx));
+    }
   } else {
     const float inv_plane = 1.0f / g.plane, inv_rw = 1.0f / g.rw;
     for (int idx = threadIdx.x; idx < 9 * g.plane; idx += kThreads) {
@@ -125,7 +148,10 @@ __device__ __forceinline__ void issue_region(const T* f, T* stage, const Tiles& 
       const int c = cell - r * g.rw;
       const int gr = wrap(g.r0 - k + r, t.ny);
       const int gc = wrap(g.c0 - k + c, t.nx);
-      cp_async<sizeof(T)>(stage + idx, f + q * gplane + (size_t)gr * t.nx + gc);
+      if constexpr (sizeof(T) >= 4)
+        cp_async<sizeof(T)>(stage + idx, f + q * gplane + (size_t)gr * t.nx + gc);
+      else  // a single bfloat16 by the thread itself, ordered by the round's barrier
+        stage[idx] = f[q * gplane + (size_t)gr * t.nx + gc];
     }
   }
 }
@@ -168,17 +194,23 @@ __device__ __forceinline__ Region tile_region(const Tiles& t, int tile) {
   return region_of<kEdge>(t, tile / t.ntx(), tile % t.ntx());
 }
 
+// The thread path. T is the storage type. The buffers hold values of the
+// compute type C: a stage receives its region in T (a bfloat16 region fills
+// the first half of it), the first step reads it so and writes C, and the
+// steps after it run between C buffers; the last rounds to T at its store.
 template <typename T, int kMode, bool kEdge>
 __global__ void __launch_bounds__(kThreads, 2)
 manual_kernel(const T* __restrict__ f, const uint8_t* __restrict__ mask, T* __restrict__ out,
-              T* __restrict__ partials, Tiles t, Window win, int accel_row, Coef<T> p) {
+              typename storage::Compute<T>::type* __restrict__ partials, Tiles t, Window win,
+              int accel_row, Coef<typename storage::Compute<T>::type> p) {
+  using C = typename storage::Compute<T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k = t.k;
-  const int nbuf = buffer_values<T>(t);
-  T* const stage0 = reinterpret_cast<T*>(smem_raw);
-  T* const stage1 = stage0 + nbuf;
-  T* const work = stage1 + nbuf;
-  T* const red = work + nbuf;  // 2 * kWarps, alternating by step parity
+  const int nbuf = buffer_values<C>(t);
+  C* const stage0 = reinterpret_cast<C*>(smem_raw);
+  C* const stage1 = stage0 + nbuf;
+  C* const work = stage1 + nbuf;
+  C* const red = work + nbuf;  // 2 * kWarps, alternating by step parity
   uint8_t* const mask0 = reinterpret_cast<uint8_t*>(red + 2 * kWarps);
   uint8_t* const mask1 = mask0 + t.full_plane();
   uint8_t* const row_flag = mask1 + t.full_plane();
@@ -190,20 +222,21 @@ manual_kernel(const T* __restrict__ f, const uint8_t* __restrict__ mask, T* __re
 
   int tile = blockIdx.x;  // the grid never exceeds the tile count
   Region g = tile_region<kEdge>(t, tile);
-  issue_region<T>(f, stage0, t, g);
+  issue_region<T>(f, reinterpret_cast<T*>(stage0), t, g);
   cp_async_commit();
   load_mask(mask, t, g, mregs);
   store_mask(mask0, g.plane, mregs);
 
   for (int round = 0; tile < ntiles; ++round, tile += gridDim.x) {
     const bool odd = round & 1;
-    T* const stage = odd ? stage1 : stage0;
+    C* const stage = odd ? stage1 : stage0;
+    const T* const staged = reinterpret_cast<const T*>(stage);  // the region as it landed
     const uint8_t* const m = odd ? mask1 : mask0;
     const int next = tile + gridDim.x;
     Region gn = g;
     if (next < ntiles) {
       gn = tile_region<kEdge>(t, next);
-      issue_region<T>(f, odd ? stage0 : stage1, t, gn);
+      issue_region<T>(f, reinterpret_cast<T*>(odd ? stage0 : stage1), t, gn);
       load_mask(mask, t, gn, mregs);
     }
     cp_async_commit();  // an empty group on the last round keeps the count
@@ -212,24 +245,31 @@ manual_kernel(const T* __restrict__ f, const uint8_t* __restrict__ mask, T* __re
     __syncthreads();  // ... and for every thread; flags set
 
     if constexpr (kMode == kCopy) {
-      store_interior<T>(stage, out, t, g);
+      store_interior(staged, out, t, g);
       if (tid == 0)
-        for (int j = 0; j < k; ++j) partials[(size_t)j * ntiles + tile] = T(0);
+        for (int j = 0; j < k; ++j) partials[(size_t)j * ntiles + tile] = C(0);
       __syncthreads();  // the stage is refilled in the next round
     } else {
-      T* src = stage;
-      T* dst = work;
+      C* src = stage;
+      C* dst = work;
       for (int j = 1; j <= k; ++j) {
-        // the last step's region is the tile: straight to device memory
-        const T acc = j < k
-            ? step_region<T, kMode, false>(src, dst, m, row_flag, col_flag, t, g, j, p)
-            : step_region<T, kMode, true>(src, out, m, row_flag, col_flag, t, g, j, p);
+        // the first step reads the stage as it landed; the last step's
+        // region is the tile: straight to device memory
+        C acc;
+        if (j == 1)
+          acc = j < k
+              ? step_region<T, C, C, kMode, false>(staged, dst, m, row_flag, col_flag, t, g, j, p)
+              : step_region<T, T, C, kMode, true>(staged, out, m, row_flag, col_flag, t, g, j, p);
+        else
+          acc = j < k
+              ? step_region<C, C, C, kMode, false>(src, dst, m, row_flag, col_flag, t, g, j, p)
+              : step_region<C, T, C, kMode, true>(src, out, m, row_flag, col_flag, t, g, j, p);
         // the barrier inside block_sum orders this step's writes before the
         // next step's reads, and the last step's reads of the stage before
         // the next round refills it
-        const T tot = block_sum<T>(acc, red + (j & 1) * kWarps);
+        const C tot = block_sum<C>(acc, red + (j & 1) * kWarps);
         if (tid == 0) partials[(size_t)(j - 1) * ntiles + tile] = tot;
-        T* tmp = src;
+        C* tmp = src;
         src = dst;
         dst = tmp;
       }
@@ -411,9 +451,9 @@ manual_box_kernel(const __grid_constant__ Maps maps, const T* f, const uint8_t* 
       for (int j = 1; j <= k; ++j) {
         T acc;
         if (j < k) {
-          acc = step_region<T, kMode, false>(src, dst, m, row_flag, col_flag, t, g, j, p);
+          acc = step_region<T, T, T, kMode, false>(src, dst, m, row_flag, col_flag, t, g, j, p);
         } else {
-          acc = step_region<T, kMode, true>(src, dst, m, row_flag, col_flag, dense, at_origin,
+          acc = step_region<T, T, T, kMode, true>(src, dst, m, row_flag, col_flag, dense, at_origin,
                                             j, p);
           // every generic write of this round (strips, steps, the dense
           // tile), before the box store reads the tile and a later box
@@ -443,18 +483,29 @@ manual_box_kernel(const __grid_constant__ Maps maps, const T* f, const uint8_t* 
   if (tid == 0) tile_copy::bulk_wait_read<0>();
 }
 
-// Mirrored by d2q9_kstep_manual.smem_bytes on the Python side.
+// Mirrored by d2q9_kstep_manual.smem_bytes on the Python side: the buffers
+// hold the compute type.
 template <typename T>
 size_t smem_bytes(const Tiles& t) {
+  using C = typename storage::Compute<T>::type;
   const size_t plane = t.full_plane();
-  return 3 * (size_t)buffer_values<T>(t) * sizeof(T) + 2 * kWarps * sizeof(T) + 2 * plane
+  return 3 * (size_t)buffer_values<C>(t) * sizeof(C) + 2 * kWarps * sizeof(C) + 2 * plane
          + (t.th + 2 * t.k) + (t.tw + 2 * t.k);
 }
 
-// The kernel of a launch: the box path's, or the thread path's at kEdge.
+// A bfloat16 state runs on the thread path only: the box path lands regions
+// in shared memory as they are stored, where its steps need float.
+template <typename T>
+constexpr bool kHasBoxPath = !std::is_same<T, __nv_bfloat16>::value;
+
+// The kernel of a launch: the box path's, or the thread path's at kEdge
+// (null for a path the type does not have).
 template <typename T, int kMode>
 const void* kernel_of(int path, bool edge) {
-  if (path == kBoxPath) return (const void*)manual_box_kernel<T, kMode>;
+  if (path == kBoxPath) {
+    if constexpr (kHasBoxPath<T>) return (const void*)manual_box_kernel<T, kMode>;
+    return nullptr;
+  }
   return edge ? (const void*)manual_kernel<T, kMode, true>
               : (const void*)manual_kernel<T, kMode, false>;
 }
@@ -462,7 +513,8 @@ const void* kernel_of(int path, bool edge) {
 // Blocks of the persistent grid: as many as are resident at once, at most
 // one per tile. Returns 0 on an error of the occupancy query.
 int grid_blocks(const void* kernel, const Tiles& t, size_t smem) {
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+  if (kernel == nullptr ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
       cudaSuccess)
     return 0;
   int per_sm = 0, device = 0, sms = 0;
@@ -478,7 +530,8 @@ int grid_blocks(const void* kernel, const Tiles& t, size_t smem) {
 // Shared memory of a launch on `path`.
 template <typename T>
 size_t launch_smem(int path, const Tiles& t) {
-  return path == kBoxPath ? (size_t)box_smem(t, sizeof(T)).total : smem_bytes<T>(t);
+  return path == kBoxPath && kHasBoxPath<T> ? (size_t)box_smem(t, sizeof(T)).total
+                                            : smem_bytes<T>(t);
 }
 
 // Whether the box path takes this launch (mirrored by
@@ -492,8 +545,10 @@ template <typename T, int kMode>
 int launch_mode(const void* f, const void* mask, void* out, void* partials, void* tot, int path,
                 Tiles t, Window win, int accel_row, double omega, double w1, double w2,
                 cudaStream_t stream) {
+  using C = typename storage::Compute<T>::type;
   if (path != kBoxPath && path != kThreadPath) return (int)cudaErrorInvalidValue;
-  const Coef<T> p{T(omega), T(1.0 - omega), T(w1), T(w2)};
+  if (path == kBoxPath && !kHasBoxPath<T>) return (int)cudaErrorInvalidValue;
+  const Coef<C> p{C(omega), C(1.0 - omega), C(w1), C(w2)};
   const size_t smem = launch_smem<T>(path, t);
   const void* kernel = kernel_of<T, kMode>(path, has_edges(t));
   Maps maps;
@@ -514,11 +569,12 @@ int launch_mode(const void* f, const void* mask, void* out, void* partials, void
   }
   const T* tf = static_cast<const T*>(f);
   const uint8_t* tm = static_cast<const uint8_t*>(mask);
-  T* tp = static_cast<T*>(partials);
-  if (path == kBoxPath)
-    manual_box_kernel<T, kMode><<<blocks, kThreads, smem, stream>>>(maps, tf, tm, tp, t, win,
-                                                                     accel_row, p);
-  else if (has_edges(t))
+  C* tp = static_cast<C*>(partials);
+  if (path == kBoxPath) {
+    if constexpr (kHasBoxPath<T>)
+      manual_box_kernel<T, kMode><<<blocks, kThreads, smem, stream>>>(maps, tf, tm, tp, t, win,
+                                                                       accel_row, p);
+  } else if (has_edges(t))
     manual_kernel<T, kMode, true><<<blocks, kThreads, smem, stream>>>(
         tf, tm, static_cast<T*>(out), tp, t, win, accel_row, p);
   else
@@ -526,8 +582,8 @@ int launch_mode(const void* f, const void* mask, void* out, void* partials, void
         tf, tm, static_cast<T*>(out), tp, t, win, accel_row, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<T><<<t.k, kThreads, 0, stream>>>(tp, t.nty() * t.ntx(),
-                                                       static_cast<T*>(tot));
+  sum_partials_kernel<C><<<t.k, kThreads, 0, stream>>>(tp, t.nty() * t.ntx(),
+                                                       static_cast<C*>(tot));
   return (int)cudaGetLastError();
 }
 
@@ -582,10 +638,16 @@ int d2q9_manual_f64(const void* f, const void* mask, void* out, void* partials, 
                     int path, D2Q9_ARGS) {
   return launch<double>(f, mask, out, partials, tot, path, D2Q9_PASS);
 }
+// f and out bfloat16, partials and tot float; the thread path only.
+int d2q9_manual_bf16(const void* f, const void* mask, void* out, void* partials, void* tot,
+                     int path, D2Q9_ARGS) {
+  return launch<__nv_bfloat16>(f, mask, out, partials, tot, path, D2Q9_PASS);
+}
 
 // Blocks of B3's persistent grid on the current device for this grid, tile,
-// K, itemsize (4 or 8), mode and path; 0 on an error.
+// K, itemsize (2 for bfloat16, 4 or 8), mode and path; 0 on an error.
 int d2q9_manual_blocks(int ny, int nx, int th, int tw, int k, int itemsize, int mode, int path) {
+  if (itemsize == 2) return blocks_of<__nv_bfloat16>(ny, nx, th, tw, k, mode, path);
   return itemsize == 8 ? blocks_of<double>(ny, nx, th, tw, k, mode, path)
                        : blocks_of<float>(ny, nx, th, tw, k, mode, path);
 }

@@ -9,11 +9,18 @@
 // tiles). A tile's region is its interior plus a K-cell halo on all four
 // sides, at periodic (wrapped) grid indices. Step j updates the region rows
 // [j, rh - j) x columns [j, rw - j), so after K steps the interior is exact.
+//
+// Types: the lattice in device memory is of the storage type S (float,
+// double or bfloat16), the steps run in C = storage::Compute<S>::type, and
+// the region buffers in shared memory hold C (csrc/storage.cuh). A value is
+// rounded to S only where it leaves for device memory.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "storage.cuh"
 
 namespace d2q9 {
 
@@ -87,14 +94,23 @@ __device__ __forceinline__ int div_small(int idx, float inv_w) {
 }
 
 // One cell of collide_fields: s are the nine pulled values, out the nine
-// post-collision values; returns |u| (0 on obstacles).
-template <typename T>
+// post-collision values; returns |u| (0 on obstacles). kRecip is
+// collide_fields' shared_reciprocal: 1/rho once and two products, in place
+// of two divisions by rho.
+template <typename T, bool kRecip = false>
 __device__ __forceinline__ T collide_cell(const T s[9], bool obstacle,
                                           bool accel, const Coef<T>& p,
                                           T out[9]) {
   const T rho = s[0] + s[1] + s[2] + s[3] + s[4] + s[5] + s[6] + s[7] + s[8];
-  const T u_x = (s[1] + s[5] + s[8] - (s[3] + s[6] + s[7])) / rho;
-  const T u_y = (s[2] + s[5] + s[6] - (s[4] + s[7] + s[8])) / rho;
+  T u_x, u_y;
+  if constexpr (kRecip) {
+    const T inv_rho = T(1.0) / rho;
+    u_x = (s[1] + s[5] + s[8] - (s[3] + s[6] + s[7])) * inv_rho;
+    u_y = (s[2] + s[5] + s[6] - (s[4] + s[7] + s[8])) * inv_rho;
+  } else {
+    u_x = (s[1] + s[5] + s[8] - (s[3] + s[6] + s[7])) / rho;
+    u_y = (s[2] + s[5] + s[6] - (s[4] + s[7] + s[8])) / rho;
+  }
   const T u_sq = u_x * u_x + u_y * u_y;
 
   const T c_sq = T(1.0) - u_sq * T(1.5);
@@ -173,9 +189,13 @@ __device__ __forceinline__ void set_flags(const Tiles& t, const Region& g,
 // with kToDevice (the last step, whose region is the tile) to the (9, ny, nx)
 // state dst in device memory. Returns this thread's share of Sum|u| over the
 // cells that count. (The store is chosen by template, not passed as a
-// lambda, which ran measurably slower on an H100; PERF.md.)
-template <typename T, int kMode, bool kToDevice>
-__device__ __forceinline__ T step_region(const T* src, T* dst, const uint8_t* m,
+// lambda, which ran measurably slower on an H100; PERF.md.) Src and Dst are
+// the types of src and dst (C in shared memory; B3's first step reads its
+// staged region in the storage type, a last step to device memory rounds to
+// it); the step runs in T.
+template <typename Src, typename Dst, typename T, int kMode, bool kToDevice,
+          bool kRecip = false>
+__device__ __forceinline__ T step_region(const Src* src, Dst* dst, const uint8_t* m,
                                          const uint8_t* row_flag, const uint8_t* col_flag,
                                          const Tiles& t, const Region& g, int j,
                                          const Coef<T>& p) {
@@ -187,16 +207,17 @@ __device__ __forceinline__ T step_region(const T* src, T* dst, const uint8_t* m,
     const int rr = div_small(idx, inv_w);
     const int r = j + rr, c = j + idx - rr * w;
     const int mid = r * rw + c, up = mid - rw, down = mid + rw;
+    using storage::load;
     T s[9];
-    s[0] = src[0 * plane + mid];
-    s[1] = src[1 * plane + mid - 1];   // east: from the west
-    s[2] = src[2 * plane + up];        // north: from the south
-    s[3] = src[3 * plane + mid + 1];   // west: from the east
-    s[4] = src[4 * plane + down];      // south: from the north
-    s[5] = src[5 * plane + up - 1];    // north-east
-    s[6] = src[6 * plane + up + 1];    // north-west
-    s[7] = src[7 * plane + down + 1];  // south-west
-    s[8] = src[8 * plane + down - 1];  // south-east
+    s[0] = load(src[0 * plane + mid]);
+    s[1] = load(src[1 * plane + mid - 1]);   // east: from the west
+    s[2] = load(src[2 * plane + up]);        // north: from the south
+    s[3] = load(src[3 * plane + mid + 1]);   // west: from the east
+    s[4] = load(src[4 * plane + down]);      // south: from the north
+    s[5] = load(src[5 * plane + up - 1]);    // north-east
+    s[6] = load(src[6 * plane + up + 1]);    // north-west
+    s[7] = load(src[7 * plane + down + 1]);  // south-west
+    s[8] = load(src[8 * plane + down - 1]);  // south-east
     T o[9];
     const uint8_t rf = row_flag[r];
     T u;
@@ -205,16 +226,16 @@ __device__ __forceinline__ T step_region(const T* src, T* dst, const uint8_t* m,
       for (int q = 0; q < 9; ++q) o[q] = s[q];
       u = s[0];
     } else {
-      u = collide_cell<T>(s, m[mid] != 0, (rf & kAccelRow) != 0, p, o);
+      u = collide_cell<T, kRecip>(s, m[mid] != 0, (rf & kAccelRow) != 0, p, o);
     }
     if constexpr (kToDevice) {
       const size_t gplane = (size_t)t.ny * t.nx;
       const size_t gi = (size_t)(g.r0 + r - t.k) * t.nx + (g.c0 + c - t.k);
 #pragma unroll
-      for (int q = 0; q < 9; ++q) dst[q * gplane + gi] = o[q];
+      for (int q = 0; q < 9; ++q) storage::put(dst[q * gplane + gi], o[q]);
     } else {
 #pragma unroll
-      for (int q = 0; q < 9; ++q) dst[q * plane + mid] = o[q];
+      for (int q = 0; q < 9; ++q) storage::put(dst[q * plane + mid], o[q]);
     }
     if (rf & col_flag[c] & kCounts) acc += u;
   }
@@ -222,9 +243,9 @@ __device__ __forceinline__ T step_region(const T* src, T* dst, const uint8_t* m,
 }
 
 // The interior of the region (after the steps, in buf) to out, masked to the
-// grid at an edge tile.
-template <typename T>
-__device__ __forceinline__ void store_interior(const T* buf, T* out, const Tiles& t,
+// grid at an edge tile; rounded to out's type.
+template <typename B, typename S>
+__device__ __forceinline__ void store_interior(const B* buf, S* out, const Tiles& t,
                                                const Region& g) {
   const size_t gplane = (size_t)t.ny * t.nx;
   const float inv_tw = 1.0f / g.tw;
@@ -234,7 +255,8 @@ __device__ __forceinline__ void store_interior(const T* buf, T* out, const Tiles
     const int c = idx - r * g.tw;
     const size_t gi = (size_t)(g.r0 + r) * t.nx + (g.c0 + c);
 #pragma unroll
-    for (int q = 0; q < 9; ++q) out[q * gplane + gi] = buf[q * g.plane + (r + k) * g.rw + (c + k)];
+    for (int q = 0; q < 9; ++q)
+      storage::put(out[q * gplane + gi], storage::load(buf[q * g.plane + (r + k) * g.rw + (c + k)]));
   }
 }
 

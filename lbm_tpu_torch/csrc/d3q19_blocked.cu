@@ -101,12 +101,17 @@
 //     -fmad=false and the shared collide_cell a recomputed halo cell gets
 //     its owner's bits, so the state also equals B6's.
 //
+// bfloat16 lattices run on the thread path: the buffer holds float, the K
+// steps run in float, and the last step (B5: into the ring) rounds once, as
+// the TPU kernels cast at their store. A pass moves 77 bytes a cell.
+//
 // Interface: plain C, one entry per (kernel, dtype), launching on the given
 // stream and returning cudaGetLastError() after every launch (or the error
 // of a tensor map that does not encode). The kernels allocate nothing; the
 // caller passes every buffer.
 
 #include <cstring>
+#include <type_traits>
 
 #include "d3q19_collide.cuh"
 #include "tile_copy.cuh"
@@ -134,11 +139,17 @@ struct Tile {
   int tz, ty, tx;
 };
 
-// 128 registers a thread at float32, 255 at float64 (19 + 19 values in flight)
+// 128 registers a thread at float32 (and bfloat16, which steps in float), 255
+// at float64 (19 + 19 values in flight)
 template <typename T>
 struct MaxThreads {
-  static constexpr int value = sizeof(T) == 4 ? 512 : 256;
+  static constexpr int value = sizeof(T) == 8 ? 256 : 512;
 };
+
+// A bfloat16 lattice takes the thread path only: the boxes would land it in
+// shared memory as bfloat16, where the steps need float.
+template <typename T>
+constexpr bool kHasBoxPath = !std::is_same<T, __nv_bfloat16>::value;
 
 // The extended tile, (ez, ey, ex) cells (the tile and K a side), and the
 // buffer that holds it in shared memory: nz_b planes of ny_b rows of sx
@@ -185,12 +196,14 @@ __host__ __device__ inline size_t bar_offset(const Ext& e) {
   return ((size_t)kQ * e.pitch * sizeof(T) + e.cells + 7) / 8 * 8;
 }
 
-// Dynamic shared memory of a block: 19 values and a mask byte a cell of the
-// buffer; the box path adds 128 bytes of slack to align the base and the
-// mbarrier (d3q19_kstep_blocked.shared_bytes and box_shared_bytes).
+// Dynamic shared memory of a block: 19 values of the compute type and a mask
+// byte a cell of the buffer; the box path adds 128 bytes of slack to align
+// the base and the mbarrier (d3q19_kstep_blocked.shared_bytes and
+// box_shared_bytes).
 template <typename T>
 size_t shared_bytes(const Ext& e, bool box) {
-  return box ? 128 + bar_offset<T>(e) + 8 : (size_t)e.cells * (kQ * sizeof(T) + 1);
+  using C = typename storage::Compute<T>::type;
+  return box ? 128 + bar_offset<C>(e) + 8 : (size_t)e.cells * (kQ * sizeof(C) + 1);
 }
 
 // Where a launch reads old planes that f no longer holds, and where it writes.
@@ -273,23 +286,30 @@ __device__ void flush_share(const Grid& g, const Tile& t, const Route<T>& r, int
   }
 }
 
+// T is the storage type of the lattice (f, the snapshot, the ring); the
+// buffer, the steps and the partials are of its compute type C, and a value
+// is rounded to T where the last step (or the copy mode) stores it.
 template <typename T, int kMode, bool kBox>
 __global__ void __launch_bounds__(MaxThreads<T>::value)
 blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__ f,
-               const uint8_t* __restrict__ mask, T* __restrict__ partials, Grid g, Tile t, int k,
-               Route<T> r, Window win, Coef<T> p) {
+               const uint8_t* __restrict__ mask,
+               typename storage::Compute<T>::type* __restrict__ partials, Grid g, Tile t, int k,
+               Route<T> r, Window win, Coef<typename storage::Compute<T>::type> p) {
+  using C = typename storage::Compute<T>::type;
+  using storage::load;
+  using storage::put;
   if ((int)blockIdx.z >= r.tile_rows) {  // B5: an extra block that flushes a ring row
     flush_share<T>(g, t, r, r.flush_row0 + (int)blockIdx.z - r.tile_rows);
     return;
   }
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[MaxThreads<T>::value / 32];
+  __shared__ C red[MaxThreads<T>::value / 32];
   const Ext e = ext_of(t, k, sizeof(T), kBox);
   unsigned char* smem = kBox ? tile_copy::align128<unsigned char>(smem_raw) : smem_raw;
   // speed q of extended-tile cell (lz, ly, lx) at buf[q * pitch + c + SHIFT(q)],
   // c = (lz - oz) * sz + (ly - oy) * sy + lp + lx (see Ext)
-  T* buf = reinterpret_cast<T*>(smem);
-  uint8_t* obst = smem + (size_t)kQ * e.pitch * sizeof(T);  // obst[c]
+  C* buf = reinterpret_cast<C*>(smem);
+  uint8_t* obst = smem + (size_t)kQ * e.pitch * sizeof(C);  // obst[c]
   const int ez = e.ez, ey = e.ey, ex = e.ex, pitch = e.pitch;
   const int sz = (ey - 2 * e.oy) * e.sx, sy = e.sx;  // strides of the buffer
   // the box path's shift of speed q: SHIFT(q) = dz_q zs + dy_q ys (none in
@@ -331,11 +351,11 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
       }
       // all the loads first, each under its own predicate, so that they are
       // in flight together; a slot nobody reads gets a zero
-      T v[kQ];
+      C v[kQ];
 #define LOAD(q, dz, dy, dx, opp)                                     \
   v[q] = (keep || (zin[1 + (dz)] && yin[1 + (dy)] && xin[1 + (dx)])) \
-             ? src[(size_t)(q) * src_vol]                            \
-             : T(0);
+             ? load(src[(size_t)(q) * src_vol])                      \
+             : C(0);
       D3Q19_SPEEDS(LOAD)
 #undef LOAD
 #pragma unroll
@@ -346,7 +366,7 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
     // e_q (copy mode: none, it steps nothing). The mbarrier completes once,
     // on parity 0, when all their bytes (zeros beyond the grid included)
     // have landed.
-    uint64_t* bar = reinterpret_cast<uint64_t*>(smem + bar_offset<T>(e));
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem + bar_offset<C>(e));
     if (tid == 0) {
       tile_copy::mbar_init(bar, 1);
       tile_copy::mbar_expect_tx(bar, (uint32_t)((size_t)kQ * e.cells * sizeof(T)));
@@ -387,10 +407,10 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
         if (r.snap != nullptr && uz >= g.nz && z < r.nsnap)
           src = r.snap + (size_t)q * r.nsnap * plane + (size_t)z * plane;
         src += (size_t)wrap_near(uy, g.ny) * g.nx;
-        T* dst = buf + q * pitch + bz * sz + by * sy + e.lp;
+        C* dst = buf + q * pitch + bz * sz + by * sy + e.lp;
         for (int lx = 0; lx < ex; ++lx) {
           const int ux = x0 + lx;
-          if (row_out || (unsigned)ux >= (unsigned)g.nx) dst[lx] = src[wrap_near(ux, g.nx)];
+          if (row_out || (unsigned)ux >= (unsigned)g.nx) dst[lx] = load(src[wrap_near(ux, g.nx)]);
         }
       }
     }
@@ -400,7 +420,7 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
   const size_t bid = ((size_t)row * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   if (kMode == kCopy) {
     if (tid == 0)
-      for (int j = 0; j < k; ++j) partials[(size_t)j * r.nblocks + bid] = T(0);
+      for (int j = 0; j < k; ++j) partials[(size_t)j * r.nblocks + bid] = C(0);
     // the tile's own cells in the grid, as loaded
     const FastDiv ft_x = fast_div(t.tx), ft_y = fast_div(t.ty);
     for (int i = tid; i < t.tz * t.ty * t.tx; i += nthreads) {
@@ -411,7 +431,7 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
       const int c = (k + z - e.oz) * sz + (k + y - e.oy) * sy + e.lp + k + x;
       T* dst = r.out + (size_t)(oz - r.out_z0) * plane + (size_t)oy * g.nx + ox;
 #pragma unroll
-      for (int q = 0; q < kQ; ++q) dst[(size_t)q * r.out_vol] = buf[q * pitch + c];
+      for (int q = 0; q < kQ; ++q) put(dst[(size_t)q * r.out_vol], buf[q * pitch + c]);
     }
   } else {
     for (int j = 1; j <= k; ++j) {
@@ -420,7 +440,7 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
       const FastDiv f_x = fast_div(rx), f_y = fast_div(ry);
       const bool pull = (j & 1) != 0;
       const bool last = j == k;  // the region is the tile
-      T usum = T(0);
+      C usum = C(0);
       for (int i = tid; i < rcells; i += nthreads) {
         int lz, ly, lx;
         decode(i, f_x, f_y, &lz, &ly, &lx);
@@ -431,7 +451,7 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
                        lx < k + t.tx && oz < g.nz && oy < g.ny && ox < g.nx;
         if (last && !own) continue;
         const int c = (lz - e.oz) * sz + (ly - e.oy) * sy + e.lp + lx;
-        T s[kQ], o[kQ];
+        C s[kQ], o[kQ];
         // an odd step pulls speed q of cell c from slot (c - e_q, q); an even
         // one finds it in (c, opp(q)) (the AA pattern)
         if (pull) {
@@ -444,7 +464,7 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
           D3Q19_SPEEDS(LOAD)
 #undef LOAD
         }
-        T u;
+        C u;
         if (kMode == kStreamOnly) {
 #pragma unroll
           for (int q = 0; q < kQ; ++q) o[q] = s[q];
@@ -452,12 +472,12 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
         } else {
           const int z = wrap_near(oz, g.nz);
           const bool accel = wrap_near(z + win.plane_offset, win.global_nz) == win.accel_plane;
-          u = collide_cell<T>(s, obst[c] != 0, accel, p, o);
+          u = collide_cell<C>(s, obst[c] != 0, accel, p, o);
         }
         if (last) {  // straight to device memory
           T* dst = r.out + (size_t)(oz - r.out_z0) * plane + (size_t)oy * g.nx + ox;
 #pragma unroll
-          for (int q = 0; q < kQ; ++q) dst[(size_t)q * r.out_vol] = o[q];
+          for (int q = 0; q < kQ; ++q) put(dst[(size_t)q * r.out_vol], o[q]);
         } else if (pull) {
 #define STORE(q, dz, dy, dx, opp) \
   buf[(q) * pitch + c - ((dz) * (sz - zs) + (dy) * (sy - ys) + (dx))] = o[opp];
@@ -472,7 +492,7 @@ blocked_kernel(const __grid_constant__ CUtensorMap region, const T* __restrict__
             oy < win.row_hi)
           usum += u;
       }
-      const T tot = block_sum<T>(usum, red, tid, nthreads >> 5);
+      const C tot = block_sum<C>(usum, red, tid, nthreads >> 5);
       if (tid == 0) partials[(size_t)(j - 1) * r.nblocks + bid] = tot;
       __syncthreads();
     }
@@ -549,9 +569,9 @@ int region_map(CUtensorMap* map, const void* f, const Grid& g, const Tile& t, in
 }
 
 // B7: out = K steps of f, one launch over all tiles. out and f are distinct.
-template <typename T, int kMode, bool kBox>
+template <typename T, int kMode, bool kBox, typename C = typename storage::Compute<T>::type>
 int two_stream(const void* f, const void* mask, void* out, void* partials, void* tot, Grid g,
-               Tile t, int threads, int k, Window win, Coef<T> p, cudaStream_t stream) {
+               Tile t, int threads, int k, Window win, Coef<C> p, cudaStream_t stream) {
   Tiling tl;
   cudaError_t err = make_tiling<T, kMode, kBox>(g, t, threads, k, &tl);
   if (err != cudaSuccess) return (int)err;
@@ -562,10 +582,10 @@ int two_stream(const void* f, const void* mask, void* out, void* partials, void*
                    tl.nblocks, nullptr, 0, 0, nullptr};
   blocked_kernel<T, kMode, kBox><<<dim3(tl.gx, tl.gy, tl.gz), threads, tl.smem, stream>>>(
       map, static_cast<const T*>(f), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(partials), g, t, k, r, win, p);
+      static_cast<C*>(partials), g, t, k, r, win, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return sum_partials<T>(static_cast<const T*>(partials), tl.nblocks, k, static_cast<T*>(tot),
+  return sum_partials<C>(static_cast<const C*>(partials), tl.nblocks, k, static_cast<C*>(tot),
                          stream);
 }
 
@@ -574,9 +594,9 @@ int two_stream(const void* f, const void* mask, void* out, void* partials, void*
 // `row` steps z-row `row` of tiles into ring slot row % (lag + 2) and, with
 // a second z-layer of blocks, flushes ring row row - lag - 1 into f; one
 // last launch of flush blocks alone flushes the rows left.
-template <typename T, int kMode, bool kBox>
+template <typename T, int kMode, bool kBox, typename C = typename storage::Compute<T>::type>
 int in_place(void* f, const void* mask, void* ring, void* snap, void* partials, void* tot,
-             Grid g, Tile t, int threads, int k, Window win, Coef<T> p, cudaStream_t stream) {
+             Grid g, Tile t, int threads, int k, Window win, Coef<C> p, cudaStream_t stream) {
   Tiling tl;
   cudaError_t err = make_tiling<T, kMode, kBox>(g, t, threads, k, &tl);
   if (err != cudaSuccess) return (int)err;
@@ -598,7 +618,7 @@ int in_place(void* f, const void* mask, void* ring, void* snap, void* partials, 
                      tl.nblocks, ring_t, ring_rows, flush, lattice};
     blocked_kernel<T, kMode, kBox>
         <<<dim3(tl.gx, tl.gy, flush >= 0 ? 2 : 1), threads, tl.smem, stream>>>(
-            map, lattice, static_cast<const uint8_t*>(mask), static_cast<T*>(partials), g, t,
+            map, lattice, static_cast<const uint8_t*>(mask), static_cast<C*>(partials), g, t,
             k, r, win, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -607,11 +627,11 @@ int in_place(void* f, const void* mask, void* ring, void* snap, void* partials, 
   const int first = tl.gz - lag - 1 > 0 ? tl.gz - lag - 1 : 0;
   const Route<T> r{nullptr, 0, nullptr, 0, 0, 0, 0, tl.nblocks, ring_t, ring_rows, first, lattice};
   blocked_kernel<T, kMode, kBox><<<dim3(tl.gx, tl.gy, tl.gz - first), threads, 0, stream>>>(
-      map, lattice, static_cast<const uint8_t*>(mask), static_cast<T*>(partials), g, t, k, r,
+      map, lattice, static_cast<const uint8_t*>(mask), static_cast<C*>(partials), g, t, k, r,
       win, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return sum_partials<T>(static_cast<const T*>(partials), tl.nblocks, k, static_cast<T*>(tot),
+  return sum_partials<C>(static_cast<const C*>(partials), tl.nblocks, k, static_cast<C*>(tot),
                          stream);
 }
 
@@ -636,7 +656,10 @@ struct TwoStream {
   struct Of {
     template <typename... A>
     static int run(A... args) {
-      return two_stream<T, kMode, kBox>(args...);
+      if constexpr (kBox && !kHasBoxPath<T>)
+        return (int)cudaErrorInvalidValue;
+      else
+        return two_stream<T, kMode, kBox>(args...);
     }
   };
 };
@@ -647,7 +670,10 @@ struct InPlace {
   struct Of {
     template <typename... A>
     static int run(A... args) {
-      return in_place<T, kMode, kBox>(args...);
+      if constexpr (kBox && !kHasBoxPath<T>)
+        return (int)cudaErrorInvalidValue;
+      else
+        return in_place<T, kMode, kBox>(args...);
     }
   };
 };
@@ -658,12 +684,13 @@ struct InPlace {
   int mode, int path, int nz, int ny, int nx, int tz, int ty, int tx,          \
       int threads, int k, int plane_offset, int valid_lo, int valid_hi,        \
       int global_nz, int row_lo, int row_hi, int accel_plane, double omo,      \
-      double wo0, double wo1, double wo2, double fw1, double fw2, void *stream
+      double wo0, double wo1, double wo2, double fw1, double fw2, double om,   \
+      void *stream
 #define BLOCKED_PASS(T)                                                        \
   Grid{nz, ny, nx}, Tile{tz, ty, tx}, threads, k,                              \
       Window{plane_offset, valid_lo, valid_hi, global_nz, row_lo, row_hi,      \
              accel_plane},                                                     \
-      make_coef<T>(omo, wo0, wo1, wo2, fw1, fw2),                              \
+      make_coef<storage::Compute<T>::type>(omo, wo0, wo1, wo2, fw1, fw2, om),  \
       static_cast<cudaStream_t>(stream)
 
 extern "C" {
@@ -682,6 +709,12 @@ int d3q19_blocked_f64(const void* f, const void* mask, void* out, void* partials
   return dispatch<TwoStream<double>::Of>(mode, path, f, mask, out, partials, tot,
                                           BLOCKED_PASS(double));
 }
+// f and out bfloat16, partials and tot float; the thread path only.
+int d3q19_blocked_bf16(const void* f, const void* mask, void* out, void* partials, void* tot,
+                       BLOCKED_ARGS) {
+  return dispatch<TwoStream<__nv_bfloat16>::Of>(mode, path, f, mask, out, partials, tot,
+                                                 BLOCKED_PASS(__nv_bfloat16));
+}
 
 // B5: f = K steps of f, in place, through the ring and the snapshot.
 int d3q19_blocked_inplace_f32(void* f, const void* mask, void* ring, void* snap,
@@ -693,6 +726,12 @@ int d3q19_blocked_inplace_f64(void* f, const void* mask, void* ring, void* snap,
                               void* partials, void* tot, BLOCKED_ARGS) {
   return dispatch<InPlace<double>::Of>(mode, path, f, mask, ring, snap, partials, tot,
                                         BLOCKED_PASS(double));
+}
+// f, ring and snap bfloat16, partials and tot float; the thread path only.
+int d3q19_blocked_inplace_bf16(void* f, const void* mask, void* ring, void* snap,
+                               void* partials, void* tot, BLOCKED_ARGS) {
+  return dispatch<InPlace<__nv_bfloat16>::Of>(mode, path, f, mask, ring, snap, partials, tot,
+                                               BLOCKED_PASS(__nv_bfloat16));
 }
 
 }  // extern "C"

@@ -3,11 +3,23 @@
 // B7). Every kernel collides a cell through collide_cell below, so a cell that
 // two kernels compute from the same 19 values gets the same bits from both
 // (the libraries are compiled with -fmad=false).
+//
+// Two groupings of the collision, one a library: by default the 'paired'
+// grouping of d3q19.collide_fields; built with -DLBM_D3Q19_PER_SPEED (the
+// library that d3q19.GROUPING = "reference" loads, ops/_build.py) the
+// reference's per-speed grouping, the `GROUPING != "paired"` branch of
+// lbm_tpu/ops/d3q19.py, operation for operation.
+//
+// Types: a kernel stores the lattice in S (float, double or bfloat16) and
+// collides in storage::Compute<S>::type (csrc/storage.cuh): a bfloat16
+// lattice steps in float and rounds once a pass.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "storage.cuh"
 
 namespace {
 
@@ -36,10 +48,11 @@ struct Window {
 };
 
 // one_minus_omega; (W * omega) of the rest, axis and edge speeds; the force
-// density * accel * W of the axis and edge speeds
+// density * accel * W of the axis and edge speeds; omega (the per-speed
+// grouping forms (W * rho) * omega)
 template <typename T>
 struct Coef {
-  T omo, wo0, wo1, wo2, fw1, fw2;
+  T omo, wo0, wo1, wo2, fw1, fw2, om;
 };
 
 __device__ __forceinline__ int wrap(int x, int n) {
@@ -70,6 +83,36 @@ __device__ __forceinline__ T collide_cell(const T s[kQ], bool obstacle,
     return T(0);
   }
   const T c_sq = T(1.0) - u_sq * T(1.5);
+#ifdef LBM_D3Q19_PER_SPEED
+  // the reference's grouping: per speed, e.u summed in the order x, y, z,
+  // then ((W rho) omega) ((4.5 eu)(2/3 + eu) + c_sq)
+  const T w0 = T(1.0 / 3.0), w1 = T(1.0 / 18.0), w2 = T(1.0 / 36.0);
+  o[0] = s[0] * p.omo + ((w0 * rho) * p.om) * c_sq;
+#define SPEED(k, eu_expr, w)                                                          \
+  {                                                                                  \
+    const T eu = (eu_expr);                                                          \
+    o[k] = s[k] * p.omo + (((w) * rho) * p.om) * ((T(4.5) * eu) * (T(2.0 / 3.0) + eu) + c_sq); \
+  }
+  SPEED(1, u_x, w1)
+  SPEED(2, -u_x, w1)
+  SPEED(3, u_y, w1)
+  SPEED(4, -u_y, w1)
+  SPEED(5, u_z, w1)
+  SPEED(6, -u_z, w1)
+  SPEED(7, u_x + u_y, w2)
+  SPEED(8, -u_x + u_y, w2)
+  SPEED(9, u_x + -u_y, w2)
+  SPEED(10, -u_x + -u_y, w2)
+  SPEED(11, u_x + u_z, w2)
+  SPEED(12, -u_x + u_z, w2)
+  SPEED(13, u_x + -u_z, w2)
+  SPEED(14, -u_x + -u_z, w2)
+  SPEED(15, u_y + u_z, w2)
+  SPEED(16, -u_y + u_z, w2)
+  SPEED(17, u_y + -u_z, w2)
+  SPEED(18, -u_y + -u_z, w2)
+#undef SPEED
+#else
   const T w0 = p.wo0 * rho, w1 = p.wo1 * rho, w2 = p.wo2 * rho;
   o[0] = s[0] * p.omo + w0 * c_sq;
   // an opposite pair (k, kb) shares eu, the quadratic term and the weight
@@ -91,6 +134,7 @@ __device__ __forceinline__ T collide_cell(const T s[kQ], bool obstacle,
   PAIR(15, 18, u_y + u_z, w2)
   PAIR(16, 17, -u_y + u_z, w2)
 #undef PAIR
+#endif
   if (accel) {  // + on the speeds that move towards +x, - on their opposites
     o[1] = o[1] + p.fw1;
     o[2] = o[2] - p.fw1;
@@ -134,8 +178,8 @@ sum_partials_kernel(const T* __restrict__ partials, int nblocks,
 
 template <typename T>
 Coef<T> make_coef(double omo, double wo0, double wo1, double wo2, double fw1,
-                  double fw2) {
-  return Coef<T>{T(omo), T(wo0), T(wo1), T(wo2), T(fw1), T(fw2)};
+                  double fw2, double om) {
+  return Coef<T>{T(omo), T(wo0), T(wo1), T(wo2), T(fw1), T(fw2), T(om)};
 }
 
 template <typename T>

@@ -103,6 +103,16 @@
 // sum, division and the square root rounds on its own, as in
 // collide_fields.
 //
+// bfloat16 lattices (B4, B6) run on the step path only, and round once a
+// pass as the TPU kernels do (they step in float32 and cast at the store):
+// the AA pattern keeps a pass's middle steps in the lattice's own slots,
+// which would round every step. So a pass of K > 1 steps its first step from
+// the bfloat16 lattice into a float scratch lattice (19 x 4 bytes a cell,
+// the caller's), its middle steps there in the AA pattern, and its last back
+// into a bfloat16 lattice (launch_rounded). A step moves 77 bytes a cell in
+// bfloat16 (19 x 2 in, 19 x 2 out, the mask), 115 from or to the scratch
+// and 153 within it.
+//
 // Interface: plain C, one entry per (kernel, path, dtype), each launching on
 // the given stream and returning cudaGetLastError() after every launch. The
 // kernels allocate nothing; the caller passes every buffer. The collision
@@ -222,23 +232,29 @@ struct Planes {
 // One cell of one step of kind kKind (kTwoStream, kPullSwap or kLocal) in
 // mode kMode; yo, xo its neighbours along y and x. The pull moves speed q by
 // the mode's displacement: e_q, its z part (kNoRoll) or none (kCopy).
-// Returns |u| (the rest speed in stream_only, 0 in copy).
-template <typename T, int kKind, int kMode, bool kL2>
-__device__ __forceinline__ T step_cell(const Planes<const T>& src, const Planes<T>& dst,
+// Returns |u| (the rest speed in stream_only, 0 in copy). Src and Dst are
+// the types of the two lattices; the step runs in T, the compute type of
+// both (a bfloat16 pass reads or writes a float lattice between its first
+// and its last step; the wave path takes float and double only).
+template <typename Src, typename Dst, int kKind, int kMode, bool kL2,
+          typename T = typename storage::Compute<Src>::type>
+__device__ __forceinline__ T step_cell(const Planes<const Src>& src, const Planes<Dst>& dst,
                                        const size_t yo[3], const size_t xo[3], bool obstacle,
                                        bool accel, const Coef<T>& p, const Policy& pol) {
   constexpr bool kPull = kMode != kCopy, kPlane = kMode == kFull || kMode == kStreamOnly;
   const size_t c = yo[1] + xo[1];
   T s[kQ], o[kQ];
   if (kKind == kLocal) {
-#define LOAD(q, dz, dy, dx, opp) s[q] = ld<T, kL2>(src.base + (size_t)(opp) * src.qs + src.zo[1] + c, pol);
+#define LOAD(q, dz, dy, dx, opp) \
+  s[q] = storage::load(ld<Src, kL2>(src.base + (size_t)(opp) * src.qs + src.zo[1] + c, pol));
     D3Q19_SPEEDS(LOAD)
 #undef LOAD
   } else {
     // pull: speed q comes from the cell at x - e_q (in the mode's displacement)
-#define LOAD(q, dz, dy, dx, opp)                                                       \
-  s[q] = ld<T, kL2>(src.base + (size_t)(q) * src.qs + src.zo[1 - kPull * (dz)] +        \
-                    yo[1 - kPlane * (dy)] + xo[1 - kPlane * (dx)], pol);
+#define LOAD(q, dz, dy, dx, opp)                                                        \
+  s[q] = storage::load(ld<Src, kL2>(src.base + (size_t)(q) * src.qs +                     \
+                                    src.zo[1 - kPull * (dz)] + yo[1 - kPlane * (dy)] +     \
+                                    xo[1 - kPlane * (dx)], pol));
     D3Q19_SPEEDS(LOAD)
 #undef LOAD
   }
@@ -250,14 +266,18 @@ __device__ __forceinline__ T step_cell(const Planes<const T>& src, const Planes<
   } else {
     u = collide_cell<T>(s, obstacle, accel, p, o);
   }
+  Dst r[kQ];  // rounded to the storage type of dst
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) storage::put(r[q], o[q]);
   if (kKind == kPullSwap) {
 #define STORE(q, dz, dy, dx, opp)                                                      \
-  st<T, kL2>(dst.base + (size_t)(q) * dst.qs + dst.zo[1 - kPull * (dz)] +               \
-                 yo[1 - kPlane * (dy)] + xo[1 - kPlane * (dx)], o[opp], pol);
+  st<Dst, kL2>(dst.base + (size_t)(q) * dst.qs + dst.zo[1 - kPull * (dz)] +             \
+                   yo[1 - kPlane * (dy)] + xo[1 - kPlane * (dx)], r[opp], pol);
     D3Q19_SPEEDS(STORE)
 #undef STORE
   } else {
-#define STORE(q, dz, dy, dx, opp) st<T, kL2>(dst.base + (size_t)(q) * dst.qs + dst.zo[1] + c, o[q], pol);
+#define STORE(q, dz, dy, dx, opp) \
+  st<Dst, kL2>(dst.base + (size_t)(q) * dst.qs + dst.zo[1] + c, r[q], pol);
     D3Q19_SPEEDS(STORE)
 #undef STORE
   }
@@ -285,9 +305,11 @@ __device__ __forceinline__ void swap_cell(const Planes<T>& f, const size_t yo[3]
 
 // ---------------------------------------------------------------- step path
 
-template <typename T, int kKind>
+// One step of kind kKind from src (of type Src) to dst (Dst), in the compute
+// type T of both.
+template <typename Src, typename Dst, int kKind, typename T = typename storage::Compute<Src>::type>
 __global__ void __launch_bounds__(kMaxThreads)
-step_kernel(const T* src, T* dst, const uint8_t* __restrict__ mask,
+step_kernel(const Src* src, Dst* dst, const uint8_t* __restrict__ mask,
             T* __restrict__ partials, Grid g, Window win, Coef<T> p) {
   __shared__ T red[kMaxWarps];
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -300,10 +322,10 @@ step_kernel(const T* src, T* dst, const uint8_t* __restrict__ mask,
   if (x < g.nx && y < g.ny && z < g.nz) {
     const size_t vol = (size_t)g.nz * g.ny * g.nx;
     const Neighbours n = neighbours(g, z, y, x);
-    const Planes<const T> from{src, vol, {n.zo[0], n.zo[1], n.zo[2]}};
-    const Planes<T> to{dst, vol, {n.zo[0], n.zo[1], n.zo[2]}};
+    const Planes<const Src> from{src, vol, {n.zo[0], n.zo[1], n.zo[2]}};
+    const Planes<Dst> to{dst, vol, {n.zo[0], n.zo[1], n.zo[2]}};
     const bool accel = wrap(z + win.plane_offset, win.global_nz) == win.accel_plane;
-    u = step_cell<T, kKind, kFull, false>(from, to, n.yo, n.xo,
+    u = step_cell<Src, Dst, kKind, kFull, false>(from, to, n.yo, n.xo,
                                           mask[n.zo[1] + n.yo[1] + n.xo[1]] != 0, accel, p,
                                           Policy{});
     if (z < win.valid_lo || z >= win.valid_hi || y < win.row_lo || y >= win.row_hi)
@@ -355,7 +377,7 @@ int launch_two_stream(const void* f, const void* mask, void* out, void* scratch,
   const T* src = static_cast<const T*>(f);
   for (int j = 1; j <= k; ++j) {
     T* dst = static_cast<T*>((k - j) % 2 == 0 ? out : scratch);
-    step_kernel<T, kTwoStream><<<l.grid, l.block, 0, stream>>>(
+    step_kernel<T, T, kTwoStream><<<l.grid, l.block, 0, stream>>>(
         src, dst, static_cast<const uint8_t*>(mask),
         static_cast<T*>(partials) + (size_t)(j - 1) * l.nblocks, g, win, p);
     const cudaError_t err = cudaGetLastError();
@@ -378,11 +400,11 @@ int launch_inplace(void* f, const void* mask, void* partials, void* tot, Grid g,
   for (int j = 1; j <= k; ++j) {
     T* part = static_cast<T*>(partials) + (size_t)(j - 1) * l.nblocks;
     if (j % 2)
-      step_kernel<T, kPullSwap><<<l.grid, l.block, 0, stream>>>(lattice, lattice, m, part,
-                                                              g, win, p);
+      step_kernel<T, T, kPullSwap><<<l.grid, l.block, 0, stream>>>(lattice, lattice, m, part,
+                                                                 g, win, p);
     else
-      step_kernel<T, kLocal><<<l.grid, l.block, 0, stream>>>(lattice, lattice, m, part, g,
-                                                           win, p);
+      step_kernel<T, T, kLocal><<<l.grid, l.block, 0, stream>>>(lattice, lattice, m, part, g,
+                                                              win, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -393,6 +415,63 @@ int launch_inplace(void* f, const void* mask, void* partials, void* tot, Grid g,
   }
   return sum_partials<T>(static_cast<const T*>(partials), l.nblocks, k,
                          static_cast<T*>(tot), stream);
+}
+
+// A bfloat16 lattice on the step path, rounded once a pass (B6: out = K
+// steps of f; B4: out is f). K = 1 runs in the lattice itself: B6 one
+// two-stream step, B4 step A and the swap, which only moves the values it
+// rounded. K > 1 steps through `scratch`, a float lattice: the first step
+// two-stream from f into scratch, the middle ones A, B, ... in scratch in
+// place, the last from scratch into out, two-stream where scratch is in its
+// natural layout (after a B, or no middle step), else a local step B.
+int launch_rounded(const void* f, const void* mask, void* out, void* scratch,
+                   void* partials, void* tot, Grid g, int bx, int by, int bz, int k,
+                   Window win, Coef<float> p, bool inplace, cudaStream_t stream) {
+  using S = __nv_bfloat16;
+  Launch l;
+  if (!make_launch(g, bx, by, bz, &l) || k < 1) return (int)cudaErrorInvalidValue;
+  if (k > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const S* in = static_cast<const S*>(f);
+  S* res = static_cast<S*>(out);
+  float* mid = static_cast<float*>(scratch);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float* part = static_cast<float*>(partials);
+  cudaError_t err;
+  if (k == 1) {
+    if (inplace) {
+      step_kernel<S, S, kPullSwap><<<l.grid, l.block, 0, stream>>>(res, res, m, part, g, win, p);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      swap_kernel<S><<<l.grid, l.block, 0, stream>>>(res, g);
+    } else {
+      step_kernel<S, S, kTwoStream><<<l.grid, l.block, 0, stream>>>(in, res, m, part, g, win, p);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return sum_partials<float>(part, l.nblocks, k, static_cast<float*>(tot), stream);
+  }
+  step_kernel<S, float, kTwoStream><<<l.grid, l.block, 0, stream>>>(in, mid, m, part, g, win, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  for (int j = 2; j < k; ++j) {
+    float* pj = part + (size_t)(j - 1) * l.nblocks;
+    if (j % 2 == 0)
+      step_kernel<float, float, kPullSwap><<<l.grid, l.block, 0, stream>>>(mid, mid, m, pj, g,
+                                                                           win, p);
+    else
+      step_kernel<float, float, kLocal><<<l.grid, l.block, 0, stream>>>(mid, mid, m, pj, g,
+                                                                        win, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  float* pk = part + (size_t)(k - 1) * l.nblocks;
+  if (k % 2 == 0)  // an even number of middle steps: scratch in its natural layout
+    step_kernel<float, S, kTwoStream><<<l.grid, l.block, 0, stream>>>(mid, res, m, pk, g, win, p);
+  else
+    step_kernel<float, S, kLocal><<<l.grid, l.block, 0, stream>>>(mid, res, m, pk, g, win, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return sum_partials<float>(part, l.nblocks, k, static_cast<float*>(tot), stream);
 }
 
 // ---------------------------------------------------------------- wave path
@@ -471,10 +550,10 @@ __device__ __forceinline__ T wave_cell(int kind, const Planes<const T>& src, con
                                        const size_t yo[3], const size_t xo[3], bool obstacle,
                                        bool accel, const Coef<T>& p, const Policy& pol) {
   if (kind == kTwoStream)
-    return step_cell<T, kTwoStream, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
+    return step_cell<T, T, kTwoStream, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
   if (kind == kPullSwap)
-    return step_cell<T, kPullSwap, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
-  return step_cell<T, kLocal, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
+    return step_cell<T, T, kPullSwap, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
+  return step_cell<T, T, kLocal, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
 }
 
 template <typename T, int kMode>
@@ -658,12 +737,17 @@ int wave_blocks(int mode, int threads) {
   int nz, int ny, int nx, int bx, int by, int bz, int k, int plane_offset,     \
       int valid_lo, int valid_hi, int global_nz, int row_lo, int row_hi,       \
       int accel_plane, double omo, double wo0, double wo1, double wo2,         \
-      double fw1, double fw2, void *stream
+      double fw1, double fw2, double om, void *stream
+#define LBM3_GRID                                                              \
+  Grid{nz, ny, nx}, bx, by, bz, k,                                             \
+      Window{plane_offset, valid_lo, valid_hi, global_nz, row_lo, row_hi,      \
+             accel_plane},                                                     \
+      make_coef<float>(omo, wo0, wo1, wo2, fw1, fw2, om)
 #define LBM3_PASS(T)                                                           \
   Grid{nz, ny, nx}, bx, by, bz, k,                                             \
       Window{plane_offset, valid_lo, valid_hi, global_nz, row_lo, row_hi,      \
              accel_plane},                                                     \
-      make_coef<T>(omo, wo0, wo1, wo2, fw1, fw2),                              \
+      make_coef<T>(omo, wo0, wo1, wo2, fw1, fw2, om),                          \
       static_cast<cudaStream_t>(stream)
 // the wave path's plan: launch blocks, step-path blocks an item, the lag
 #define WAVE_ARGS int blocks, int chunk, int lag
@@ -684,6 +768,16 @@ int d3q19_kstep_f64(const void* f, const void* mask, void* out, void* scratch,
   return launch_two_stream<double>(f, mask, out, scratch, partials, tot, LBM3_PASS(double));
 }
 
+// B6 on a bfloat16 lattice (the step path): out = K steps of f, rounded to
+// bfloat16 once; scratch is a float lattice (null for K = 1), distinct from
+// f and out; partials and tot are float. For K > 1 out may be f's own
+// storage (only the first step reads f, only the last writes out).
+int d3q19_kstep_bf16(const void* f, const void* mask, void* out, void* scratch,
+                     void* partials, void* tot, LBM3_ARGS) {
+  return launch_rounded(f, mask, out, scratch, partials, tot, LBM3_GRID, false,
+                        static_cast<cudaStream_t>(stream));
+}
+
 // B4 on the step path: f = K steps of f, in place, with no other lattice.
 int d3q19_kstep_inplace_f32(void* f, const void* mask, void* partials, void* tot,
                             LBM3_ARGS) {
@@ -692,6 +786,13 @@ int d3q19_kstep_inplace_f32(void* f, const void* mask, void* partials, void* tot
 int d3q19_kstep_inplace_f64(void* f, const void* mask, void* partials, void* tot,
                             LBM3_ARGS) {
   return launch_inplace<double>(f, mask, partials, tot, LBM3_PASS(double));
+}
+// B4 on a bfloat16 lattice: f = K steps of f, rounded once, through the
+// float lattice scratch (null for K = 1, which steps in f itself).
+int d3q19_kstep_inplace_bf16(void* f, const void* mask, void* scratch, void* partials,
+                             void* tot, LBM3_ARGS) {
+  return launch_rounded(f, mask, f, scratch, partials, tot, LBM3_GRID, true,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // The wave path: out = K steps of f in `mode` (index in MODES), in one

@@ -65,10 +65,28 @@ def resolve_device(device=None) -> torch.device:
 
 
 def numpy_dtype(dtype):
+    """The numpy type of a float32 or float64 run (the engines that hold
+    their state in numpy: 'native'); raises for any other."""
     np_dtype = NP_DTYPES.get(dtype)
     if np_dtype is None:
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
     return np_dtype
+
+
+def host_dtype(dtype):
+    """The type a run's state has on the host: numpy's for float32 and
+    float64, torch.bfloat16 for bfloat16 (a CPU tensor, `state.host_state`)."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else numpy_dtype(dtype)
+
+
+# where bfloat16 on the multi-device engines is planned
+SHARDED_BF16 = "ROADMAP.md, A3: bfloat16 on the sharded engines"
+
+
+def refuse_sharded_bf16(dtype) -> None:
+    if dtype == torch.bfloat16:
+        raise ValueError(f"the sharded engines take float32 and float64; bfloat16 is not "
+                         f"implemented there yet ({SHARDED_BF16})")
 
 
 def choose_engine(params: Params, dtype, device: torch.device) -> str:
@@ -111,7 +129,7 @@ def run_simulation(
     if simulate is None:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
 
-    f0, mask = state.to_torch(state.initial_distributions(p, numpy_dtype(dtype)),
+    f0, mask = state.to_torch(state.initial_distributions(p, host_dtype(dtype)),
                               obstacles.mask, device=device)
 
     # warm-up run (kernel build and load) outside the timed one, as
@@ -133,8 +151,8 @@ def run_simulation(
             f_final, av_vels = simulate(p, f0, mask)
             compute_seconds = time.perf_counter() - t0
 
-    av_np = av_vels.cpu().numpy().astype(np.float64)
-    f_np = f_final.cpu().numpy()
+    av_np = av_vels.double().cpu().numpy()
+    f_np = state.host_state(f_final)
     return LbmResult(
         f_final=f_np,
         av_vels=av_np,
@@ -206,6 +224,7 @@ def run_simulation_with_checkpoints(
     if engine == "auto":
         engine = choose_engine(p, dtype, device)
     if engine in SHARDED_ENGINES:
+        refuse_sharded_bf16(dtype)
         n = _sharded_world(engine, strategy, False, num_devices, device)
         return launch.run(_checkpoint_rank, n, p, obstacles.mask, Path(checkpoint_path),
                           checkpoint_every, dtype, engine, strategy or "ppermute", resume,
@@ -215,7 +234,7 @@ def run_simulation_with_checkpoints(
     if run_fn is None and engine != "torch":
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES + SHARDED_ENGINES}")
     plan = _resume_plan(p, Path(checkpoint_path), resume, checkpoint_every, k_steps,
-                        run_fn is not None, numpy_dtype(dtype))
+                        run_fn is not None, host_dtype(dtype))
 
     aw = d2q9.AccelWeights.from_params(p)
     accel_row = p.ny - 2
@@ -279,7 +298,8 @@ def _resume_plan(p: Params, ck_path: Path, resume: bool, checkpoint_every: int,
                  k_steps: int | None, kernel_engine: bool, np_dtype) -> _ResumePlan:
     """Where a checkpointed run starts: the checkpoint's state, step, av_vels
     and K when resuming, else the initial state; checks K against the
-    checkpoint and the chunking."""
+    checkpoint and the chunking. np_dtype is `host_dtype`'s (a bfloat16
+    state is a host tensor)."""
     from ..core import checkpoint
 
     total = p.max_iters
@@ -311,8 +331,8 @@ def _resume_plan(p: Params, ck_path: Path, resume: bool, checkpoint_every: int,
         if kernel_engine and start % k_steps:
             raise ValueError(f"checkpoint step {start} is not a multiple of k_steps "
                              f"({k_steps}); resume with the engine that wrote it")
-        return _ResumePlan(ck_path, checkpoint_every, k_steps, np.asarray(ck.f, np_dtype), start,
-                           [np.asarray(ck.av_vels, np.float64)])
+        return _ResumePlan(ck_path, checkpoint_every, k_steps, state.as_host(ck.f, np_dtype),
+                           start, [np.asarray(ck.av_vels, np.float64)])
     return _ResumePlan(ck_path, checkpoint_every, k_steps, state.initial_distributions(p, np_dtype),
                        0, [])
 
@@ -331,16 +351,16 @@ def _checkpoint_loop(p: Params, plan: _ResumePlan, run_chunk, gather, num_free, 
         n = min(plan.checkpoint_every, total - start)
         f, tot = run_chunk(f, n)
         # divide in f's dtype on the device, as each engine's simulate does
-        av_parts.append((tot / num_free).cpu().numpy().astype(np.float64))
+        av_parts.append((tot / num_free).double().cpu().numpy())
         start += n
-        f_host = gather(f).cpu().numpy()
+        f_host = state.host_state(gather(f))
         if write:
             checkpoint.save(plan.ck_path, f_host, np.concatenate(av_parts), start, p,
                             k_steps=plan.k_steps)
     compute_seconds = time.perf_counter() - t0
 
     av_np = np.concatenate(av_parts) if av_parts else np.zeros(0)
-    f_np = gather(f).cpu().numpy()
+    f_np = state.host_state(gather(f))
     return LbmResult(
         f_final=f_np,
         av_vels=av_np,
@@ -440,6 +460,7 @@ def run_simulation_sharded(
     p = params if num_steps is None else dataclasses.replace(params, max_iters=num_steps)
     if engine not in SHARDED_ENGINES:
         raise ValueError(f"unknown sharded engine {engine!r}; choose from {SHARDED_ENGINES}")
+    refuse_sharded_bf16(dtype)
     n = _sharded_world(engine, strategy, overlap, num_devices, device)
     return launch.run(_sharded_rank, n, p, obstacles.mask, dtype, engine,
                       strategy or "ppermute", overlap, device_type=device.type)

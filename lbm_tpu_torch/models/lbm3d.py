@@ -36,7 +36,7 @@ import torch.distributed as dist
 from ..core import checkpoint, state
 from ..ops import d3q19, d3q19_kstep, d3q19_lattice
 from ..parallel import halo, kstep_sharded_3d, launch, mesh as mesh_lib
-from .lbm import default_num_devices, numpy_dtype, resolve_device
+from .lbm import default_num_devices, host_dtype, numpy_dtype, refuse_sharded_bf16, resolve_device
 
 
 def select_k_steps(engine: str, num_steps: int, checkpoint_every: int, shape=None,
@@ -106,6 +106,7 @@ def run_simulation_with_checkpoints(
             raise ValueError(
                 f"checkpointing supports engines {d3q19.ENGINES + ('sharded-cuda',)}, not "
                 f"{engine!r} (use the z-mesh engine sharded-cuda for checkpointed runs)")
+        refuse_sharded_bf16(dtype)
         n = num_devices or default_num_devices(device)
         launch.check_world(n, device.type)
         return launch.run(_checkpoint_rank, n, mask_np, Path(checkpoint_path), num_steps,
@@ -121,7 +122,7 @@ def run_simulation_with_checkpoints(
             engine, nz, ny, nx, (num_steps, checkpoint_every), k_steps=k_steps, dtype=dtype,
             device=device)
     f_host, start, av_parts = _start_or_resume(
-        Path(checkpoint_path), resume, (nz, ny, nx), physics, numpy_dtype(dtype), num_steps,
+        Path(checkpoint_path), resume, (nz, ny, nx), physics, host_dtype(dtype), num_steps,
         k_steps if kernel_engine else None)
 
     f, mask = state.to_torch3d(f_host, mask_np, device=device)
@@ -184,7 +185,7 @@ def _start_or_resume(ck_path: Path, resume: bool, shape, physics, np_dtype, num_
     if k_steps is not None and start % k_steps:
         raise ValueError(f"checkpoint step {start} is not a multiple of k_steps "
                          f"({k_steps}); resume with the engine config that wrote it")
-    return np.asarray(ck.f, np_dtype), start, [np.asarray(ck.av_vels, np.float64)]
+    return state.as_host(ck.f, np_dtype), start, [np.asarray(ck.av_vels, np.float64)]
 
 
 def _chunks(run_chunk, gather, f, start, num_steps, checkpoint_every, av_parts, num_free,
@@ -201,16 +202,16 @@ def _chunks(run_chunk, gather, f, start, num_steps, checkpoint_every, av_parts, 
         n = min(checkpoint_every, num_steps - start)
         f, tot = run_chunk(f, n)
         # divide in f's dtype on the device, as d3q19.simulate does
-        av_parts.append((tot / num_free).cpu().numpy().astype(np.float64))
+        av_parts.append((tot / num_free).double().cpu().numpy())
         start += n
         full = gather(f)  # every rank takes part in the gather
         if write:
-            f_host = full.cpu().numpy()
+            f_host = state.host_state(full)
             checkpoint.save3d(ck_path, f_host, np.concatenate(av_parts), start, **physics)
     compute_seconds = time.perf_counter() - t0
     if steps_run == 0:  # resumed at the end: the checkpoint's state
         full = gather(f)
-        f_host = full.cpu().numpy() if write else None
+        f_host = state.host_state(full) if write else None
     av = np.concatenate(av_parts) if av_parts else np.zeros(0)
     return f_host, av, compute_seconds, steps_run
 
@@ -395,13 +396,46 @@ def _sharded_rank(engine, nz, ny, nx, kw) -> ShardedRun | None:
                       info.get("block"))
 
 
+def _slice_fields_bf16(f: torch.Tensor, mask: np.ndarray, z: int, density: float):
+    """`final_state_slice_fields` of a host bfloat16 state, each operation as
+    numpy computes it on an ml_dtypes array: rho a sum over the speeds one
+    after the other in bfloat16, each velocity component a dot product
+    accumulated in float32 and rounded once (ml_dtypes' dot), the rest in
+    bfloat16. Returns float32 arrays of the values."""
+    def c(x):
+        return torch.tensor(x, dtype=torch.bfloat16)
+
+    def dot(e):
+        acc = torch.zeros(fz.shape[1:], dtype=torch.float32)
+        for k in range(d3q19_lattice.NUM_SPEEDS):
+            acc = acc + float(e[k]) * fz[k].float()
+        return acc.to(torch.bfloat16)
+
+    fz = f[:, z]
+    rho = fz[0]
+    for k in range(1, d3q19_lattice.NUM_SPEEDS):
+        rho = rho + fz[k]
+    E = d3q19_lattice.E
+    u_x, u_y, u_z = (dot(E[:, 2]) / rho, dot(E[:, 1]) / rho, dot(E[:, 0]) / rho)
+    u = torch.sqrt(u_x * u_x + u_y * u_y + u_z * u_z)
+    c_sq = c(1.0) / c(3.0)
+    obs = np.asarray(mask[z], bool)
+    tobs, zero = torch.from_numpy(obs), c(0.0)
+    fields = (torch.where(tobs, zero, u_x), torch.where(tobs, zero, u_y),
+              torch.where(tobs, zero, u), torch.where(tobs, c(density) * c_sq, rho * c_sq))
+    return (*(x.float().numpy() for x in fields), obs)
+
+
 def final_state_slice_fields(f: np.ndarray, mask: np.ndarray, z: int, density: float):
     """Macroscopic (u_x, u_y, u, pressure, obstacle) on plane z.
 
     u_x/u_y are the in-plane velocity components; `u` is the full 3-D speed
     |u| (so the checker column keeps its physical meaning); pressure is
     rho * c_s^2 with the 2-D writer's obstacle conventions
-    (core/io.final_state_fields)."""
+    (core/io.final_state_fields). f is a numpy array or a host bfloat16
+    tensor (`core.state.host_state`)."""
+    if isinstance(f, torch.Tensor):
+        return _slice_fields_bf16(f, mask, z, density)
     dtype = f.dtype
     fz = np.asarray(f[:, z])
     rho = fz.sum(axis=0, dtype=dtype)

@@ -6,6 +6,10 @@ headers, so a build takes seconds), under `build/lbm_tpu_torch/`
 beside the package, and loaded with ctypes. A library's name carries a hash
 of its source, the headers of `csrc/` and the flags, so an edited source is
 rebuilt and the others are not. Nothing here runs at import time.
+
+A source may also be built as a variant (`VARIANTS`): the same source with
+extra flags, into a library of its own, built only when a caller asks for
+it, so that the default build does not grow.
 """
 
 from __future__ import annotations
@@ -34,13 +38,14 @@ _U = ctypes.c_uint
 _D = ctypes.c_double
 # d2q9_kstep.cu and d2q9_manual.cu: ny .. accel_row, mode, omega, w1, w2, stream
 _D2Q9_SCALARS = [_I] * 13 + [_D, _D, _D, _P]
-# d3q19_kstep.cu: nz .. accel_plane, six collision coefficients, stream
-_D3Q19_SCALARS = [_I] * 14 + [_D] * 6 + [_P]
+# d3q19_kstep.cu: nz .. accel_plane, six collision coefficients and omega,
+# stream
+_D3Q19_SCALARS = [_I] * 14 + [_D] * 7 + [_P]
 # d3q19_kstep.cu's wave entries: blocks, chunk, lag
 _D3Q19_WAVE = [_I] * 3
 # d3q19_blocked.cu: mode, path, nz .. tile, threads, k .. accel_plane, six
-# coefficients, stream
-_D3Q19_BLOCKED_SCALARS = [_I] * 17 + [_D] * 6 + [_P]
+# coefficients and omega, stream
+_D3Q19_BLOCKED_SCALARS = [_I] * 17 + [_D] * 7 + [_P]
 # stencil.cu: image, interior, out, then c, h, w and each kernel's own ints
 # (B9: band, k, windows, path)
 _STENCIL_K = [_P] * 3 + [_I] * 7 + [_P]
@@ -51,15 +56,14 @@ _BLUR_RESIDENT_OPT = [_P] * 5 + [_I] * 9 + [_U, _I, _P]
 # argument types of every C entry point, by source (the file's stem)
 SIGNATURES = {
     "d2q9_kstep": {  # ... partials, tot, path, then the scalars
-        "d2q9_kstep_f32": [_P] * 5 + [_I] + _D2Q9_SCALARS,
-        "d2q9_kstep_f64": [_P] * 5 + [_I] + _D2Q9_SCALARS,
-        "d2q9_kstep_inplace_f32": [_P] * 4 + [_I] + [_P] * 4 + [_I] + _D2Q9_SCALARS,
-        "d2q9_kstep_inplace_f64": [_P] * 4 + [_I] + [_P] * 4 + [_I] + _D2Q9_SCALARS,
+        **{f"d2q9_kstep{kind}_{t}": [_P] * 5 + [_I] + _D2Q9_SCALARS
+           for kind in ("", "_recip") for t in ("f32", "f64", "bf16")},
+        **{f"d2q9_kstep_inplace_{t}": [_P] * 4 + [_I] + [_P] * 4 + [_I] + _D2Q9_SCALARS
+           for t in ("f32", "f64", "bf16")},
         "d2q9_kstep_blocks": [_I] * 6,
     },
     "d2q9_manual": {  # ... partials, tot, path, then the scalars
-        "d2q9_manual_f32": [_P] * 5 + [_I] + _D2Q9_SCALARS,
-        "d2q9_manual_f64": [_P] * 5 + [_I] + _D2Q9_SCALARS,
+        **{f"d2q9_manual_{t}": [_P] * 5 + [_I] + _D2Q9_SCALARS for t in ("f32", "f64", "bf16")},
         "d2q9_manual_blocks": [_I] * 8,
     },
     "copy_floor": {
@@ -75,18 +79,20 @@ SIGNATURES = {
     "d3q19_kstep": {
         "d3q19_kstep_f32": [_P] * 6 + _D3Q19_SCALARS,
         "d3q19_kstep_f64": [_P] * 6 + _D3Q19_SCALARS,
+        "d3q19_kstep_bf16": [_P] * 6 + _D3Q19_SCALARS,  # scratch: a float lattice
         "d3q19_kstep_inplace_f32": [_P] * 4 + _D3Q19_SCALARS,
         "d3q19_kstep_inplace_f64": [_P] * 4 + _D3Q19_SCALARS,
+        "d3q19_kstep_inplace_bf16": [_P] * 5 + _D3Q19_SCALARS,  # f, mask, scratch, ...
         # ... tot, counters, mode, inplace, then the plan and the scalars
         "d3q19_wave_f32": [_P] * 6 + [_I] * 2 + _D3Q19_WAVE + _D3Q19_SCALARS,
         "d3q19_wave_f64": [_P] * 6 + [_I] * 2 + _D3Q19_WAVE + _D3Q19_SCALARS,
         "d3q19_wave_blocks": [_I] * 3,
     },
     "d3q19_blocked": {
-        "d3q19_blocked_f32": [_P] * 5 + _D3Q19_BLOCKED_SCALARS,
-        "d3q19_blocked_f64": [_P] * 5 + _D3Q19_BLOCKED_SCALARS,
-        "d3q19_blocked_inplace_f32": [_P] * 6 + _D3Q19_BLOCKED_SCALARS,
-        "d3q19_blocked_inplace_f64": [_P] * 6 + _D3Q19_BLOCKED_SCALARS,
+        **{f"d3q19_blocked_{t}": [_P] * 5 + _D3Q19_BLOCKED_SCALARS
+           for t in ("f32", "f64", "bf16")},
+        **{f"d3q19_blocked_inplace_{t}": [_P] * 6 + _D3Q19_BLOCKED_SCALARS
+           for t in ("f32", "f64", "bf16")},
     },
     "stencil": {
         "stencil_step_f32": [_P] * 3 + [_I] * 3 + [_P],
@@ -103,7 +109,12 @@ SIGNATURES = {
     },
 }
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+# Variants by name: extra nvcc flags. "per_speed" collides in the reference's
+# per-speed D3Q19 grouping (csrc/d3q19_collide.cuh), the library of the 3-D
+# sources that d3q19.GROUPING = "reference" loads.
+VARIANTS = {"per_speed": ("-DLBM_D3Q19_PER_SPEED",)}
+
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -124,24 +135,34 @@ def source_path(name: str) -> Path:
     return CSRC_DIR / f"{name}.cu"
 
 
-def library_path(name: str) -> Path:
+def flags(variant: str | None = None) -> tuple[str, ...]:
+    """nvcc's flags for a source, or for its `variant`."""
+    if variant is None:
+        return NVCC_FLAGS
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; choose from {sorted(VARIANTS)}")
+    return NVCC_FLAGS + VARIANTS[variant]
+
+
+def library_path(name: str, variant: str | None = None) -> Path:
     source = source_path(name)
     headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(source.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+                            + " ".join(flags(variant)).encode()).hexdigest()[:16]
+    stem = name if variant is None else f"{name}_{variant}"
+    return BUILD_DIR / f"lib{stem}_{digest}.so"
 
 
-def _start_build(name: str):
+def _start_build(name: str, variant: str | None = None):
     """Start nvcc on csrc/<name>.cu unless its current library exists.
     Returns (library path, temporary output, running process or None)."""
-    out = library_path(name)
+    out = library_path(name, variant)
     if out.exists():
         return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source_path(name))]
+    cmd = [nvcc_path(), *flags(variant), "-o", tmp, str(source_path(name))]
     try:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     except BaseException:
@@ -165,16 +186,19 @@ def _finish_build(out: Path, tmp: str | None, proc) -> Path:
     return out
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its current library exists; returns the
-    library's path."""
-    return _finish_build(*_start_build(name))
+def build(name: str, variant: str | None = None) -> Path:
+    """Compile csrc/<name>.cu (as `variant`) unless its current library
+    exists; returns the library's path."""
+    return _finish_build(*_start_build(name, variant))
 
 
-def build_all() -> dict[str, Path]:
+def build_all(variants: dict | None = None) -> dict[str, Path]:
     """Compile every source that needs it, one nvcc each, all started
-    together. Returns {source name: library path}."""
-    started = {name: _start_build(name) for name in SIGNATURES}
+    together, and the variants named in `variants` ({source: [variant, ...]}).
+    Returns {source name (or "name:variant"): library path}."""
+    jobs = [(name, None) for name in SIGNATURES]
+    jobs += [(name, v) for name, vs in (variants or {}).items() for v in vs]
+    started = {(name if v is None else f"{name}:{v}"): _start_build(name, v) for name, v in jobs}
     paths, errors = {}, []
     for name, job in started.items():  # wait for every process before raising
         try:
@@ -186,13 +210,14 @@ def build_all() -> dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, variant: str | None = None) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (as `variant`), built first if
+    needed."""
+    lib = _LIBS.get((name, variant))
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name, variant)))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[(name, variant)] = lib
     return lib

@@ -11,6 +11,12 @@ Every operation is elementwise and rounds on its own, in the grouping of
 (csrc/d2q9_kstep.cu, compiled without FMA contraction) produce the same
 state; only the order of the Sum|u| reduction differs. It is the engine for
 the CPU, the oracle of the kernels, and the 'torch' engine of the driver.
+
+A bfloat16 state steps in bfloat16, every operation rounding to it, as the
+JAX package's plain engine does. JAX rounds a Python scalar to bfloat16
+before it meets a bfloat16 array; PyTorch keeps it in float32. So every
+scalar of the step is first made a 0-dim bfloat16 tensor (`scalar`). In
+float32 and float64 the scalars stay Python floats, as before.
 """
 
 from __future__ import annotations
@@ -21,6 +27,16 @@ import torch
 
 from ..core.params import Params
 from ..utils import profiling
+
+
+def scalar(x: float, like: torch.Tensor, tensor: bool = False):
+    """x as it meets `like` in the JAX package's arithmetic: for a bfloat16
+    tensor a 0-dim bfloat16 tensor (rounded first, as JAX's weak typing
+    rounds a Python scalar to the array's type); else the Python float, or
+    with `tensor` a 0-dim tensor of like's type on like's device."""
+    if like.dtype == torch.bfloat16 or tensor:
+        return torch.tensor(x, dtype=like.dtype, device=like.device)
+    return x
 
 
 class AccelWeights(NamedTuple):
@@ -64,6 +80,7 @@ def collide_fields(
     accel_w1: float,
     accel_w2: float,
     shared_reciprocal: bool = False,
+    tensor_scalars: bool = False,
 ):
     """BGK collision + rebound + accelerated-row force on streamed planes.
 
@@ -75,14 +92,23 @@ def collide_fields(
     The expression grouping is that of main/LastChance.cpp:213-262 and of
     `lbm_tpu.ops.d2q9.collide_fields`. shared_reciprocal=True computes 1/rho
     once and multiplies (one division instead of two), ~1 ulp different per
-    step.
+    step. tensor_scalars=True makes every scalar a 0-dim tensor on the
+    planes' device: the same values, but on CUDA a division by it divides,
+    where PyTorch multiplies by a Python scalar's reciprocal. The kernels'
+    plain version takes it for the float32 pass of a bfloat16 state, whose
+    rounding at the pass's end would turn that ulp into a bfloat16 unit.
     """
     s0, s1, s2, s3, s4, s5, s6, s7, s8 = s
-    one_minus_omega = 1.0 - omega
+
+    def c(x):
+        return scalar(x, s0, tensor_scalars)
+
+    one_minus_omega = c(1.0 - omega)
+    omega_ = c(omega)
 
     rho = s0 + s1 + s2 + s3 + s4 + s5 + s6 + s7 + s8
     if shared_reciprocal:
-        inv_rho = 1.0 / rho
+        inv_rho = c(1.0) / rho
         u_x = (s1 + s5 + s8 - (s3 + s6 + s7)) * inv_rho
         u_y = (s2 + s5 + s6 - (s4 + s7 + s8)) * inv_rho
     else:
@@ -90,29 +116,29 @@ def collide_fields(
         u_y = (s2 + s5 + s6 - (s4 + s7 + s8)) / rho
     u_sq = u_x * u_x + u_y * u_y
 
-    c_sq = 1.0 - u_sq * 1.5
-    ld0 = 4.0 / 9.0 * rho * omega
-    ld1 = rho / 9.0 * omega
-    ld2 = rho / 36.0 * omega
+    c_sq = c(1.0) - u_sq * c(1.5)
+    ld0 = c(4.0 / 9.0) * rho * omega_
+    ld1 = rho / c(9.0) * omega_
+    ld2 = rho / c(36.0) * omega_
     u_s = u_x + u_y
     u_d = -u_x + u_y
 
-    two_thirds = 2.0 / 3.0
+    two_thirds, p45, m45 = c(2.0 / 3.0), c(4.5), c(-4.5)
     out0 = s0 * one_minus_omega + ld0 * c_sq
-    out1 = s1 * one_minus_omega + ld1 * ((4.5 * u_x) * (two_thirds + u_x) + c_sq)
-    out2 = s2 * one_minus_omega + ld1 * ((4.5 * u_y) * (two_thirds + u_y) + c_sq)
-    out3 = s3 * one_minus_omega + ld1 * ((-4.5 * u_x) * (two_thirds - u_x) + c_sq)
-    out4 = s4 * one_minus_omega + ld1 * ((-4.5 * u_y) * (two_thirds - u_y) + c_sq)
-    out5 = s5 * one_minus_omega + ld2 * ((4.5 * u_s) * (two_thirds + u_s) + c_sq)
-    out6 = s6 * one_minus_omega + ld2 * ((4.5 * u_d) * (two_thirds + u_d) + c_sq)
-    out7 = s7 * one_minus_omega + ld2 * ((-4.5 * u_s) * (two_thirds - u_s) + c_sq)
-    out8 = s8 * one_minus_omega + ld2 * ((-4.5 * u_d) * (two_thirds - u_d) + c_sq)
+    out1 = s1 * one_minus_omega + ld1 * ((p45 * u_x) * (two_thirds + u_x) + c_sq)
+    out2 = s2 * one_minus_omega + ld1 * ((p45 * u_y) * (two_thirds + u_y) + c_sq)
+    out3 = s3 * one_minus_omega + ld1 * ((m45 * u_x) * (two_thirds - u_x) + c_sq)
+    out4 = s4 * one_minus_omega + ld1 * ((m45 * u_y) * (two_thirds - u_y) + c_sq)
+    out5 = s5 * one_minus_omega + ld2 * ((p45 * u_s) * (two_thirds + u_s) + c_sq)
+    out6 = s6 * one_minus_omega + ld2 * ((p45 * u_d) * (two_thirds + u_d) + c_sq)
+    out7 = s7 * one_minus_omega + ld2 * ((m45 * u_s) * (two_thirds - u_s) + c_sq)
+    out8 = s8 * one_minus_omega + ld2 * ((m45 * u_d) * (two_thirds - u_d) + c_sq)
 
     # accelerated-row body force folded into the collided state
     # (main/LastChance.cpp:253-261); the adds are exact no-ops off the row
     if accel_mask is not None:
-        aw1 = accel_mask * accel_w1
-        aw2 = accel_mask * accel_w2
+        aw1 = accel_mask * c(accel_w1)
+        aw2 = accel_mask * c(accel_w2)
         out1 = out1 + aw1
         out3 = out3 - aw1
         out5 = out5 + aw2

@@ -8,9 +8,13 @@ design and its bound on the card.
 
 Contract of `stepk` (shared with `d2q9_kstep_inplace.stepk` and
 `d2q9_kstep_manual.stepk`):
-  * f is (9, ny, nx) float32/float64 and contiguous, any ny and nx of at
-    least K; mask is the (ny, nx) obstacle mask (bool or uint8, nonzero =
-    blocked). The tiles of the last row and column are cut to the grid;
+  * f is (9, ny, nx) float32, float64 or bfloat16 and contiguous, any ny and
+    nx of at least K; mask is the (ny, nx) obstacle mask (bool or uint8,
+    nonzero = blocked). The tiles of the last row and column are cut to the
+    grid;
+  * a bfloat16 state is storage only, as in the TPU kernels: a pass steps in
+    float32 and rounds the state to bfloat16 once, at its end; Sum|u| is
+    float32 (`compute_dtype`);
   * row_offset / valid_rows / valid_cols / global_ny describe a
     ghost-extended block as in `lbm_tpu.ops.d2q9_pallas.stepk`: local row r
     is global row r + row_offset, the accelerated row is tested as
@@ -35,8 +39,12 @@ values, rows or tile rows that are not whole 16-byte pieces, e.g. K = 1..3
 in float32; box offsets off 128 bytes in place). The launch reports it in
 `last_path`; a box launch whose tensor map does not encode raises.
 
+B2's `stepk` and `run` also take `shared_reciprocal` (the TPU kernel's
+switch): the collision takes 1/rho once and multiplies.
+
 `stepk_plain` is the plain PyTorch version: K steps of `d2q9` on the whole
-periodic array. It agrees with the kernel on every cell whenever
+periodic array (a bfloat16 state upcast to float32 for the pass and rounded
+at its end). It agrees with the kernel on every cell whenever
 global_ny == ny, or the accelerated row lies more than K rows from the
 array's top and bottom edges (the kernel tests halo rows at their unwrapped
 index, as the TPU kernel does; the plain version at their wrapped one).
@@ -75,12 +83,29 @@ MODES = ("full", "stream_only", "copy")
 # how a launch moves its regions, by index in the C entry points (Path)
 PATHS = ("thread", "box")
 MAX_BOX = 256  # TMA's longest side of a box, in values
+# the state types the kernels take
+DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """The type a pass steps in and sums Sum|u| in: float32 for a bfloat16
+    state (storage only), else the state's own."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def itemsizes(dtype) -> tuple[int, int]:
+    """(storage, compute) bytes a value of a `dtype` state: the lattice in
+    device memory holds the first, the region buffers in shared memory the
+    second."""
+    return (torch.empty((), dtype=dtype).element_size(),
+            torch.empty((), dtype=compute_dtype(dtype)).element_size())
 
 
 def smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int:
     """Dynamic shared memory of one block: two state buffers of the tile
     plus its K halo, the reduction scratch, the mask and the row and column
-    flags (mirrors smem_bytes in csrc/d2q9_kstep.cu)."""
+    flags (mirrors smem_bytes in csrc/d2q9_kstep.cu). `itemsize` is the
+    compute type's: the buffers of a bfloat16 state hold float32."""
     rh, rw = tile_h + 2 * k_steps, tile_w + 2 * k_steps
     return 2 * 9 * rh * rw * itemsize + 2 * WARPS_PER_BLOCK * itemsize + rh * rw + rh + rw
 
@@ -100,7 +125,8 @@ def box_smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int
 
 
 def choose_path(ny: int, nx: int, tile, k_steps: int, itemsize: int, in_place: bool,
-                aligned: bool = True, box_smem=box_smem_bytes) -> str:
+                aligned: bool = True, box_smem=box_smem_bytes,
+                compute_itemsize: int | None = None) -> str:
     """"box" where TMA can move this launch's regions, else "thread"
     (mirrors box_fits in csrc/d2q9_kstep.cu): no edge tiles; the rows of the
     state (nx) and of the tile (tw), and K values, whole 16-byte pieces, so
@@ -110,7 +136,12 @@ def choose_path(ny: int, nx: int, tile, k_steps: int, itemsize: int, in_place: b
     itemsize)`: B3 passes its own). In place (B1) a region
     arrives in three boxes a plane and the ring leaves in two, so each of
     their offsets in shared memory must be a multiple of 128 bytes: a plane,
-    K and th region rows, a tile plane and th - K tile rows."""
+    K and th region rows, a tile plane and th - K tile rows. A state whose
+    compute type differs from its storage (bfloat16, `compute_itemsize` 4)
+    takes the thread path: a box lands the region as it is stored, where the
+    steps need the compute type."""
+    if compute_itemsize not in (None, itemsize):
+        return "thread"
     th, tw = tile
     k, e = k_steps, itemsize
     rh, rw = th + 2 * k, tw + 2 * k
@@ -130,8 +161,9 @@ def aligned16(*tensors: torch.Tensor) -> bool:
 
 def blocks_per_sm(in_place: bool, path: str, tile, k_steps: int, itemsize: int) -> int:
     """Blocks of B1 (`in_place`) or B2 in full mode on `path` that one SM of
-    the current card holds at this tile and K (the card's occupancy
-    calculator; 0 on an error)."""
+    the current card holds at this tile and K, for a state of `itemsize`
+    bytes a value (2: bfloat16) (the card's occupancy calculator; 0 on an
+    error)."""
     from . import _build
 
     return _build.load("d2q9_kstep").d2q9_kstep_blocks(itemsize, int(in_place),
@@ -141,9 +173,9 @@ def blocks_per_sm(in_place: bool, path: str, tile, k_steps: int, itemsize: int) 
 def choose_tile(h: int, w: int, itemsize: int, k_steps: int,
                 smem=smem_bytes) -> tuple[int, int] | None:
     """The first of TILE_CANDIDATES that divides the grid and whose block
-    fits in shared memory (`smem(th, tw, K, itemsize)`) at this K; else the
-    first that fits, whose last row and column of tiles are cut to the grid.
-    None only if no candidate fits."""
+    fits in shared memory (`smem(th, tw, K, itemsize)`, `itemsize` the
+    compute type's) at this K; else the first that fits, whose last row and
+    column of tiles are cut to the grid. None only if no candidate fits."""
     fits = [(th, tw) for th, tw in TILE_CANDIDATES
             if smem(th, tw, k_steps, itemsize) <= SMEM_PER_BLOCK]
     return next(((th, tw) for th, tw in fits if h % th == 0 and w % tw == 0),
@@ -152,8 +184,7 @@ def choose_tile(h: int, w: int, itemsize: int, k_steps: int,
 
 def choose_config(h: int, w: int, dtype=torch.float32) -> tuple[int, int, int]:
     """(tile_h, tile_w, k_steps) for the kernels B1 and B2 on this grid."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return (*choose_tile(h, w, itemsize, PREFERRED_K), PREFERRED_K)
+    return (*choose_tile(h, w, itemsizes(dtype)[1], PREFERRED_K), PREFERRED_K)
 
 
 def snapshot_shapes(ny: int, nx: int, tile: tuple[int, int], k_steps: int):
@@ -172,11 +203,12 @@ def simulate_bytes(engine: str, h: int, w: int, dtype=torch.float32, num_steps: 
     sums and the partials. 'cuda' (B2) and 'cuda-manual' (B3) ping-pong two
     lattices: four in all. 'cuda-inplace' (B1) advances the copy in place
     and holds two boundary snapshots of (2K/th + 2K/tw) lattices each
-    (`snapshot_shapes`): 3.5 lattices at 16x32, K=4."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    (`snapshot_shapes`): 3.5 lattices at 16x32, K=4. Lattices and snapshots
+    take the storage size, the sums and partials the compute size."""
+    itemsize, compute = itemsizes(dtype)
     th, tw, k = choose_config(h, w, dtype)
     lattice = 9 * h * w
-    small = h * w + (num_steps + k * -(-h // th) * -(-w // tw)) * itemsize
+    small = h * w + (num_steps + k * -(-h // th) * -(-w // tw)) * compute
     if engine in ("cuda", "cuda-manual"):
         return 4 * lattice * itemsize + small
     if engine == "cuda-inplace":
@@ -248,16 +280,23 @@ def stepk_plain(
     valid_cols: tuple | None = None,
     global_ny: int | None = None,
     mode: str = "full",
+    shared_reciprocal: bool = False,
 ):
     """The plain PyTorch version of the K-step kernels: K steps of
     `d2q9.collide_fields` on `d2q9.stream_pull`, with per-step Sum|u| over
     the valid window only; in mode "stream_only" K pull-streams with the
     rest-speed plane as |u|, in mode "copy" f itself and a Sum|u| of zeros.
-    Returns (f_after_K, tot (K,))."""
+    A bfloat16 state steps in float32 and is rounded once, at the end, with
+    a float32 Sum|u|, as the kernels do; its steps divide as the kernels do
+    (`d2q9.collide_fields(tensor_scalars=True)`). Returns (f_after_K, tot
+    (K,))."""
     check_mode(mode)
     _, ny, nx = f.shape
     if mode == "copy":
-        return f.clone(), torch.zeros(k_steps, dtype=f.dtype, device=f.device)
+        return f.clone(), torch.zeros(k_steps, dtype=compute_dtype(f.dtype), device=f.device)
+    rounded = f.dtype == torch.bfloat16
+    if rounded:
+        f = f.float()
     valid_rows = valid_rows or (0, ny)
     valid_cols = valid_cols or (0, nx)
     rows = torch.arange(ny, device=f.device) + int(row_offset)
@@ -274,9 +313,11 @@ def stepk_plain(
             u = f[0]
         else:
             f, u = d2q9.collide_fields(d2q9.stream_pull(f), obstacle, amask, omega=omega,
-                                       accel_w1=accel_w1, accel_w2=accel_w2)
+                                       accel_w1=accel_w1, accel_w2=accel_w2,
+                                       shared_reciprocal=shared_reciprocal,
+                                       tensor_scalars=rounded)
         tots.append(torch.where(window, u, zero).sum())
-    return f, torch.stack(tots)
+    return (f.to(torch.bfloat16) if rounded else f), torch.stack(tots)
 
 
 def check_mode(mode: str) -> int:
@@ -299,8 +340,8 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int, tile,
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got one on {f.device}")
     if f.dim() != 3 or f.shape[0] != 9:
         raise ValueError(f"state must have shape (9, ny, nx), got {tuple(f.shape)}")
-    if f.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"the kernel takes float32 or float64, got {f.dtype}")
+    if f.dtype not in DTYPES:
+        raise ValueError(f"the kernel takes float32, float64 or bfloat16, got {f.dtype}")
     if not f.is_contiguous():
         raise ValueError("state must be contiguous")
     _, ny, nx = f.shape
@@ -311,8 +352,9 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int, tile,
     if min(ny, nx) < k_steps:
         # B1's snapshot windows of 2K rows and columns each wrap at most once
         raise ValueError(f"the {ny}x{nx} grid has a side shorter than k_steps={k_steps}")
+    compute = itemsizes(f.dtype)[1]
     if tile is None:
-        tile = choose_tile(ny, nx, f.element_size(), k_steps, smem)
+        tile = choose_tile(ny, nx, compute, k_steps, smem)
         if tile is None:
             raise ValueError(f"no tile of {TILE_CANDIDATES} fits shared memory at K={k_steps}")
     th, tw = tile
@@ -320,7 +362,7 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int, tile,
         # B1 hands each pass the K-deep ring of every tile as the next
         # pass's halo snapshot; all kernels keep one rule
         raise ValueError(f"tile {tile} has a side shorter than k_steps={k_steps}")
-    if smem(th, tw, k_steps, f.element_size()) > SMEM_PER_BLOCK:
+    if smem(th, tw, k_steps, compute) > SMEM_PER_BLOCK:
         raise ValueError(f"tile {tile} at K={k_steps} needs more than {SMEM_PER_BLOCK} B "
                          "of shared memory")
     valid_rows = valid_rows or (0, ny)
@@ -338,27 +380,37 @@ def check_rc(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+TYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+
+
 def _entry(f: torch.Tensor, name: str, source: str = "d2q9_kstep"):
     from . import _build
 
-    suffix = "f32" if f.dtype == torch.float32 else "f64"
-    return getattr(_build.load(source), f"{name}_{suffix}")
+    return getattr(_build.load(source), f"{name}_{TYPE_SUFFIX[f.dtype]}")
 
 
 def launch_path(f: torch.Tensor, tile, k_steps: int, in_place: bool, *buffers) -> str:
     """The path of a CUDA launch on state f and `buffers` (choose_path)."""
     _, ny, nx = f.shape
-    return choose_path(ny, nx, tile, k_steps, f.element_size(), in_place,
-                       aligned16(f, *buffers))
+    itemsize, compute = itemsizes(f.dtype)
+    return choose_path(ny, nx, tile, k_steps, itemsize, in_place, aligned16(f, *buffers),
+                       compute_itemsize=compute)
 
 
-def _launch(f, mask_u8, out, partials, tot, path, scalars):
+def sums(f: torch.Tensor, n: int) -> torch.Tensor:
+    """n values of scratch for the per-step sums of a kernel on f (float32
+    for a bfloat16 state)."""
+    return torch.empty(n, dtype=compute_dtype(f.dtype), device=f.device)
+
+
+def _launch(f, mask_u8, out, partials, tot, path, scalars, recip=False):
     global launches, last_path
     launches += 1
     last_path = path
-    rc = _entry(f, "d2q9_kstep")(f.data_ptr(), mask_u8.data_ptr(), out.data_ptr(),
-                                 partials.data_ptr(), tot.data_ptr(), PATHS.index(path), *scalars)
-    check_rc(rc, f"d2q9_kstep ({path} path)")
+    name = "d2q9_kstep_recip" if recip else "d2q9_kstep"
+    rc = _entry(f, name)(f.data_ptr(), mask_u8.data_ptr(), out.data_ptr(),
+                         partials.data_ptr(), tot.data_ptr(), PATHS.index(path), *scalars)
+    check_rc(rc, f"{name} ({path} path)")
 
 
 def stepk(
@@ -376,22 +428,26 @@ def stepk(
     global_ny: int | None = None,
     tile: tuple[int, int] | None = None,
     mode: str = "full",
+    shared_reciprocal: bool = False,
 ):
     """K fused timesteps in one pass (kernel B2 on CUDA, `stepk_plain` on
-    the CPU). Returns (f_after_K_steps, tot_u per step (K,)); f is unchanged."""
+    the CPU). Returns (f_after_K_steps, tot_u per step (K,)); f is unchanged.
+    shared_reciprocal: the collision takes 1/rho once and multiplies (full
+    mode; the other modes do not collide)."""
     window = dict(row_offset=row_offset, valid_rows=valid_rows, valid_cols=valid_cols,
                   global_ny=global_ny, mode=mode)
     if f.device.type == "cpu":
         return stepk_plain(f, mask, k_steps=k_steps, omega=omega, accel_w1=accel_w1,
-                           accel_w2=accel_w2, accel_row=accel_row, **window)
+                           accel_w2=accel_w2, accel_row=accel_row,
+                           shared_reciprocal=shared_reciprocal, **window)
     mask_u8 = obstacle_u8(mask)
     tile, ntiles, scalars = kernel_args(
         f, mask_u8, k_steps=k_steps, tile=tile, omega=omega, accel_w1=accel_w1,
         accel_w2=accel_w2, accel_row=accel_row, **window)
     out = torch.empty_like(f)
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
-    tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
-    _launch(f, mask_u8, out, partials, tot, launch_path(f, tile, k_steps, False, out), scalars)
+    partials, tot = sums(f, k_steps * ntiles), sums(f, k_steps)
+    _launch(f, mask_u8, out, partials, tot, launch_path(f, tile, k_steps, False, out), scalars,
+            recip=shared_reciprocal and mode == "full")
     return out, tot
 
 
@@ -406,7 +462,7 @@ def run_plain(f, mask, *, num_steps: int, k_steps: int, mode: str = "full", **kw
     every wrapper's `run`. Returns (f_final, tot_u (num_steps,))."""
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    tots = sums(f, num_steps)
     for i in range(num_steps // k_steps):
         f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps,
                                                              mode=mode, **kw)
@@ -427,23 +483,28 @@ def run(
     k_steps: int = 1,
     tile: tuple[int, int] | None = None,
     mode: str = "full",
+    shared_reciprocal: bool = False,
 ):
     """`num_steps` timesteps, `k_steps` per pass, ping-ponging between two
-    lattices. Returns (f_final, tot_u (num_steps,)); f is unchanged."""
+    lattices. Returns (f_final, tot_u (num_steps,)); f is unchanged.
+    shared_reciprocal as in `stepk`."""
     kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
     if f.device.type == "cpu":
-        return run_plain(f, mask, num_steps=num_steps, k_steps=k_steps, mode=mode, **kw)
+        return run_plain(f, mask, num_steps=num_steps, k_steps=k_steps, mode=mode,
+                         shared_reciprocal=shared_reciprocal, **kw)
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    tots = sums(f, num_steps)
     mask_u8 = obstacle_u8(mask)
     tile, ntiles, scalars = kernel_args(f, mask_u8, k_steps=k_steps, tile=tile, mode=mode, **kw)
     bufs = (torch.empty_like(f), torch.empty_like(f))
     path = launch_path(f, tile, k_steps, False, *bufs)
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
+    partials = sums(f, k_steps * ntiles)
+    recip = shared_reciprocal and mode == "full"
     for i in range(num_steps // k_steps):
         out = bufs[i % 2]
-        _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars)
+        _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars,
+                recip)
         f = out
         if profiling.NAN_DEBUG:
             profiling.check_nans(f, (i + 1) * k_steps, "kernel B2 (d2q9_kstep)", k_steps)

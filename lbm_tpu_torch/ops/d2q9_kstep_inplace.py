@@ -81,8 +81,7 @@ def stepk(
         return f, tot
     mask_u8 = d2q9_kstep.obstacle_u8(mask)
     tile, ntiles, scalars = d2q9_kstep.kernel_args(f, mask_u8, tile=tile, **kw)
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
-    tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
+    partials, tot = d2q9_kstep.sums(f, k_steps * ntiles), d2q9_kstep.sums(f, k_steps)
     snap = _snapshot(f, tile, k_steps)
     _launch(f, mask_u8, snap, True, None, partials, tot,
             d2q9_kstep.launch_path(f, tile, k_steps, True, *snap), scalars)
@@ -119,13 +118,13 @@ def run(
         return f, tots
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    tots = d2q9_kstep.sums(f, num_steps)
     mask_u8 = d2q9_kstep.obstacle_u8(mask)
     tile, ntiles, scalars = d2q9_kstep.kernel_args(f, mask_u8, k_steps=k_steps, tile=tile,
                                                    mode=mode, **kw)
     snaps = (_snapshot(f, tile, k_steps), _snapshot(f, tile, k_steps))
     path = d2q9_kstep.launch_path(f, tile, k_steps, True, *snaps[0], *snaps[1])
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
+    partials = d2q9_kstep.sums(f, k_steps * ntiles)
     for i in range(num_steps // k_steps):
         _launch(f, mask_u8, snaps[i % 2], i == 0, snaps[(i + 1) % 2], partials,
                 tots[i * k_steps:(i + 1) * k_steps], path, scalars)
@@ -212,7 +211,7 @@ class Chain:
         tile, ntiles, self.scalars = d2q9_kstep.kernel_args(f, self.mask, tile=tile, **kw)
         self.snaps = (_snapshot(f, tile, k), _snapshot(f, tile, k))
         self.path = d2q9_kstep.launch_path(f, tile, k, True, *self.snaps[0], *self.snaps[1])
-        self.partials = torch.empty(k * ntiles, dtype=f.dtype, device=f.device)
+        self.partials = d2q9_kstep.sums(f, k * ntiles)
         self.patch = (None if rows is None else
                       SnapshotPatch(f.shape[1], f.shape[2], tile, k, rows, cols, f.device))
 

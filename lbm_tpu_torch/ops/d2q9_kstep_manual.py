@@ -91,20 +91,25 @@ def box_smem_bytes(tile_h: int, tile_w: int, k_steps: int, itemsize: int) -> int
 
 
 def choose_path(ny: int, nx: int, tile, k_steps: int, itemsize: int,
-                aligned: bool = True) -> str:
+                aligned: bool = True, compute_itemsize: int | None = None) -> str:
     """"box" where TMA can move B3's regions and tiles (B2's rule,
     `d2q9_kstep.choose_path`, with B3's shared memory; mirrors box_fits in
-    csrc/d2q9_manual.cu), else "thread"."""
+    csrc/d2q9_manual.cu), else "thread" (always for bfloat16)."""
     return d2q9_kstep.choose_path(ny, nx, tile, k_steps, itemsize, False, aligned,
-                                  box_smem=box_smem_bytes)
+                                  box_smem=box_smem_bytes, compute_itemsize=compute_itemsize)
 
 
-def launch_smem(ny: int, nx: int, aligned: bool = True):
-    """smem(tile_h, tile_w, K, itemsize) of a launch on an (ny, nx) grid: the
-    shared memory of the path it takes (on the box path the mask registers
-    do not bound the region)."""
+def launch_smem(ny: int, nx: int, aligned: bool = True, dtype=None):
+    """smem(tile_h, tile_w, K, itemsize) of a launch on an (ny, nx) grid,
+    `itemsize` the compute type's: the shared memory of the path it takes
+    (on the box path the mask registers do not bound the region). `dtype`,
+    the state's type, is needed where storage and compute differ
+    (bfloat16); by default they are one."""
+    storage = None if dtype is None else d2q9_kstep.itemsizes(dtype)[0]
+
     def smem(tile_h, tile_w, k_steps, itemsize):
-        box = choose_path(ny, nx, (tile_h, tile_w), k_steps, itemsize, aligned) == "box"
+        box = choose_path(ny, nx, (tile_h, tile_w), k_steps, storage or itemsize, aligned,
+                          compute_itemsize=itemsize) == "box"
         return (box_smem_bytes if box else smem_bytes)(tile_h, tile_w, k_steps, itemsize)
     return smem
 
@@ -116,9 +121,8 @@ def choose_tile(h: int, w: int, itemsize: int, k_steps: int) -> tuple[int, int] 
 
 def choose_config(h: int, w: int, dtype=torch.float32) -> tuple[int, int, int]:
     """(tile_h, tile_w, k_steps) for kernel B3 on this grid."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
     k = d2q9_kstep.PREFERRED_K
-    return (*choose_tile(h, w, itemsize, k), k)
+    return (*choose_tile(h, w, d2q9_kstep.itemsizes(dtype)[1], k), k)
 
 
 def stepk_plain(f, mask, **kw):
@@ -133,9 +137,8 @@ def grid_blocks(f: torch.Tensor, tile: tuple[int, int], k_steps: int, mode: str 
     per tile."""
     from . import _build
 
+    path = path or _path(f, tile, k_steps)
     _, ny, nx = f.shape
-    path = path or choose_path(ny, nx, tile, k_steps, f.element_size(),
-                               d2q9_kstep.aligned16(f))
     blocks = _build.load("d2q9_manual").d2q9_manual_blocks(
         ny, nx, *tile, k_steps, f.element_size(), d2q9_kstep.check_mode(mode),
         PATHS.index(path))
@@ -150,13 +153,15 @@ def _args(f, mask, *, k_steps, tile, mode, **kw):
     _, ny, nx = f.shape
     tile, ntiles, scalars = d2q9_kstep.kernel_args(
         f, mask_u8, k_steps=k_steps, tile=tile, mode=mode,
-        smem=launch_smem(ny, nx, d2q9_kstep.aligned16(f)), **kw)
+        smem=launch_smem(ny, nx, d2q9_kstep.aligned16(f), f.dtype), **kw)
     return mask_u8, tile, ntiles, scalars
 
 
 def _path(f, tile, k_steps, *outs) -> str:
     _, ny, nx = f.shape
-    return choose_path(ny, nx, tile, k_steps, f.element_size(), d2q9_kstep.aligned16(f, *outs))
+    itemsize, compute = d2q9_kstep.itemsizes(f.dtype)
+    return choose_path(ny, nx, tile, k_steps, itemsize, d2q9_kstep.aligned16(f, *outs),
+                       compute_itemsize=compute)
 
 
 def _launch(f, mask_u8, out, partials, tot, path, scalars):
@@ -195,8 +200,7 @@ def stepk(
         return stepk_plain(f, mask, **kw)
     mask_u8, tile, ntiles, scalars = _args(f, mask, tile=tile, **kw)
     out = torch.empty_like(f)
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
-    tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
+    partials, tot = d2q9_kstep.sums(f, k_steps * ntiles), d2q9_kstep.sums(f, k_steps)
     _launch(f, mask_u8, out, partials, tot, _path(f, tile, k_steps, out), scalars)
     return out, tot
 
@@ -228,11 +232,11 @@ def run(
                                     **kw)
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    tots = d2q9_kstep.sums(f, num_steps)
     mask_u8, tile, ntiles, scalars = _args(f, mask, k_steps=k_steps, tile=tile, mode=mode, **kw)
     bufs = (torch.empty_like(f), torch.empty_like(f))
     path = _path(f, tile, k_steps, *bufs)
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
+    partials = d2q9_kstep.sums(f, k_steps * ntiles)
     for i in range(num_steps // k_steps):
         out = bufs[i % 2]
         _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars)

@@ -14,18 +14,38 @@ for operation (the serial C++ oracle and the committed golden traces carry it
 too), and every operation rounds on its own, so the CUDA kernels
 (csrc/d3q19_kstep.cu, compiled without FMA contraction) reproduce it; only
 the order of the Sum|u| reduction differs.
+
+`GROUPING` is read from LBM_D3Q19_GROUPING at import, as the JAX package
+reads it: 'paired' (the default) or any other value for the reference's
+per-speed grouping, which `collide_fields` then takes and the 3-D kernels
+run from a library of their own (`kernel_variant`).
+
+A bfloat16 state steps in bfloat16 with every scalar rounded to it first, as
+`d2q9` does (`d2q9.scalar`).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
+from .d2q9 import scalar
 from .d3q19_lattice import (  # noqa: F401  (re-exported for callers)
     E, NUM_SPEEDS, OPPOSITE, W, initial_distributions,
 )
+
+# The grouping of the equilibrium, fixed per process as in the JAX package
+# (lbm_tpu/ops/d3q19.py): 'paired' or the reference's per-speed grouping.
+GROUPING = os.environ.get("LBM_D3Q19_GROUPING", "paired")
+
+
+def kernel_variant() -> str | None:
+    """The build variant of the 3-D kernels' library for GROUPING
+    (`_build.VARIANTS`): None for 'paired', "per_speed" otherwise."""
+    return None if GROUPING == "paired" else "per_speed"
 
 # 'native' is the serial C++ engine on the host (ops/d3q19_native.py)
 ENGINES = ("torch", "cuda", "cuda-inplace", "cuda-blocked", "cuda-inplace-blocked", "native")
@@ -93,9 +113,14 @@ def collide_fields(
     accelerated plane, broadcastable). Returns (f_new (19, ...), u_plane |u|
     with obstacles zeroed).
 
-    Opposite speed pairs share eu (eu_opp = -eu), the quadratic equilibrium
-    term, the per-weight-class (w * omega) * rho product and the force
-    product: the 'paired' grouping of `lbm_tpu.ops.d3q19.collide_fields`."""
+    GROUPING 'paired': opposite speed pairs share eu (eu_opp = -eu), the
+    quadratic equilibrium term, the per-weight-class (w * omega) * rho
+    product and the force product, as `lbm_tpu.ops.d3q19.collide_fields`;
+    otherwise its per-speed branch, operation for operation."""
+
+    def c(x):
+        return scalar(x, s[0])
+
     rho = functools.reduce(torch.add, s)
     u_x = functools.reduce(
         torch.add, (int(E[k, 2]) * s[k] for k in range(NUM_SPEEDS) if E[k, 2])
@@ -107,28 +132,43 @@ def collide_fields(
         torch.add, (int(E[k, 0]) * s[k] for k in range(NUM_SPEEDS) if E[k, 0])
     ) / rho
     u_sq = u_x * u_x + u_y * u_y + u_z * u_z
-    c_sq = 1.0 - u_sq * 1.5
-    one_minus_omega = 1.0 - omega
+    c_sq = c(1.0) - u_sq * c(1.5)
+    one_minus_omega = c(1.0 - omega)
 
     outs = [None] * NUM_SPEEDS
-    wro = {w: (float(w) * omega) * rho for w in (W[0], W[1], W[7])}
-    outs[0] = s[0] * one_minus_omega + wro[W[0]] * c_sq
-    for k in range(1, NUM_SPEEDS):
-        kb = int(OPPOSITE[k])
-        if kb < k:
-            continue
-        eu = _e_dot_u(k, u_x, u_y, u_z)
-        quad = (4.5 * eu) * eu + c_sq
-        lin = 3.0 * eu
-        w = wro[W[k]]
-        out_k = s[k] * one_minus_omega + w * (quad + lin)
-        out_kb = s[kb] * one_minus_omega + w * (quad - lin)
-        if E[k, 2]:  # accelerated-plane force on x-moving speeds
-            t = accel_mask * (int(E[k, 2]) * (density * accel * float(W[k])))
-            out_k = out_k + t
-            out_kb = out_kb - t
-        outs[k] = out_k
-        outs[kb] = out_kb
+    if GROUPING == "paired":
+        wro = {w: c(float(w) * omega) * rho for w in (W[0], W[1], W[7])}
+        outs[0] = s[0] * one_minus_omega + wro[W[0]] * c_sq
+        for k in range(1, NUM_SPEEDS):
+            kb = int(OPPOSITE[k])
+            if kb < k:
+                continue
+            eu = _e_dot_u(k, u_x, u_y, u_z)
+            quad = (c(4.5) * eu) * eu + c_sq
+            lin = c(3.0) * eu
+            w = wro[W[k]]
+            out_k = s[k] * one_minus_omega + w * (quad + lin)
+            out_kb = s[kb] * one_minus_omega + w * (quad - lin)
+            if E[k, 2]:  # accelerated-plane force on x-moving speeds
+                t = accel_mask * c(int(E[k, 2]) * (density * accel * float(W[k])))
+                out_k = out_k + t
+                out_kb = out_kb - t
+            outs[k] = out_k
+            outs[kb] = out_kb
+    else:
+        for k in range(NUM_SPEEDS):
+            eu = _e_dot_u(k, u_x, u_y, u_z)
+            wk = float(W[k])
+            if isinstance(eu, float):  # rest speed
+                feq_term = c(wk) * rho * c(omega) * c_sq
+            else:
+                # w rho omega (c_sq + 3 eu + 4.5 eu^2), in the reference's
+                # rearranged (4.5 eu)(2/3 + eu) + c_sq form
+                feq_term = c(wk) * rho * c(omega) * ((c(4.5) * eu) * (c(2.0 / 3.0) + eu) + c_sq)
+            out = s[k] * one_minus_omega + feq_term
+            if E[k, 2]:  # accelerated-plane force on x-moving speeds
+                out = out + accel_mask * c(int(E[k, 2]) * (density * accel * wk))
+            outs[k] = out
 
     f_new = torch.stack(
         [torch.where(obstacle_mask, s[int(OPPOSITE[k])], outs[k])
@@ -244,12 +284,12 @@ def initial_state(nz: int, ny: int, nx: int, *, density: float = 0.1, obstacle_m
     at z = 0 and z = nz-1; else a numpy (nz, ny, nx) array) as tensors on
     `device` (default: CUDA)."""
     from ..core import state
-    from ..models.lbm import numpy_dtype, resolve_device
+    from ..models.lbm import host_dtype, resolve_device
 
     device = resolve_device(device)
     if obstacle_mask is None:
         obstacle_mask = default_obstacle_mask(nz, ny, nx)
-    return state.to_torch3d(initial_distributions(nz, ny, nx, density, numpy_dtype(dtype)),
+    return state.to_torch3d(initial_distributions(nz, ny, nx, density, host_dtype(dtype)),
                             np.asarray(obstacle_mask, bool), device=device)
 
 
@@ -335,7 +375,9 @@ def simulate(
                                       obstacle_mask=obstacle_mask, dtype=numpy_dtype(dtype))
         return torch.from_numpy(f), torch.from_numpy(av)
     if engine in SHARDED_ENGINES:
-        from ..models.lbm import default_num_devices, resolve_device
+        from ..models.lbm import default_num_devices, refuse_sharded_bf16, resolve_device
+
+        refuse_sharded_bf16(dtype)
         from ..models.lbm3d import simulate_engine
         from ..parallel import launch
 

@@ -7,8 +7,11 @@ returns the per-step Sum|u| over the valid window. See the note at the top of
 the source for the design and its bound on the card.
 
 Contract of `stepk` (shared with `d3q19_kstep_inplace.stepk`):
-  * f is (19, nz, ny, nx) float32/float64 and contiguous; mask is the
-    (nz, ny, nx) obstacle mask (bool or uint8, nonzero = blocked);
+  * f is (19, nz, ny, nx) float32, float64 or bfloat16 and contiguous; mask
+    is the (nz, ny, nx) obstacle mask (bool or uint8, nonzero = blocked);
+  * a bfloat16 state is storage only, as in the TPU kernels: a pass steps in
+    float32 and rounds once, at its end (through a float32 scratch lattice
+    for K > 1); Sum|u| is float32. It runs on the step path, full mode;
   * plane_offset / valid_planes / valid_rows / global_nz describe a
     ghost-extended block as in `lbm_tpu.ops.d3q19_pallas.stepk`: local plane
     p is global plane p + plane_offset, the accelerated plane is tested as
@@ -29,7 +32,8 @@ diagnostic modes (`MODES`, those of the TPU kernel) run on the wave path:
 `stepk(mode=...)` and `stepk_plain(mode=...)`.
 
 `stepk_plain` is the plain PyTorch version: K steps of `d3q19` on the whole
-periodic array. It agrees with the CUDA kernels on every cell for every
+periodic array (a bfloat16 state upcast for the pass, rounded at its end).
+It agrees with the CUDA kernels on every cell for every
 window, since both take each step on planes [0, nz) only. The TPU kernels
 also step their K-plane halo and test those planes at their unwrapped index,
 so they agree with both whenever global_nz == nz, or the accelerated plane
@@ -44,7 +48,8 @@ import dataclasses
 import torch
 
 from . import d3q19
-from .d2q9_kstep import check_rc, obstacle_bool, obstacle_u8
+from .d2q9_kstep import (DTYPES, TYPE_SUFFIX, check_rc, compute_dtype, obstacle_bool,
+                         obstacle_u8, sums)
 from .d3q19_lattice import W
 
 # Launches of kernel B6 (one per K-step pass); callers may reset it.
@@ -172,8 +177,9 @@ def choose_path(nz: int, ny: int, nx: int, k_steps: int, dtype=torch.float32, *,
     """"wave" or "step" for a pass of `kernel` ("b6" or "b4"): "step" where
     the wave path does not take the shape (`wave_fits`); else a diagnostic
     mode goes to "wave" (it has them), and "full" to the path that measured
-    faster at this K and type (PATH_MS)."""
-    if not wave_fits(nz, block or choose_block(nx)):
+    faster at this K and type (PATH_MS). A bfloat16 pass takes "step": the
+    wave path keeps a pass's middle steps in the lattice's own slots."""
+    if dtype == torch.bfloat16 or not wave_fits(nz, block or choose_block(nx)):
         return "step"
     if mode != "full":
         return "wave"
@@ -195,6 +201,8 @@ def resolve_path(path: str | None, f: torch.Tensor, k_steps: int, *, kernel: str
     if path == "wave" and not wave_fits(nz, block):
         raise ValueError(f"the wave path does not take block {block} on {nz} planes "
                          "(it needs a block one plane deep and at least 3 planes)")
+    if path == "wave" and f.dtype == torch.bfloat16:
+        raise ValueError("the wave path takes float32 and float64; bfloat16 runs on 'step'")
     if path == "step" and mode != "full":
         raise ValueError(f"mode={mode!r} runs on the wave path only")
     return path
@@ -335,11 +343,18 @@ def stepk_plain(
     the valid window only, in one of MODES: "stream_only", K pull-streams
     without bounce-back or collision, Sum|u| the window sum of the
     rest-speed plane; "copy", f itself and a Sum|u| of zeros;
-    "collide_no_roll", the collision on the pull along z alone. Returns
-    (f_after_K, tot (K,))."""
+    "collide_no_roll", the collision on the pull along z alone. A bfloat16
+    state steps in float32 and is rounded once, at the end, with a float32
+    Sum|u|, as the kernels do. Returns (f_after_K, tot (K,))."""
     check_mode(mode)
     if mode == "copy":
-        return f.clone(), torch.zeros(k_steps, dtype=f.dtype, device=f.device)
+        return f.clone(), torch.zeros(k_steps, dtype=compute_dtype(f.dtype), device=f.device)
+    if f.dtype == torch.bfloat16:
+        f_new, tot = stepk_plain(
+            f.float(), mask, k_steps=k_steps, omega=omega, density=density, accel=accel,
+            accel_plane=accel_plane, plane_offset=plane_offset, valid_planes=valid_planes,
+            valid_rows=valid_rows, global_nz=global_nz, mode=mode)
+        return f_new.to(torch.bfloat16), tot
     _, nz, ny, nx = f.shape
     valid_planes = valid_planes or (0, nz)
     valid_rows = valid_rows or (0, ny)
@@ -370,8 +385,8 @@ def check_state(f: torch.Tensor, mask_u8: torch.Tensor, k_steps: int) -> None:
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got one on {f.device}")
     if f.dim() != 4 or f.shape[0] != 19:
         raise ValueError(f"state must have shape (19, nz, ny, nx), got {tuple(f.shape)}")
-    if f.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"the kernel takes float32 or float64, got {f.dtype}")
+    if f.dtype not in DTYPES:
+        raise ValueError(f"the kernel takes float32, float64 or bfloat16, got {f.dtype}")
     if not f.is_contiguous():
         raise ValueError("state must be contiguous")
     _, nz, ny, nx = f.shape
@@ -385,13 +400,14 @@ def window_scalars(f: torch.Tensor, *, omega: float, density: float, accel: floa
                    accel_plane: int, plane_offset: int = 0, valid_planes: tuple | None = None,
                    valid_rows: tuple | None = None, global_nz: int | None = None) -> list:
     """The trailing arguments of every 3-D C entry point: the window, the
-    accelerated plane, the six collision coefficients and the stream."""
+    accelerated plane, the six collision coefficients, omega (the per-speed
+    grouping's) and the stream."""
     _, nz, ny, _ = f.shape
     valid_planes = valid_planes or (0, nz)
     valid_rows = valid_rows or (0, ny)
     return [int(plane_offset), int(valid_planes[0]), int(valid_planes[1]),
             int(global_nz or nz), int(valid_rows[0]), int(valid_rows[1]), int(accel_plane),
-            *coefficients(omega, density, accel),
+            *coefficients(omega, density, accel), float(omega),
             torch.cuda.current_stream(f.device).cuda_stream]
 
 
@@ -412,11 +428,19 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int,
             [nz, ny, nx, bx, by, bz, int(k_steps), *window_scalars(f, **window)])
 
 
-def entry(f: torch.Tensor, name: str):
+def entry(f: torch.Tensor, name: str, source: str = "d3q19_kstep"):
+    """The C entry `name` for f's type, from the library of `source` built
+    for d3q19.GROUPING (`d3q19.kernel_variant`)."""
     from . import _build
 
-    suffix = "f32" if f.dtype == torch.float32 else "f64"
-    return getattr(_build.load("d3q19_kstep"), f"{name}_{suffix}")
+    return getattr(_build.load(source, d3q19.kernel_variant()), f"{name}_{TYPE_SUFFIX[f.dtype]}")
+
+
+def rounding_scratch(f: torch.Tensor, k_steps: int):
+    """The float32 lattice a bfloat16 pass of K > 1 steps through, else None."""
+    if f.dtype != torch.bfloat16 or k_steps == 1:
+        return None
+    return torch.empty(f.shape, dtype=torch.float32, device=f.device)
 
 
 # ------------------------------------------------------------- the wave path
@@ -434,7 +458,7 @@ def wave_blocks(f: torch.Tensor, mode: int, threads: int) -> int:
 
     key = (f.device.index, mode, f.dtype, threads)
     if key not in _BLOCKS_PER_SM:
-        n = _build.load("d3q19_kstep").d3q19_wave_blocks(
+        n = _build.load("d3q19_kstep", d3q19.kernel_variant()).d3q19_wave_blocks(
             mode, int(f.dtype == torch.float64), threads)
         if n < 1:
             raise RuntimeError(f"d3q19_wave_blocks: CUDA error {-n}")
@@ -478,7 +502,8 @@ def wave_plan(f: torch.Tensor, k_steps: int, *, inplace: bool, mode: str, block)
 
 def _launch(f, mask_u8, out, partials, tot, *, path, mode, scalars, plan=None, scratch=None):
     """One pass of B6 on `path`: the step path's scratch is a second lattice
-    (null for K = 1); the wave path needs none."""
+    (null for K = 1; float32 for a bfloat16 state); the wave path needs
+    none."""
     global launches, last_path
     launches += 1
     last_path = path
@@ -522,10 +547,10 @@ def stepk(
     block, nblocks, scalars = kernel_args(f, mask_u8, block=block, **kw)
     path = resolve_path(path, f, k_steps, block=block, mode=mode)
     out = torch.empty_like(f)
-    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
-    tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
+    partials, tot = sums(f, k_steps * nblocks), sums(f, k_steps)
     if path == "step":
-        scratch = torch.empty_like(f) if k_steps > 1 else None
+        scratch = (rounding_scratch(f, k_steps) if f.dtype == torch.bfloat16
+                   else torch.empty_like(f) if k_steps > 1 else None)
         _launch(f, mask_u8, out, partials, tot, path=path, mode=mode, scalars=scalars,
                 scratch=scratch)
     else:
@@ -558,7 +583,7 @@ def run(
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
-    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    tots = sums(f, num_steps)
     if f.device.type == "cpu":
         for i in range(num_steps // k_steps):
             f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps,
@@ -567,8 +592,24 @@ def run(
     mask_u8 = obstacle_u8(mask)
     block, nblocks, scalars = kernel_args(f, mask_u8, k_steps=k_steps, block=block, **kw)
     path = resolve_path(path, f, k_steps, block=block, mode=mode)
-    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
+    partials = sums(f, k_steps * nblocks)
     common = dict(path=path, mode=mode, scalars=scalars)
+    if f.dtype == torch.bfloat16:
+        # the step path through one float32 lattice: for K > 1 only a pass's
+        # first step reads its input and only its last writes its output, so
+        # the passes after the first step in place; K = 1 alternates two
+        scratch = rounding_scratch(f, k_steps)
+        cur, spare = f, None  # K = 1: the lattice the next pass may write
+        for i in range(num_steps // k_steps):
+            if k_steps > 1:
+                out = torch.empty_like(f) if i == 0 else cur
+            else:
+                out = spare if spare is not None else torch.empty_like(f)
+                spare = cur if cur is not f else None
+            _launch(cur, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps],
+                    scratch=scratch, **common)
+            cur = out
+        return cur, tots
     if path == "wave":
         plan = wave_plan(f, k_steps, inplace=False, mode=mode, block=block)
         out = torch.empty_like(f)

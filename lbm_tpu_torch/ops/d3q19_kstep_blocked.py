@@ -33,6 +33,11 @@ B7 has no diagnostic modes (`stepk(mode=...)` refuses any but "full", as
 On a CUDA tensor the kernel is launched, or the call raises (a tile that does
 not fit the device's shared memory raises and names the engine that takes the
 shape); on a CPU tensor `stepk_plain` runs. There is no other route.
+
+A bfloat16 state takes the thread path: its tile sits in shared memory as
+float32, steps in float32 and is rounded once, at the last step's store. Its
+tiles are the float32 thread path's bests (THREAD_TILES), and MS_PER_PASS's
+float32 rows stand for it in `pick_engine`: bfloat16 was not swept.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from . import d3q19_kstep
-from .d2q9_kstep import check_mode, check_rc, obstacle_u8
+from .d2q9_kstep import check_mode, check_rc, compute_dtype, obstacle_u8
 from .d3q19_kstep import MAX_K
 
 # Launches of kernel B7 (one per K-step pass); callers may reset it.
@@ -60,7 +65,7 @@ STATIC_SMEM = 128
 # float32, 255 at float64). With the bounds doubled, 1024 threads were no
 # faster in float32, and 512 in float64 (98 registers each) left an SM one
 # block where two of 256 fit: 0.47 against 0.33 ms at K=1.
-MAX_THREADS = {torch.float32: 512, torch.float64: 256}
+MAX_THREADS = {torch.float32: 512, torch.float64: 256, torch.bfloat16: 512}
 # Tile extents that `choose_config` tries where no measured tile applies.
 TILE_X = (8, 16, 32, 64)
 TILE_YZ_MAX = 16
@@ -106,6 +111,15 @@ MEASURED_THREADS = {
     (torch.float32, 1, (2, 6, 64)): 256, (torch.float32, 1, (4, 4, 64)): 256,
     (torch.float32, 2, (4, 4, 32)): 256,
 }
+# The thread path's fastest tiles by K, B7's first, then B5's under its
+# scratch limit, at MAX_THREADS unless named: the sweep made when the thread
+# path was the only one (NVIDIA H100 80GB HBM3, 700 W, float32, 32x256x256,
+# experiments/cuda-kstep-tiles/results3d_blocked_pr4.csv: B7 0.1727, 0.3395,
+# 0.6821, 1.5731 ms a pass, B5 0.3762, 0.5769, 1.0413, 1.8742). A bfloat16
+# state's buffer holds float32, so these are its tiles (`choose_config`).
+THREAD_TILES = {1: ((4, 5, 16), (6, 16, 16)), 2: ((8, 6, 16), (6, 8, 16)),
+                3: ((8, 8, 8), (5, 10, 8)), 4: ((5, 6, 8), (5, 6, 8))}
+THREAD_TILE_THREADS = {(1, (4, 5, 16)): 256}
 # Steps per pass that `choose_k` prefers: B7 takes 0.156, 0.157, 0.241 and
 # 0.453 ms per step at K = 1..4 in float32, B5 0.380, 0.302, 0.388 and 0.716.
 PREFERRED_K = 2
@@ -127,9 +141,9 @@ def extended_cells(tile: tuple[int, int, int], k_steps: int) -> int:
 
 
 def shared_bytes(tile: tuple[int, int, int], k_steps: int, dtype=torch.float32) -> int:
-    """Dynamic shared memory of a block: 19 values and a mask byte per cell of
-    the tile extended by K cells per side."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    """Dynamic shared memory of a block: 19 values of the compute type and a
+    mask byte per cell of the tile extended by K cells per side."""
+    itemsize = torch.empty((), dtype=compute_dtype(dtype)).element_size()
     return extended_cells(tile, k_steps) * (19 * itemsize + 1)
 
 
@@ -164,7 +178,10 @@ def choose_path(nz: int, ny: int, nx: int, tile: tuple[int, int, int], k_steps: 
     box_fits in csrc/d3q19_blocked.cu): rows of the lattice (nx) and of the
     tile (tx) whole 16-byte pieces; box sides of at most MAX_BOX, the
     extended tile no larger than the grid; the block in the device's shared
-    memory; the lattice on 16 bytes (`aligned`)."""
+    memory; the lattice on 16 bytes (`aligned`). bfloat16: "thread", whose
+    buffer holds float32."""
+    if dtype == torch.bfloat16:
+        return "thread"
     tz, ty, tx = tile
     itemsize = torch.empty((), dtype=dtype).element_size()
     ez, ey, sx = tz + 2 * k_steps, ty + 2 * k_steps, box_extent(tile, k_steps, itemsize)[2]
@@ -251,7 +268,8 @@ def choose_config(nz: int, ny: int, nx: int, k_steps: int = PREFERRED_K,
                 and (max_scratch_planes is None
                      or sum(scratch_planes(tile, k_steps, nz)) <= max_scratch_planes))
 
-    measured = MEASURED_TILES.get((dtype, k_steps), ())
+    measured = (THREAD_TILES[k_steps] if dtype == torch.bfloat16
+                else MEASURED_TILES.get((dtype, k_steps), ()))
     if max_scratch_planes is not None:  # B5: its own measured tile first
         measured = measured[::-1]
     for tile in measured:
@@ -288,7 +306,7 @@ def choose_k(*step_counts: int) -> int:
 
 def faster_kind(dtype, slab: str, blocked: str, k_steps: int) -> str:
     """'slab' or 'blocked': the kernel with the lower MS_PER_PASS at this K."""
-    ms = MS_PER_PASS[dtype]
+    ms = MS_PER_PASS[compute_dtype(dtype)]
     return "blocked" if ms[blocked][k_steps - 1] < ms[slab][k_steps - 1] else "slab"
 
 
@@ -333,8 +351,9 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int,
     if min(tz, ty, tx) < 1:
         raise ValueError(f"tile {tile} must have positive extents")
     limit = MAX_THREADS[f.dtype]
-    threads = (MEASURED_THREADS.get((f.dtype, int(k_steps), (tz, ty, tx)), limit)
-               if threads is None else int(threads))
+    measured = (THREAD_TILE_THREADS.get((int(k_steps), (tz, ty, tx))) if f.dtype == torch.bfloat16
+                else MEASURED_THREADS.get((f.dtype, int(k_steps), (tz, ty, tx))))
+    threads = (measured or limit) if threads is None else int(threads)
     if threads < 32 or threads % 32 or threads > limit:
         raise ValueError(f"threads must be a multiple of 32 in 32..{limit} for {f.dtype}, "
                          f"got {threads}")
@@ -356,10 +375,7 @@ def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int,
 
 
 def entry(f: torch.Tensor, name: str):
-    from . import _build
-
-    suffix = "f32" if f.dtype == torch.float32 else "f64"
-    return getattr(_build.load("d3q19_blocked"), f"{name}_{suffix}")
+    return d3q19_kstep.entry(f, name, "d3q19_blocked")
 
 
 def _launch(f, mask_u8, out, partials, tot, path, scalars):
@@ -410,8 +426,7 @@ def stepk(
     mask_u8 = obstacle_u8(mask)
     tile, ntiles, scalars = kernel_args(f, mask_u8, tile=tile, threads=threads, **kw)
     out = torch.empty_like(f)
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
-    tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
+    partials, tot = d3q19_kstep.sums(f, k_steps * ntiles), d3q19_kstep.sums(f, k_steps)
     _launch(f, mask_u8, out, partials, tot, resolve_path(path, f, tile, k_steps), scalars)
     return out, tot
 
@@ -438,7 +453,7 @@ def run(
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
-    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    tots = d3q19_kstep.sums(f, num_steps)
     if f.device.type == "cpu":
         for i in range(num_steps // k_steps):
             f, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
@@ -447,7 +462,7 @@ def run(
     mask_u8 = obstacle_u8(mask)
     tile, ntiles, scalars = kernel_args(f, mask_u8, k_steps=k_steps, tile=tile,
                                         threads=threads, **kw)
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
+    partials = d3q19_kstep.sums(f, k_steps * ntiles)
     cur, other = f, None
     for i in range(num_steps // k_steps):
         # the first pass leaves the caller's f alone; later ones swap two lattices

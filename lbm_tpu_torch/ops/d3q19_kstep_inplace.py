@@ -17,7 +17,9 @@ number of steps (csrc/d3q19_kstep.cu). On the wave path (`d3q19_kstep.PATHS`,
 `choose_path` with kernel "b4") a pass is one launch, the swap its last
 stage; on the step path a launch a step and one for the swap. The launch
 reports its path in `last_path`. B4's state and Sum|u| are bit-identical to
-B6's.
+B6's. A bfloat16 state takes the step path and rounds once a pass, through
+a float32 scratch lattice for K > 1 (19 x 4 bytes a cell beside the
+lattice's 19 x 2).
 """
 
 from __future__ import annotations
@@ -34,13 +36,16 @@ launches = 0
 last_path = None
 
 
-def _launch(f, mask_u8, partials, tot, *, path, scalars, plan=None):
+def _launch(f, mask_u8, partials, tot, *, path, scalars, plan=None, scratch=None):
     global launches, last_path
     launches += 1
     last_path = path
     if path == "step":
+        bufs = [f.data_ptr(), mask_u8.data_ptr()]
+        if f.dtype == torch.bfloat16:  # the float32 lattice a pass of K > 1 steps through
+            bufs.append(0 if scratch is None else scratch.data_ptr())
         rc = d3q19_kstep.entry(f, "d3q19_kstep_inplace")(
-            f.data_ptr(), mask_u8.data_ptr(), partials.data_ptr(), tot.data_ptr(), *scalars)
+            *bufs, partials.data_ptr(), tot.data_ptr(), *scalars)
         check_rc(rc, "d3q19_kstep_inplace")
         return
     d3q19_kstep.wave_launch(f, f, mask_u8, partials, tot, plan, mode="full", scalars=scalars,
@@ -55,8 +60,9 @@ def _setup(f, mask, k_steps, block, path, **kw):
     path = d3q19_kstep.resolve_path(path, f, k_steps, kernel="b4", block=block)
     plan = (d3q19_kstep.wave_plan(f, k_steps, inplace=True, mode="full", block=block)
             if path == "wave" else None)
-    partials = torch.empty(k_steps * nblocks, dtype=f.dtype, device=f.device)
-    return mask_u8, partials, dict(path=path, scalars=scalars, plan=plan)
+    partials = d3q19_kstep.sums(f, k_steps * nblocks)
+    return mask_u8, partials, dict(path=path, scalars=scalars, plan=plan,
+                                   scratch=d3q19_kstep.rounding_scratch(f, k_steps))
 
 
 def stepk(
@@ -87,7 +93,7 @@ def stepk(
         f.copy_(f_new)
         return f, tot
     mask_u8, partials, launch = _setup(f, mask, k_steps, block, path, **kw)
-    tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
+    tot = d3q19_kstep.sums(f, k_steps)
     _launch(f, mask_u8, partials, tot, **launch)
     return f, tot
 
@@ -110,7 +116,7 @@ def run(
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
-    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    tots = d3q19_kstep.sums(f, num_steps)
     if f.device.type == "cpu":
         for i in range(num_steps // k_steps):
             f_new, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(

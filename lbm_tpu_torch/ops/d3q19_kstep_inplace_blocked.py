@@ -144,8 +144,7 @@ def stepk(
     mask_u8 = obstacle_u8(mask)
     tile, ntiles, scalars = _kernel_args(f, mask_u8, tile=tile, threads=threads, **kw)
     ring, snap = _scratch(f, tile, k_steps)
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
-    tot = torch.empty(k_steps, dtype=f.dtype, device=f.device)
+    partials, tot = d3q19_kstep.sums(f, k_steps * ntiles), d3q19_kstep.sums(f, k_steps)
     path = d3q19_kstep_blocked.resolve_path(path, f, tile, k_steps)
     _launch(f, mask_u8, ring, snap, partials, tot, mode, path, scalars)
     return f, tot
@@ -173,7 +172,7 @@ def run(
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
-    tots = torch.empty(num_steps, dtype=f.dtype, device=f.device)
+    tots = d3q19_kstep.sums(f, num_steps)
     if f.device.type == "cpu":
         for i in range(num_steps // k_steps):
             f_new, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
@@ -184,7 +183,7 @@ def run(
     tile, ntiles, scalars = _kernel_args(f, mask_u8, k_steps=k_steps, tile=tile,
                                          threads=threads, **kw)
     ring, snap = _scratch(f, tile, k_steps)
-    partials = torch.empty(k_steps * ntiles, dtype=f.dtype, device=f.device)
+    partials = d3q19_kstep.sums(f, k_steps * ntiles)
     path = d3q19_kstep_blocked.resolve_path(path, f, tile, k_steps)
     for i in range(num_steps // k_steps):
         _launch(f, mask_u8, ring, snap, partials, tots[i * k_steps:(i + 1) * k_steps], mode,

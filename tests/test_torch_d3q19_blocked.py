@@ -256,7 +256,7 @@ def test_kernel_args_refuse_what_the_kernel_does_not_take(monkeypatch):
     kw = dict(k_steps=2, accel_plane=6, **KW)
     tile, ntiles, scalars = b7.kernel_args(f, mask, tile=(4, 6, 16), **kw)
     assert tile == (4, 6, 16) and ntiles == 2 * 3 * 2
-    assert scalars[:8] == [8, 16, 32, 4, 6, 16, 512, 2] and len(scalars) == 22
+    assert scalars[:8] == [8, 16, 32, 4, 6, 16, 512, 2] and len(scalars) == 23
     with pytest.raises(ValueError, match="shared memory.*engine='cuda'"):
         b7.kernel_args(f, mask, tile=(8, 16, 32), **kw)
     with pytest.raises(ValueError, match="positive extents"):

@@ -74,7 +74,7 @@ def test_unknown_engine_and_dtype_rejected():
     with pytest.raises(ValueError, match="unknown engine"):
         lbm.run_simulation(p, obs, engine="pallas", device="cpu")
     with pytest.raises(ValueError, match="dtype"):
-        lbm.run_simulation(p, obs, dtype=torch.bfloat16, device="cpu")
+        lbm.run_simulation(p, obs, dtype=torch.float16, device="cpu")
 
 
 def test_write_outputs_byte_identical_to_jax(tmp_path):

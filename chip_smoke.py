@@ -167,6 +167,27 @@ Phases, each of which must pass or the script exits non-zero:
      cell). Last, in a child process with LBM_D3Q19_GROUPING=reference (the
      per_speed libraries, built with the others), B4-B7 in float32 against
      the plain per-speed step (1e-5) and unequal to the paired grouping;
+  7g. B6's layouts (A9): `d3q19_kstep.stepk` with layout='zmajor' and
+     'fused' at 64x128x256 K = 1..4 and 32x256x256 K = 2 in float32 on the
+     wave and step paths, at 8x32x64 K = 1..4 in float64 and at
+     64x128x256 K = 4 in bfloat16 (step path): each pass bit-equal to the
+     q-major pass once transposed (state and Sum|u|) and held to its plain
+     version (`stepk_plain(layout=)`: 1e-5, 1e-12, one bf16 unit); the
+     modes on z-major bit-equal to q-major's and held to the plain modes;
+     `run` in each layout bit-equal to q-major's; ms a pass in each layout
+     beside q-major in the same call (turns q, z, fused, fused, z, q);
+  7h. bfloat16 on the multi-device engines (A3), world size 1, NCCL: the
+     flagship through `run_simulation_sharded(engine='sharded-cuda',
+     dtype=torch.bfloat16)` x 10,000, `overlap=True` and B2 local x 2,000,
+     the plain `sharded` engine (ppermute) at 256x256 x 200, a checkpointed
+     `sharded-cuda` run resumed; 3-D `sharded-cuda` at 64x128x256 x 1,200,
+     overlap, `sharded-cuda-zy` on a (1, 1) mesh and a checkpointed z-mesh
+     run resumed. Each state bit-equal to the single-device bfloat16 run of
+     the same local kernel (`cuda-inplace`, B1 and B4; the torch engine for
+     the plain engine), av_vels within 1e-5 (the plain engine two bf16
+     units), the run's kernel alone launched and never the plain engine;
+     resumes bit for bit; MLUPS beside the single-device engine's and a
+     chunk's device and host ms;
   8. blur kernels vs plain version, from numpy-seeded images: B10
      (stencil.blur_step) one pass, B9 (blur_k) at k = 1..8 and bands of 64
      and 100 rows (100 divides none of the heights) on its vector path, and
@@ -232,7 +253,9 @@ Phases, each of which must pass or the script exits non-zero:
      carry their launches, path and MLUPS in the sharded phases, B1's and
      B2's their launches in phase 7e, and B2's the measurements of 7e;
      B1-B7 their bfloat16 ms, bound, path and launches (`bf16`), B2 its
-     shared_reciprocal cases, B4-B7 the per-speed grouping's numbers;
+     shared_reciprocal cases, B4-B7 the per-speed grouping's numbers; B1,
+     B2 and B4 their launches and runs in phase 7h (`bf16_sharded`), B6 its
+     launches and ms a pass by layout in phase 7g (`layouts`);
  13. last line: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero, printing no result, when CUDA is absent or the package is not
@@ -3198,6 +3221,394 @@ def phase_bf16_3d(torch, mods3, modsb):
     return out
 
 
+# phase 7g: B6's layouts at the 3-D bench shapes (f32), in float64 at a small
+# shape, and in bfloat16 at the bench shape
+LAYOUT_CASES = ((SHAPE_3D, 4), (SHAPE_BLOCKED, 2))
+LAYOUT_F64_SHAPE = (8, 32, 64)
+LAYOUT_PASSES = 100
+
+
+def zmajor(t):
+    """A q-major (19, nz, ny, nx) tensor as its z-major copy (nz, 19, ny, nx)."""
+    return t.transpose(0, 1).contiguous()
+
+
+def phase_layouts_3d(torch, mods3):
+    """Phase 7g: B6 (`d3q19_kstep.stepk` / `run`) with layout='zmajor' and
+    'fused' at 64x128x256 K = 4 and 32x256x256 K = 2 in float32 on each path
+    (and K = 1, 3 at the bench shape), at 8x32x64 in float64, and in
+    bfloat16 (the step path) at 64x128x256 K = 4: each pass bit-equal to
+    the q-major pass once transposed, state and Sum|u|, and held to its
+    plain version (`stepk_plain(layout=)`: float32 1e-5, float64 1e-12,
+    bfloat16 one unit); the modes on z-major bit-equal to the q-major modes
+    and held to the plain modes; `run` in each layout bit-equal to q-major.
+    Then ms a pass in each layout beside q-major's in the same call (a chain
+    of stepk passes, in the order q, z, fused, fused, z, q). Returns the
+    launches of B6 in the phase and the times."""
+    from lbm_tpu_torch.core import state
+    d3q19_kstep = mods3[0]
+    rng = np.random.default_rng(20261021)
+    d3q19_kstep.launches = 0
+    out = {"ms": {}}
+
+    def held(what, got_f, got_t, ref_f, ref_t, bar):
+        if got_f.dtype == torch.bfloat16:
+            bf16_held(torch, what, got_f, ref_f)
+            et = rel_err(got_t, ref_t)
+            check(et <= BARS["float32"], f"{what}: Sum|u| rel err {et}")
+            return
+        ef, et = rel_err(got_f, ref_f), rel_err(got_t, ref_t)
+        check(ef <= bar and et <= bar, f"{what}: state {ef}, Sum|u| {et} > {bar}")
+
+    cases = [(shape, k, "float32", torch.float32) for shape, k in LAYOUT_CASES]
+    cases += [(SHAPE_3D, k, "float32", torch.float32) for k in (1, 3)]
+    cases += [(LAYOUT_F64_SHAPE, k, "float64", torch.float64) for k in (1, 2, 3, 4)]
+    cases += [(SHAPE_3D, 4, "bfloat16", torch.bfloat16)]
+    for (nz, ny, nx), k, dname, dtype in cases:
+        f, mask = state.to_torch3d(random_state_3d(rng, nz, ny, nx),
+                                   random_mask_3d(rng, nz, ny, nx), device="cuda", dtype=dtype)
+        kw = dict(k_steps=k, accel_plane=nz - 2, **PHYSICS_3D)
+        bar = BARS.get(dname, BARS["float32"])
+        grid = f"{nz}x{ny}x{nx} {dname} K={k}"
+        fz = zmajor(f)
+        pz_f, pz_t = d3q19_kstep.stepk_plain(fz, mask, layout="zmajor", **kw)
+        paths = ("step",) if dtype == torch.bfloat16 else d3q19_kstep.PATHS
+        for path in paths:
+            q_f, q_t = d3q19_kstep.stepk(f, mask, path=path, **kw)
+            z_f, z_t = d3q19_kstep.stepk(fz, mask, path=path, layout="zmajor", **kw)
+            check(d3q19_kstep.last_path == path, f"{grid}: z-major took {d3q19_kstep.last_path}")
+            u_f, u_t = d3q19_kstep.stepk(f, mask, path=path, layout="fused", **kw)
+            torch.cuda.synchronize()
+            check(z_f.shape == (nz, 19, ny, nx), f"{grid}: z-major returned {tuple(z_f.shape)}")
+            check(torch.equal(z_f.transpose(0, 1), q_f) and torch.equal(z_t, q_t),
+                  f"{grid} {path} path: z-major is not bit-equal to q-major")
+            check(torch.equal(u_f, q_f) and torch.equal(u_t, q_t),
+                  f"{grid} {path} path: fused is not bit-equal to q-major")
+            held(f"{grid} z-major ({path} path)", z_f, z_t, pz_f, pz_t, bar)
+            print(f"layouts {grid} ({path} path): z-major and fused bit-equal to q-major, state "
+                  f"and Sum|u|; z-major against its plain version: state "
+                  f"{rel_err(z_f.float(), pz_f.float()):.3e} (bar {bar})")
+            del q_f, z_f, u_f
+        if (nz, ny, nx) == SHAPE_3D and k == 4 and dtype == torch.float32:
+            for mode in ("stream_only", "copy", "collide_no_roll"):
+                mkw = dict(kw, k_steps=2)
+                m_q = d3q19_kstep.stepk(f, mask, mode=mode, **mkw)
+                m_z = d3q19_kstep.stepk(fz, mask, mode=mode, layout="zmajor", **mkw)
+                ref = d3q19_kstep.stepk_plain(f, mask, mode=mode, **mkw)
+                torch.cuda.synchronize()
+                what = f"{grid} mode {mode} (K=2, {d3q19_kstep.last_path} path)"
+                check(torch.equal(m_z[0].transpose(0, 1), m_q[0]) and torch.equal(m_z[1], m_q[1]),
+                      f"{what}: z-major is not bit-equal to q-major")
+                if mode == "collide_no_roll":
+                    check(rel_err(m_z[0].transpose(0, 1), ref[0]) <= bar, f"{what}: state")
+                else:
+                    check(torch.equal(m_z[0].transpose(0, 1), ref[0]), f"{what}: state")
+                if mode != "copy":
+                    check(rel_err(m_z[1], ref[1]) <= bar, f"{what}: Sum|u|")
+                print(f"layouts {what}: z-major bit-equal to q-major and held to the plain mode")
+        runs = {layout: d3q19_kstep.run(f, mask, num_steps=3 * k, k_steps=k, layout=layout,
+                                        **{key: v for key, v in kw.items() if key != "k_steps"})
+                for layout in d3q19_kstep.LAYOUTS}
+        for layout in ("zmajor", "fused"):
+            check(all(torch.equal(a, b) for a, b in zip(runs[layout], runs["qmajor"])),
+                  f"{grid}: run(layout={layout!r}) is not bit-equal to q-major's")
+        print(f"layouts {grid}: run() of 3 passes in each layout bit-equal to q-major's")
+        del f, fz, pz_f, runs
+    out["launches"] = d3q19_kstep.launches
+
+    # ms a pass: a chain of stepk passes in each layout, the turns
+    # q, z, fused, fused, z, q, each layout's mean of its two turns
+    timed = [(shape, k, "float32", torch.float32) for shape, k in LAYOUT_CASES]
+    for (nz, ny, nx), k, dname, dtype in timed + [(SHAPE_3D, 4, "bfloat16", torch.bfloat16)]:
+        f, mask = state.to_torch3d(random_state_3d(rng, nz, ny, nx),
+                                   random_mask_3d(rng, nz, ny, nx), device="cuda", dtype=dtype)
+        kw = dict(k_steps=k, accel_plane=nz - 2, **PHYSICS_3D)
+        states = {"qmajor": f, "zmajor": zmajor(f), "fused": f.clone()}
+
+        def chain(layout):
+            cur = states[layout]
+            for _ in range(LAYOUT_PASSES):
+                cur = d3q19_kstep.stepk(cur, mask, layout=layout, **kw)[0]
+            return cur
+
+        turns = {layout: [] for layout in states}
+        for layout in ("qmajor", "zmajor", "fused", "fused", "zmajor", "qmajor"):
+            turns[layout].append(time_ms(torch, lambda: chain(layout), 1) / LAYOUT_PASSES)
+        path = d3q19_kstep.last_path
+        grid = f"{nz}x{ny}x{nx} {dname} K={k}"
+        ms = {layout: sum(t) / len(t) for layout, t in turns.items()}
+        out["ms"][grid] = dict(ms, path=path, turns=turns)
+        print(f"layouts timing {grid} ({path} path): ms a pass q-major {ms['qmajor']:.4f}, "
+              f"z-major {ms['zmajor']:.4f} ({ms['zmajor'] / ms['qmajor']:.4f} x), fused "
+              f"{ms['fused']:.4f} ({ms['fused'] / ms['qmajor']:.4f} x); turns {turns}")
+        del f, states
+    return out
+
+
+# phase 7h: bfloat16 on the multi-device engines at world size 1
+BF16_SHARDED_STEPS = 10000
+BF16_SHARDED_SHORT = 2000
+BF16_SHARDED_PLAIN = (256, 256, 200)  # ny, nx, steps of the plain 'sharded' engine
+BF16_SHARDED_CK_STEPS = 400
+BF16_SHARDED_3D_CK_STEPS = 200
+BF16_SHARDED_AV_BAR = 1e-5  # against the single-device run: Sum|u| (float32) in another order
+
+
+def bf16_units(torch, a, b) -> int:
+    """Largest distance in bfloat16 units between two arrays of values that
+    bfloat16 holds (float64 numpy arrays of bfloat16 values)."""
+    return ulps_bf16(torch, torch.from_numpy(a).to(torch.bfloat16),
+                     torch.from_numpy(b).to(torch.bfloat16))
+
+
+def phase_bf16_sharded(torch, mods, mods3, modsb, mask):
+    """Phase 7h: bfloat16 on the multi-device engines at world size 1, in the
+    NCCL group of `nccl_world_of_one`. The flagship (the golden blob's mask,
+    omega 1.85) through `run_simulation_sharded(engine='sharded-cuda',
+    dtype=torch.bfloat16)`, 10,000 steps; `overlap=True` and B2 as the local
+    kernel (`kstep_sharded.simulate(local_engine='two-stream')`), 2,000; the
+    plain `sharded` engine (ppermute) at 256x256 x 200; a checkpointed
+    `sharded-cuda` run resumed. 3-D: `sharded-cuda` at 64x128x256 x 1,200,
+    with overlap, `sharded-cuda-zy` on a (1, 1) mesh, and a checkpointed
+    z-mesh run resumed. Each state bit-equal to the single-device bfloat16
+    run of the same local kernel (`cuda-inplace`: B1, B4; the torch engine
+    for the plain engine), av_vels within 1e-5 (the plain engine within two
+    units), each run's kernel alone launched, never the plain engine; the
+    resumes bit for bit. Prints MLUPS beside the single-device engine's and
+    a chunk's device and host ms. Returns the launches and the numbers."""
+    from lbm_tpu_torch.core import state
+    from lbm_tpu_torch.core.params import Obstacles, Params
+    from lbm_tpu_torch.models import lbm as lbm_model
+    from lbm_tpu_torch.models import lbm3d as lbm3d_model
+    from lbm_tpu_torch.ops import d2q9, d3q19
+    from lbm_tpu_torch.parallel import kstep_sharded, kstep_sharded_3d as ks3
+    bf16 = torch.bfloat16
+    every = (*mods, *mods3, *modsb)
+    names = [m.__name__.rsplit(".", 1)[1] for m in every]
+    out = {"launches": dict.fromkeys(names, 0), "runs": {}}
+
+    def reset():
+        for m in every:
+            m.launches = 0
+
+    def alone(label, name):
+        """Checks that `name` alone launched since reset(); adds its launches."""
+        counts = {n: m.launches for n, m in zip(names, every)}
+        check(counts[name] > 0 and sum(counts.values()) == counts[name],
+              f"{label}: not {name} alone: {counts}")
+        out["launches"][name] += counts[name]
+        return counts[name], every[names.index(name)].last_path
+
+    def av_err(got, want):
+        return float(np.max(np.abs(got[1:] - want[1:]) / np.abs(want[1:])))
+
+    obstacles = Obstacles(mask)
+    refs = {}
+    for steps in (BF16_SHARDED_STEPS, BF16_SHARDED_SHORT):
+        params = Params(**{**FLAGSHIP, "max_iters": steps})
+        refs[steps] = lbm_model.run_simulation(params, obstacles, dtype=bf16,
+                                               engine="cuda-inplace", device="cuda")
+        mlups = N * N * steps / refs[steps].compute_seconds / 1e6
+        print(f"bf16 sharded: --engine cuda-inplace --dtype bfloat16 (B1) reference, {steps} "
+              f"steps: {refs[steps].compute_seconds:.6f} s, {mlups:.1f} MLUPS")
+        out["runs"][f"cuda-inplace {steps}"] = dict(mlups=mlups,
+                                                    seconds=refs[steps].compute_seconds)
+    for label, steps, kw in (("sharded-cuda", BF16_SHARDED_STEPS, {}),
+                             ("sharded-cuda --overlap", BF16_SHARDED_SHORT, {"overlap": True})):
+        params, ref = Params(**{**FLAGSHIP, "max_iters": steps}), refs[steps]
+        reset()
+        with CountCalls(d2q9, "collide_fields") as plain:
+            res = lbm_model.run_simulation_sharded(params, obstacles, dtype=bf16,
+                                                   engine="sharded-cuda", num_devices=1,
+                                                   device="cuda", **kw)
+        launches, path = alone(label, "d2q9_kstep_inplace")
+        check(plain.calls == 0, f"{label}: the plain engine ran {plain.calls} collisions")
+        check(res.f_final.dtype == bf16 and torch.equal(res.f_final, ref.f_final),
+              f"{label} bf16: the final state differs from cuda-inplace's")
+        err = av_err(res.av_vels, ref.av_vels)
+        check(err <= BF16_SHARDED_AV_BAR, f"{label} bf16: av_vels rel err {err}")
+        mlups = N * N * steps / res.compute_seconds / 1e6
+        ref_mlups = out["runs"][f"cuda-inplace {steps}"]["mlups"]
+        print(f"bf16 sharded: {label} --dtype bfloat16, {N}x{N} x {steps}: B1 {launches} "
+              f"launches on the {path} path, {res.compute_seconds:.6f} s timed, {mlups:.1f} "
+              f"MLUPS against cuda-inplace's {ref_mlups:.1f} ({mlups / ref_mlups:.4f} x); state "
+              f"bit-equal to cuda-inplace's, av_vels[1:] max rel err {err:.3e}")
+        out["runs"][label] = dict(launches=launches, path=path, mlups=mlups, av_err=err,
+                                  seconds=res.compute_seconds, ref_mlups=ref_mlups)
+
+    # B2 as the local kernel
+    params = Params(**{**FLAGSHIP, "max_iters": BF16_SHARDED_SHORT})
+    f0 = state.initial_distributions(params, bf16)
+    mesh = kstep_sharded.make_row_mesh()
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_b2, av_b2 = kstep_sharded.simulate(params, f0, mask, mesh, local_engine="two-stream")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, path = alone("the two-stream ghost-band run", "d2q9_kstep")
+    check(torch.equal(f_b2.cpu(), refs[BF16_SHARDED_SHORT].f_final),
+          "bf16 ghost-band run on B2: the state differs from cuda-inplace's")
+    err = av_err(av_b2.double().cpu().numpy(), refs[BF16_SHARDED_SHORT].av_vels)
+    check(err <= BF16_SHARDED_AV_BAR, f"bf16 ghost-band run on B2: av_vels rel err {err}")
+    mlups = N * N * BF16_SHARDED_SHORT / seconds / 1e6
+    print(f"bf16 sharded: ghost-band run on B2 (two-stream), {BF16_SHARDED_SHORT} steps: "
+          f"{launches} launches on the {path} path, {mlups:.1f} MLUPS on the host's clock (the "
+          f"first call); state bit-equal to cuda-inplace's, av_vels rel err {err:.3e}")
+    out["runs"]["two-stream"] = dict(launches=launches, path=path, mlups=mlups, av_err=err)
+
+    # a chunk of the bfloat16 ghost-band run: device and host ms
+    aw = d2q9.AccelWeights.from_params(params)
+    f_sh, mask_ext, _ = kstep_sharded.prepare(params, f0, mask, mesh)
+    chunk = kstep_sharded.make_chunk_fn(mesh, k_steps=4, omega=params.omega, accel_w1=aw.w1,
+                                        accel_w2=aw.w2, accel_row=N - 2, ny=N)
+    chunk.start(f_sh.to_local(), mask_ext.to_local())
+    tots = torch.empty(4, device=chunk.buf.device)
+    n = SHARDED_TIMING_CHUNKS
+    chunk_ms = time_ms(torch, lambda: chunk(tots), n)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        chunk(tots)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    print(f"bf16 sharded: a bfloat16 chunk (K=4, B1 on the {chunk.buf.dtype} extended block) "
+          f"{chunk_ms:.4f} ms on the device's clock, {host_ms:.4f} ms on the host's")
+    out["chunk_2d"] = dict(chunk_ms=chunk_ms, host_ms=host_ms)
+    del chunk, f_sh
+
+    # the plain engine, every operation in bfloat16, against the torch engine
+    ny, nx, steps = BF16_SHARDED_PLAIN
+    small = Params(nx=nx, ny=ny, max_iters=steps, reynolds_dim=10, density=0.1, accel=0.01,
+                   omega=1.85)
+    small_obs = Obstacles(random_mask(np.random.default_rng(20261022), ny, nx))
+    ref = lbm_model.run_simulation(small, small_obs, dtype=bf16, engine="torch", device="cuda")
+    reset()
+    res = lbm_model.run_simulation_sharded(small, small_obs, dtype=bf16, engine="sharded",
+                                           strategy="ppermute", num_devices=1, device="cuda")
+    check(sum(m.launches for m in every) == 0, "the plain 'sharded' engine launched a kernel")
+    check(torch.equal(res.f_final, ref.f_final),
+          "bf16 --engine sharded: the state differs from the torch engine's")
+    units = bf16_units(torch, res.av_vels, ref.av_vels)
+    check(units <= 2, f"bf16 --engine sharded: av_vels {units} units from the torch engine's")
+    mlups = ny * nx * steps / res.compute_seconds / 1e6
+    ref_mlups = ny * nx * steps / ref.compute_seconds / 1e6
+    print(f"bf16 sharded: --engine sharded --strategy ppermute --dtype bfloat16, {ny}x{nx} x "
+          f"{steps}: {mlups:.1f} MLUPS against the torch engine's {ref_mlups:.1f}; state "
+          f"bit-equal, av_vels {units} unit(s) from the torch engine's")
+    out["runs"]["sharded ppermute"] = dict(mlups=mlups, ref_mlups=ref_mlups, av_units=units)
+
+    # a checkpointed sharded-cuda run, resumed
+    n = BF16_SHARDED_CK_STEPS
+    params = Params(**{**FLAGSHIP, "max_iters": n})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        kw = dict(dtype=bf16, engine="sharded-cuda", num_devices=1, device="cuda",
+                  checkpoint_every=n // 2)
+        reset()
+        whole = lbm_model.run_simulation_with_checkpoints(params, obstacles,
+                                                          checkpoint_path=tmp / "w.npz", **kw)
+        lbm_model.run_simulation_with_checkpoints(params, obstacles, num_steps=n // 2,
+                                                  checkpoint_path=tmp / "p.npz", **kw)
+        resumed = lbm_model.run_simulation_with_checkpoints(
+            params, obstacles, checkpoint_path=tmp / "p.npz", resume=True, **kw)
+        launches, path = alone("checkpointed sharded-cuda bf16", "d2q9_kstep_inplace")
+        check(resumed.steps_run == n // 2 and torch.equal(resumed.f_final, whole.f_final)
+              and np.array_equal(resumed.av_vels, whole.av_vels),
+              "bf16 checkpointed sharded-cuda: the resumed run differs from the whole run")
+        with np.load(tmp / "w.npz") as a, np.load(tmp / "p.npz") as b:
+            check(a["f"].dtype == np.dtype("V2") and a["f"].tobytes() == b["f"].tobytes(),
+                  "bf16 checkpointed sharded-cuda: the resumed lattice differs")
+        print(f"bf16 sharded: --engine sharded-cuda --checkpoint-every {n // 2}, {n // 2} steps "
+              f"resumed to {n}: state, av_vels and the lattice (|V2) bit-equal to the whole "
+              f"run's; B1 {launches} launches")
+
+    # 3-D: the bench shape on a z-mesh, with overlap, and a (1, 1) mesh
+    nz, ny, nx = SHAPE_3D
+    steps, cells = STEPS_3D, nz * ny * nx
+    ref3 = None
+    for label, kw in (("sharded-cuda", {}), ("sharded-cuda --overlap", {"overlap": True}),
+                      ("sharded-cuda-zy --mesh-shape 1 1",
+                       {"engine": "sharded-cuda-zy", "mesh_shape": (1, 1)})):
+        reset()
+        with CountCalls(d3q19, "collide_fields") as plain:
+            res = lbm3d_model.run_simulation_sharded(
+                nz, ny, nx, num_steps=steps, dtype=bf16, num_devices=1, device="cuda",
+                **{"engine": "sharded-cuda", **kw}, **PHYSICS_3D)
+        launches, path = alone(f"3-D {label}", "d3q19_kstep_inplace")
+        check(plain.calls == 0, f"3-D {label} bf16: the plain engine ran")
+        if ref3 is None:
+            k3 = res.k_steps
+            f, m3 = d3q19.initial_state(nz, ny, nx, density=PHYSICS_3D["density"], dtype=bf16,
+                                        device="cuda")
+            kw3 = dict(num_steps=steps, engine="cuda-inplace", k_steps=k3, **PHYSICS_3D)
+            d3q19.advance(f.clone(), m3, **kw3)  # warm-up
+            g = f.clone()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref_f, ref_av = d3q19.advance(g, m3, **kw3)
+            end.record()
+            end.synchronize()
+            ref3_mlups = cells * steps / (start.elapsed_time(end) / 1e3) / 1e6
+            ref3 = (ref_f.cpu(), ref_av.double().cpu().numpy())
+            print(f"bf16 sharded 3-D: cuda-inplace --dtype bfloat16 (B4) reference at "
+                  f"{nz}x{ny}x{nx} x {steps} (K={k3}): {ref3_mlups:.1f} MLUPS")
+            out["runs"]["3-D cuda-inplace"] = dict(mlups=ref3_mlups, k_steps=k3)
+            reset()
+        check(res.k_steps == k3, f"3-D {label} ran at K={res.k_steps}, not {k3}")
+        check(res.f_final.dtype == bf16 and torch.equal(res.f_final, ref3[0]),
+              f"3-D {label} bf16: the state differs from cuda-inplace's")
+        err = av_err(res.av_vels, ref3[1])
+        check(err <= BF16_SHARDED_AV_BAR, f"3-D {label} bf16: av_vels[1:] rel err {err}")
+        mlups = cells * steps / res.compute_seconds / 1e6
+        print(f"bf16 sharded 3-D: {label} --dtype bfloat16 at {nz}x{ny}x{nx} x {steps}: B4 "
+              f"{launches} launches on the {path} path (K={res.k_steps}), {mlups:.1f} MLUPS "
+              f"against cuda-inplace's {ref3_mlups:.1f} ({mlups / ref3_mlups:.4f} x); state "
+              f"bit-equal, av_vels[1:] max rel err {err:.3e}")
+        out["runs"][f"3-D {label}"] = dict(launches=launches, path=path, mlups=mlups,
+                                           av_err=err, ref_mlups=ref3_mlups)
+
+    # a checkpointed bfloat16 z-mesh run, resumed
+    n = BF16_SHARDED_3D_CK_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        kw = dict(checkpoint_every=n // 2, engine="sharded-cuda", dtype=bf16, num_devices=1,
+                  device="cuda", **PHYSICS_3D)
+        reset()
+        whole = lbm3d_model.run_simulation_with_checkpoints(
+            nz, ny, nx, num_steps=n, checkpoint_path=tmp / "w.npz", **kw)
+        lbm3d_model.run_simulation_with_checkpoints(
+            nz, ny, nx, num_steps=n // 2, checkpoint_path=tmp / "p.npz", **kw)
+        resumed = lbm3d_model.run_simulation_with_checkpoints(
+            nz, ny, nx, num_steps=n, checkpoint_path=tmp / "p.npz", resume=True, **kw)
+        launches, path = alone("3-D checkpointed sharded-cuda bf16", "d3q19_kstep_inplace")
+        check(resumed[3] == n // 2 and torch.equal(resumed[0], whole[0])
+              and np.array_equal(resumed[1], whole[1]),
+              "bf16 3-D checkpointed sharded-cuda: the resumed run differs from the whole run")
+        print(f"bf16 sharded 3-D: checkpointed z-mesh run, {n // 2} steps resumed to {n}: state "
+              f"and av_vels bit-equal to the whole run's; B4 {launches} launches")
+
+    # a chunk of the bfloat16 ghost-plane run: device and host ms
+    k = out["runs"]["3-D cuda-inplace"]["k_steps"]
+    mesh3 = ks3.make_z_mesh(1)
+    mask3 = d3q19.default_obstacle_mask(nz, ny, nx)
+    f0 = d3q19.initial_distributions(nz, ny, nx, PHYSICS_3D["density"], bf16)
+    f_sh, mask_ext = ks3.prepare(f0, mask3, mesh3, k_steps=k, density=PHYSICS_3D["density"])
+    chunk = ks3.make_chunk_fn(mesh3, k_steps=k, accel_plane=nz - 2, nz=nz, **PHYSICS_3D)
+    chunk.start(f_sh.to_local(), mask_ext.to_local())
+    tots = torch.empty(k, device=chunk.buf.device)
+    n = SHARDED_TIMING_CHUNKS
+    chunk_ms = time_ms(torch, lambda: chunk(tots), n)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        chunk(tots)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    print(f"bf16 sharded 3-D: a bfloat16 chunk (K={k}, B4 on the extended slab) {chunk_ms:.4f} "
+          f"ms on the device's clock, {host_ms:.4f} ms on the host's")
+    out["chunk_3d"] = dict(chunk_ms=chunk_ms, host_ms=host_ms)
+    return out
+
+
 def grouping_child() -> int:
     """Run in a process with LBM_D3Q19_GROUPING=reference (`phase_grouping`):
     B4, B5, B6 and B7 in float32 at the per-speed grouping against the plain
@@ -3328,6 +3739,7 @@ def main() -> int:
             sharded = phase_sharded(torch, mods, golden, mask, stencil)
             sharded3 = phase_sharded_3d(torch, mods3, modsb)
             tooling["halo_bench_mlups"] = phase_halo_bench()
+            bf16_sharded = phase_bf16_sharded(torch, mods, mods3, modsb, mask)
 
         abs_err_b = phase_parity_blocked(torch, mods3, modsb)
         phase_paths_blocked(torch)
@@ -3340,6 +3752,7 @@ def main() -> int:
         bf16_launches, bf16_kernel, bf16_flagship = phase_bf16_main_path(
             torch, mods, mask, flagship["auto"][2])
         bf16_3d = phase_bf16_3d(torch, mods3, modsb)
+        layouts = phase_layouts_3d(torch, mods3)
         grouping = phase_grouping(torch)
 
         abs_err_blur = phase_blur_parity(torch, stencil)
@@ -3359,6 +3772,11 @@ def main() -> int:
                 "plain_ms": o["plain_ms"], "bound_ms": o["bound"][0], "bound_by": o["bound"][1],
                 "k_steps": o["k_steps"], "path": o.get("path"), "launches": launches,
                 "max_abs_err": o.get("max_abs_err"), **extra}
+
+    def bf16_sharded_entry(name, labels):
+        """A kernel's launches and runs in the bfloat16 multi-device phase."""
+        return {"launches": bf16_sharded["launches"][name],
+                "runs": {label: bf16_sharded["runs"][label] for label in labels}}
 
     # each 2-D kernel's main-path run: `auto` for the kernel it picked, else
     # its engine by name (the other flagship runs are listed beside it)
@@ -3402,6 +3820,12 @@ def main() -> int:
                if name == bf16_kernel else {})),
         **({"shared_reciprocal": bf16_2d[name]["shared_reciprocal_paths"]}
            if name == "d2q9_kstep" else {}),
+        **({"bf16_sharded": bf16_sharded_entry(name, [
+            f"cuda-inplace {BF16_SHARDED_STEPS}", "sharded-cuda", "sharded-cuda --overlap"]),
+            "bf16_sharded_chunk": bf16_sharded["chunk_2d"]}
+           if name == "d2q9_kstep_inplace" else {}),
+        **({"bf16_sharded": bf16_sharded_entry(name, ["two-stream", "sharded ppermute"])}
+           if name == "d2q9_kstep" else {}),
     } for name, replaces in KERNELS.items()]
     kernels.append({
         "name": "copy_floor", "route": "cuda", "source": "lbm_tpu_torch/csrc/copy_floor.cu",
@@ -3438,6 +3862,12 @@ def main() -> int:
                            **({"extra_lattices": bf16_3d[name]["extra_lattices"]}
                               if "extra_lattices" in bf16_3d[name] else {})),
         "grouping_per_speed": grouping[name],
+        **({"bf16_sharded": bf16_sharded_entry(name, [
+            "3-D cuda-inplace", "3-D sharded-cuda", "3-D sharded-cuda --overlap",
+            "3-D sharded-cuda-zy --mesh-shape 1 1"]),
+            "bf16_sharded_chunk": bf16_sharded["chunk_3d"]}
+           if name == "d3q19_kstep_inplace" else
+           {"layouts": {"launches": layouts["launches"], "ms_a_pass": layouts["ms"]}}),
     } for name, replaces in KERNELS_3D.items()]
     kernels += [{
         "name": name, "route": "cuda", "source": "lbm_tpu_torch/csrc/d3q19_blocked.cu",

@@ -26,10 +26,10 @@ on CUDA, gloo on the CPU) unless it runs inside a process group already
 bands every K steps around kernel B1 (`--overlap`: the row exchange under the
 interior kernel). `--partition-json` writes the device partitioning as JSON.
 
-`--dtype bfloat16` stores the lattice in bfloat16 on the single-device
-engines, as the JAX package does: the kernel engines step in float32 and
-round the state once a K-step pass, the `torch` engine rounds every
-operation. `native`, the sharded engines and --compile-only take float32 and
+`--dtype bfloat16` stores the lattice in bfloat16, as the JAX package does:
+the kernel engines (`sharded-cuda` too, with and without --overlap) step in
+float32 and round the state once a K-step pass, the `torch` and `sharded`
+engines round every operation. `native` and --compile-only take float32 and
 float64 only.
 
 `--engine native` is the serial C++ engine on the host (native/*.cpp, built
@@ -122,9 +122,6 @@ def main(argv=None) -> int:
         parser.error("--obstacles is required unless --compile-only")
     if args.dtype == "bfloat16" and args.engine == "native":
         parser.error("--engine native takes float32 or float64")
-    if args.dtype == "bfloat16" and sharded:
-        parser.error(f"--dtype bfloat16 is not implemented on the sharded engines yet "
-                     f"({lbm_model.SHARDED_BF16})")
     if args.dtype == "bfloat16" and args.compile_only:
         parser.error("--compile-only exports a float32 or float64 step")
 

@@ -113,6 +113,19 @@
 // bfloat16 (19 x 2 in, 19 x 2 out, the mask), 115 from or to the scratch
 // and 153 within it.
 //
+// Layouts (B6): the lattice is (19, nz, ny, nx), speed-major ("q-major"), or
+// (nz, 19, ny, nx), plane-major ("z-major", the JAX package's layout='zmajor'):
+// the same lattice with other strides. Every access goes through a speed
+// stride and the offsets of planes z - 1, z, z + 1 (`Planes`), so a z-major
+// pass takes the speed stride ny*nx and the plane stride 19*ny*nx where a
+// q-major one takes nz*ny*nx and ny*nx, for the lattice and for a bfloat16
+// pass's float scratch alike; the (nz, ny, nx) mask keeps its plane stride
+// ny*nx. The arithmetic and both reductions are the same, so a z-major pass
+// is bit-equal to a q-major one. The layout is a template switch (kZ) of the
+// kernels B6 launches, not a runtime stride: with runtime strides
+// wave_kernel<float, full> spilled and B4 and B6 ran ~1% slower in q-major
+// (PERF.md section 6). B4 runs q-major only.
+//
 // Interface: plain C, one entry per (kernel, path, dtype), each launching on
 // the given stream and returning cudaGetLastError() after every launch. The
 // kernels allocate nothing; the caller passes every buffer. The collision
@@ -141,10 +154,21 @@ constexpr int kMaxStages = 4;  // K <= 4 steps, or an odd K <= 3 and its swap
 constexpr int kMaxPolls = 1 << 24;
 
 // Offsets of the cell's neighbours along each axis, index 0, 1, 2 for
-// coordinate - 1, itself, + 1 (periodic), in a lattice's natural layout.
+// coordinate - 1, itself, + 1 (periodic), in a lattice's natural layout:
+// zo in units of the lattice's plane stride, yo and xo within a plane.
 struct Neighbours {
   size_t zo[3], yo[3], xo[3];
 };
+
+// A lattice's speed stride and plane stride, q-major or (kZ) z-major.
+template <bool kZ>
+__device__ __forceinline__ size_t speed_stride(const Grid& g) {
+  return kZ ? (size_t)g.ny * g.nx : (size_t)g.nz * g.ny * g.nx;
+}
+template <bool kZ>
+__device__ __forceinline__ size_t plane_stride(const Grid& g) {
+  return (kZ ? (size_t)kQ : (size_t)1) * g.ny * g.nx;
+}
 
 __device__ __forceinline__ void row_neighbours(const Grid& g, int y, int x, size_t yo[3],
                                                size_t xo[3]) {
@@ -156,8 +180,9 @@ __device__ __forceinline__ void row_neighbours(const Grid& g, int y, int x, size
   xo[2] = (size_t)(x == g.nx - 1 ? 0 : x + 1);
 }
 
+template <bool kZ>
 __device__ __forceinline__ Neighbours neighbours(const Grid& g, int z, int y, int x) {
-  const size_t plane = (size_t)g.ny * g.nx;
+  const size_t plane = plane_stride<kZ>(g);
   Neighbours n;
   n.zo[0] = (size_t)(z == 0 ? g.nz - 1 : z - 1) * plane;
   n.zo[1] = (size_t)z * plane;
@@ -306,8 +331,9 @@ __device__ __forceinline__ void swap_cell(const Planes<T>& f, const size_t yo[3]
 // ---------------------------------------------------------------- step path
 
 // One step of kind kKind from src (of type Src) to dst (Dst), in the compute
-// type T of both.
-template <typename Src, typename Dst, int kKind, typename T = typename storage::Compute<Src>::type>
+// type T of both; kZ: z-major lattices.
+template <typename Src, typename Dst, int kKind, bool kZ,
+          typename T = typename storage::Compute<Src>::type>
 __global__ void __launch_bounds__(kMaxThreads)
 step_kernel(const Src* src, Dst* dst, const uint8_t* __restrict__ mask,
             T* __restrict__ partials, Grid g, Window win, Coef<T> p) {
@@ -320,13 +346,15 @@ step_kernel(const Src* src, Dst* dst, const uint8_t* __restrict__ mask,
 
   T u = T(0);
   if (x < g.nx && y < g.ny && z < g.nz) {
-    const size_t vol = (size_t)g.nz * g.ny * g.nx;
-    const Neighbours n = neighbours(g, z, y, x);
+    const size_t vol = speed_stride<kZ>(g);
+    const Neighbours n = neighbours<kZ>(g, z, y, x);
     const Planes<const Src> from{src, vol, {n.zo[0], n.zo[1], n.zo[2]}};
     const Planes<Dst> to{dst, vol, {n.zo[0], n.zo[1], n.zo[2]}};
     const bool accel = wrap(z + win.plane_offset, win.global_nz) == win.accel_plane;
+    // the mask's plane offset: the lattice's in q-major
+    const size_t mz = kZ ? (size_t)z * g.ny * g.nx : n.zo[1];
     u = step_cell<Src, Dst, kKind, kFull, false>(from, to, n.yo, n.xo,
-                                          mask[n.zo[1] + n.yo[1] + n.xo[1]] != 0, accel, p,
+                                          mask[mz + n.yo[1] + n.xo[1]] != 0, accel, p,
                                           Policy{});
     if (z < win.valid_lo || z >= win.valid_hi || y < win.row_lo || y >= win.row_hi)
       u = T(0);
@@ -338,6 +366,7 @@ step_kernel(const Src* src, Dst* dst, const uint8_t* __restrict__ mask,
   }
 }
 
+// B4's swap after an odd K (q-major: B4 takes no other layout).
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 swap_kernel(T* f, Grid g) {
@@ -345,8 +374,8 @@ swap_kernel(T* f, Grid g) {
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int z = blockIdx.z * blockDim.z + threadIdx.z;
   if (x >= g.nx || y >= g.ny || z >= g.nz) return;
-  const Neighbours n = neighbours(g, z, y, x);
-  const Planes<T> lattice{f, (size_t)g.nz * g.ny * g.nx, {n.zo[0], n.zo[1], n.zo[2]}};
+  const Neighbours n = neighbours<false>(g, z, y, x);
+  const Planes<T> lattice{f, speed_stride<false>(g), {n.zo[0], n.zo[1], n.zo[2]}};
   swap_cell<T, false>(lattice, n.yo, n.xo, Policy{});
 }
 
@@ -366,8 +395,8 @@ bool make_launch(const Grid& g, int bx, int by, int bz, Launch* l) {
 }
 
 // B6: K steps from f, alternating between out and scratch so that the last
-// step lands in out.
-template <typename T>
+// step lands in out; kZ: z-major lattices.
+template <typename T, bool kZ>
 int launch_two_stream(const void* f, const void* mask, void* out, void* scratch,
                       void* partials, void* tot, Grid g, int bx, int by, int bz,
                       int k, Window win, Coef<T> p, cudaStream_t stream) {
@@ -377,7 +406,7 @@ int launch_two_stream(const void* f, const void* mask, void* out, void* scratch,
   const T* src = static_cast<const T*>(f);
   for (int j = 1; j <= k; ++j) {
     T* dst = static_cast<T*>((k - j) % 2 == 0 ? out : scratch);
-    step_kernel<T, T, kTwoStream><<<l.grid, l.block, 0, stream>>>(
+    step_kernel<T, T, kTwoStream, kZ><<<l.grid, l.block, 0, stream>>>(
         src, dst, static_cast<const uint8_t*>(mask),
         static_cast<T*>(partials) + (size_t)(j - 1) * l.nblocks, g, win, p);
     const cudaError_t err = cudaGetLastError();
@@ -400,11 +429,11 @@ int launch_inplace(void* f, const void* mask, void* partials, void* tot, Grid g,
   for (int j = 1; j <= k; ++j) {
     T* part = static_cast<T*>(partials) + (size_t)(j - 1) * l.nblocks;
     if (j % 2)
-      step_kernel<T, T, kPullSwap><<<l.grid, l.block, 0, stream>>>(lattice, lattice, m, part,
-                                                                 g, win, p);
+      step_kernel<T, T, kPullSwap, false><<<l.grid, l.block, 0, stream>>>(
+          lattice, lattice, m, part, g, win, p);
     else
-      step_kernel<T, T, kLocal><<<l.grid, l.block, 0, stream>>>(lattice, lattice, m, part, g,
-                                                              win, p);
+      step_kernel<T, T, kLocal, false><<<l.grid, l.block, 0, stream>>>(lattice, lattice, m,
+                                                                     part, g, win, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -423,7 +452,9 @@ int launch_inplace(void* f, const void* mask, void* partials, void* tot, Grid g,
 // rounded. K > 1 steps through `scratch`, a float lattice: the first step
 // two-stream from f into scratch, the middle ones A, B, ... in scratch in
 // place, the last from scratch into out, two-stream where scratch is in its
-// natural layout (after a B, or no middle step), else a local step B.
+// natural layout (after a B, or no middle step), else a local step B. kZ:
+// z-major lattices, scratch too (B6 only).
+template <bool kZ>
 int launch_rounded(const void* f, const void* mask, void* out, void* scratch,
                    void* partials, void* tot, Grid g, int bx, int by, int bz, int k,
                    Window win, Coef<float> p, bool inplace, cudaStream_t stream) {
@@ -439,36 +470,45 @@ int launch_rounded(const void* f, const void* mask, void* out, void* scratch,
   cudaError_t err;
   if (k == 1) {
     if (inplace) {
-      step_kernel<S, S, kPullSwap><<<l.grid, l.block, 0, stream>>>(res, res, m, part, g, win, p);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      swap_kernel<S><<<l.grid, l.block, 0, stream>>>(res, g);
+      if constexpr (kZ) {
+        return (int)cudaErrorInvalidValue;  // B4 runs q-major only
+      } else {
+        step_kernel<S, S, kPullSwap, false><<<l.grid, l.block, 0, stream>>>(res, res, m, part, g,
+                                                                          win, p);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        swap_kernel<S><<<l.grid, l.block, 0, stream>>>(res, g);
+      }
     } else {
-      step_kernel<S, S, kTwoStream><<<l.grid, l.block, 0, stream>>>(in, res, m, part, g, win, p);
+      step_kernel<S, S, kTwoStream, kZ><<<l.grid, l.block, 0, stream>>>(in, res, m, part, g, win,
+                                                                      p);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return sum_partials<float>(part, l.nblocks, k, static_cast<float*>(tot), stream);
   }
-  step_kernel<S, float, kTwoStream><<<l.grid, l.block, 0, stream>>>(in, mid, m, part, g, win, p);
+  step_kernel<S, float, kTwoStream, kZ><<<l.grid, l.block, 0, stream>>>(in, mid, m, part, g, win,
+                                                                        p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   for (int j = 2; j < k; ++j) {
     float* pj = part + (size_t)(j - 1) * l.nblocks;
     if (j % 2 == 0)
-      step_kernel<float, float, kPullSwap><<<l.grid, l.block, 0, stream>>>(mid, mid, m, pj, g,
-                                                                           win, p);
+      step_kernel<float, float, kPullSwap, kZ><<<l.grid, l.block, 0, stream>>>(mid, mid, m, pj,
+                                                                               g, win, p);
     else
-      step_kernel<float, float, kLocal><<<l.grid, l.block, 0, stream>>>(mid, mid, m, pj, g,
-                                                                        win, p);
+      step_kernel<float, float, kLocal, kZ><<<l.grid, l.block, 0, stream>>>(mid, mid, m, pj, g,
+                                                                            win, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   float* pk = part + (size_t)(k - 1) * l.nblocks;
   if (k % 2 == 0)  // an even number of middle steps: scratch in its natural layout
-    step_kernel<float, S, kTwoStream><<<l.grid, l.block, 0, stream>>>(mid, res, m, pk, g, win, p);
+    step_kernel<float, S, kTwoStream, kZ><<<l.grid, l.block, 0, stream>>>(mid, res, m, pk, g,
+                                                                        win, p);
   else
-    step_kernel<float, S, kLocal><<<l.grid, l.block, 0, stream>>>(mid, res, m, pk, g, win, p);
+    step_kernel<float, S, kLocal, kZ><<<l.grid, l.block, 0, stream>>>(mid, res, m, pk, g, win,
+                                                                    p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return sum_partials<float>(part, l.nblocks, k, static_cast<float*>(tot), stream);
@@ -556,7 +596,7 @@ __device__ __forceinline__ T wave_cell(int kind, const Planes<const T>& src, con
   return step_cell<T, T, kLocal, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
 }
 
-template <typename T, int kMode>
+template <typename T, int kMode, bool kZ>
 __global__ void __launch_bounds__(kMaxThreads, WaveOccupancy<T>::kMinBlocks)
 wave_kernel(const T* in, T* out, const uint8_t* __restrict__ mask, T* __restrict__ partials,
             unsigned* counters, Grid g, Window win, Coef<T> p, WavePlan a) {
@@ -566,8 +606,10 @@ wave_kernel(const T* in, T* out, const uint8_t* __restrict__ mask, T* __restrict
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nwarps = (blockDim.x * blockDim.y) >> 5;
   const int nz = g.nz;
-  const size_t plane = (size_t)g.ny * g.nx;
-  const size_t vol = (size_t)nz * plane;
+  const size_t plane = (size_t)g.ny * g.nx;  // the mask's plane stride
+  // the lattice's speed and plane strides (speed_stride, plane_stride)
+  const size_t vol = kZ ? plane : (size_t)nz * plane;
+  const size_t zs = kZ ? (size_t)kQ * plane : plane;
   const int per_plane = a.gx * a.gy;
   // the words: a counter a (stage, plane), the ticket, the exit word
   unsigned* ticket = counters + kMaxStages * nz;
@@ -597,8 +639,7 @@ wave_kernel(const T* in, T* out, const uint8_t* __restrict__ mask, T* __restrict
     const int s = claim[0], i = claim[1], c = claim[2];
     if (s < 0) break;
     const int z = (i + s) % nz;
-    const size_t zo[3] = {(z == 0 ? nz - 1 : z - 1) * plane, z * plane,
-                          (z == nz - 1 ? 0 : z + 1) * plane};
+    const size_t zo[3] = {(z == 0 ? nz - 1 : z - 1) * zs, z * zs, (z == nz - 1 ? 0 : z + 1) * zs};
     // stage 0 reads in, every stage writes out
     const Planes<const T> src{s == 0 ? in : out, vol, {zo[0], zo[1], zo[2]}};
     const Planes<T> dst{out, vol, {zo[0], zo[1], zo[2]}};
@@ -620,8 +661,10 @@ wave_kernel(const T* in, T* out, const uint8_t* __restrict__ mask, T* __restrict
         if (kind == kSwap) {
           swap_cell<T, true>(dst, yo, xo, pol);
         } else {
-          u = wave_cell<T, kMode>(kind, src, dst, yo, xo, mask[zo[1] + yo[1] + xo[1]] != 0,
-                                  accel, p, pol);
+          // the mask's plane offset: the lattice's in q-major
+          const size_t mz = kZ ? (size_t)z * plane : zo[1];
+          u = wave_cell<T, kMode>(kind, src, dst, yo, xo, mask[mz + yo[1] + xo[1]] != 0, accel,
+                                  p, pol);
           if (!counted || y < win.row_lo || y >= win.row_hi) u = T(0);
         }
       }
@@ -677,15 +720,16 @@ bool make_plan(const Grid& g, int bx, int by, int bz, int k, bool inplace, bool 
   return true;
 }
 
-// One pass on the wave path: B6 (out = K steps of in, in `mode`) or, with
-// inplace, B4 (in == out, K steps in place).
-template <typename T>
+// One pass on the wave path: B6 (out = K steps of in, in `mode`; kZ: on
+// z-major lattices) or, with inplace, B4 (in == out, K steps in place).
+template <typename T, bool kZ>
 int launch_wave(const void* in, const void* mask, void* out, void* partials, void* tot,
                 void* counters, int mode, int inplace, int blocks, int chunk, int lag, Grid g,
                 int bx, int by, int bz, int k, Window win, Coef<T> p, cudaStream_t stream) {
   WavePlan a;
   if (!make_plan(g, bx, by, bz, k, inplace != 0, in == out, chunk, lag, &a) ||
-      blocks < 1 || mode < kFull || mode > kNoRoll || (inplace && (in != out || mode != kFull)))
+      blocks < 1 || mode < kFull || mode > kNoRoll ||
+      (inplace && (in != out || mode != kFull || kZ)))
     return (int)cudaErrorInvalidValue;
   const T* src = static_cast<const T*>(in);
   T* dst = static_cast<T*>(out);
@@ -695,16 +739,20 @@ int launch_wave(const void* in, const void* mask, void* out, void* partials, voi
   const dim3 block(a.bx, a.by, 1);
   switch (mode) {
     case kStreamOnly:
-      wave_kernel<T, kStreamOnly><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win, p, a);
+      wave_kernel<T, kStreamOnly, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win,
+                                                                   p, a);
       break;
     case kCopy:
-      wave_kernel<T, kCopy><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win, p, a);
+      wave_kernel<T, kCopy, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win,
+                                                             p, a);
       break;
     case kNoRoll:
-      wave_kernel<T, kNoRoll><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win, p, a);
+      wave_kernel<T, kNoRoll, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win,
+                                                               p, a);
       break;
     default:
-      wave_kernel<T, kFull><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win, p, a);
+      wave_kernel<T, kFull, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win,
+                                                             p, a);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -717,16 +765,20 @@ int wave_blocks(int mode, int threads) {
   cudaError_t err;
   switch (mode) {
     case kStreamOnly:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wave_kernel<T, kStreamOnly>, threads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, wave_kernel<T, kStreamOnly, false>, threads, 0);
       break;
     case kCopy:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wave_kernel<T, kCopy>, threads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, wave_kernel<T, kCopy, false>, threads, 0);
       break;
     case kNoRoll:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wave_kernel<T, kNoRoll>, threads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, wave_kernel<T, kNoRoll, false>, threads, 0);
       break;
     default:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wave_kernel<T, kFull>, threads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, wave_kernel<T, kFull, false>, threads, 0);
   }
   return err == cudaSuccess ? n : -(int)err;
 }
@@ -759,13 +811,20 @@ extern "C" {
 // scratch are distinct. Only the first step reads f, so for an even K out
 // may be f's own storage, and for an odd K > 1 scratch may be. tot[K] is the
 // per-step Sum|u|; partials holds K * (number of blocks) values of scratch.
+// zmajor: f, out and scratch are (nz, 19, ny, nx), else (19, nz, ny, nx).
 int d3q19_kstep_f32(const void* f, const void* mask, void* out, void* scratch,
-                    void* partials, void* tot, LBM3_ARGS) {
-  return launch_two_stream<float>(f, mask, out, scratch, partials, tot, LBM3_PASS(float));
+                    void* partials, void* tot, int zmajor, LBM3_ARGS) {
+  return zmajor ? launch_two_stream<float, true>(f, mask, out, scratch, partials, tot,
+                                                 LBM3_PASS(float))
+                : launch_two_stream<float, false>(f, mask, out, scratch, partials, tot,
+                                                  LBM3_PASS(float));
 }
 int d3q19_kstep_f64(const void* f, const void* mask, void* out, void* scratch,
-                    void* partials, void* tot, LBM3_ARGS) {
-  return launch_two_stream<double>(f, mask, out, scratch, partials, tot, LBM3_PASS(double));
+                    void* partials, void* tot, int zmajor, LBM3_ARGS) {
+  return zmajor ? launch_two_stream<double, true>(f, mask, out, scratch, partials, tot,
+                                                  LBM3_PASS(double))
+                : launch_two_stream<double, false>(f, mask, out, scratch, partials, tot,
+                                                   LBM3_PASS(double));
 }
 
 // B6 on a bfloat16 lattice (the step path): out = K steps of f, rounded to
@@ -773,9 +832,11 @@ int d3q19_kstep_f64(const void* f, const void* mask, void* out, void* scratch,
 // f and out; partials and tot are float. For K > 1 out may be f's own
 // storage (only the first step reads f, only the last writes out).
 int d3q19_kstep_bf16(const void* f, const void* mask, void* out, void* scratch,
-                     void* partials, void* tot, LBM3_ARGS) {
-  return launch_rounded(f, mask, out, scratch, partials, tot, LBM3_GRID, false,
-                        static_cast<cudaStream_t>(stream));
+                     void* partials, void* tot, int zmajor, LBM3_ARGS) {
+  return zmajor ? launch_rounded<true>(f, mask, out, scratch, partials, tot, LBM3_GRID, false,
+                                       static_cast<cudaStream_t>(stream))
+                : launch_rounded<false>(f, mask, out, scratch, partials, tot, LBM3_GRID, false,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // B4 on the step path: f = K steps of f, in place, with no other lattice.
@@ -791,8 +852,8 @@ int d3q19_kstep_inplace_f64(void* f, const void* mask, void* partials, void* tot
 // float lattice scratch (null for K = 1, which steps in f itself).
 int d3q19_kstep_inplace_bf16(void* f, const void* mask, void* scratch, void* partials,
                              void* tot, LBM3_ARGS) {
-  return launch_rounded(f, mask, f, scratch, partials, tot, LBM3_GRID, true,
-                        static_cast<cudaStream_t>(stream));
+  return launch_rounded<false>(f, mask, f, scratch, partials, tot, LBM3_GRID, true,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The wave path: out = K steps of f in `mode` (index in MODES), in one
@@ -800,19 +861,25 @@ int d3q19_kstep_inplace_bf16(void* f, const void* mask, void* scratch, void* par
 // For an even K of B6 out may be f's own storage. counters: 4 * nz + 2 words,
 // zero before the launch and after it (a counter a (stage, plane), the
 // ticket, the exit word); launches that may run at once need their own.
+// zmajor (B6 only): f and out are (nz, 19, ny, nx).
 int d3q19_wave_f32(const void* f, const void* mask, void* out, void* partials, void* tot,
-                   void* counters, int mode, int inplace, WAVE_ARGS, LBM3_ARGS) {
-  return launch_wave<float>(f, mask, out, partials, tot, counters, mode, inplace, blocks, chunk,
-                            lag, LBM3_PASS(float));
+                   void* counters, int mode, int inplace, int zmajor, WAVE_ARGS, LBM3_ARGS) {
+  return zmajor ? launch_wave<float, true>(f, mask, out, partials, tot, counters, mode, inplace,
+                                           blocks, chunk, lag, LBM3_PASS(float))
+                : launch_wave<float, false>(f, mask, out, partials, tot, counters, mode, inplace,
+                                            blocks, chunk, lag, LBM3_PASS(float));
 }
 int d3q19_wave_f64(const void* f, const void* mask, void* out, void* partials, void* tot,
-                   void* counters, int mode, int inplace, WAVE_ARGS, LBM3_ARGS) {
-  return launch_wave<double>(f, mask, out, partials, tot, counters, mode, inplace, blocks,
-                             chunk, lag, LBM3_PASS(double));
+                   void* counters, int mode, int inplace, int zmajor, WAVE_ARGS, LBM3_ARGS) {
+  return zmajor ? launch_wave<double, true>(f, mask, out, partials, tot, counters, mode, inplace,
+                                            blocks, chunk, lag, LBM3_PASS(double))
+                : launch_wave<double, false>(f, mask, out, partials, tot, counters, mode,
+                                             inplace, blocks, chunk, lag, LBM3_PASS(double));
 }
 
 // Resident blocks an SM of wave_kernel in mode `mode` (index in MODES),
-// float64 when f64 is nonzero. Negative on an error.
+// float64 when f64 is nonzero (the q-major instance; the z-major ones have
+// the same launch bounds). Negative on an error.
 int d3q19_wave_blocks(int mode, int f64, int threads) {
   return f64 ? wave_blocks<double>(mode, threads) : wave_blocks<float>(mode, threads);
 }

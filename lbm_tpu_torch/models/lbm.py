@@ -79,16 +79,6 @@ def host_dtype(dtype):
     return torch.bfloat16 if dtype == torch.bfloat16 else numpy_dtype(dtype)
 
 
-# where bfloat16 on the multi-device engines is planned
-SHARDED_BF16 = "ROADMAP.md, A3: bfloat16 on the sharded engines"
-
-
-def refuse_sharded_bf16(dtype) -> None:
-    if dtype == torch.bfloat16:
-        raise ValueError(f"the sharded engines take float32 and float64; bfloat16 is not "
-                         f"implemented there yet ({SHARDED_BF16})")
-
-
 def choose_engine(params: Params, dtype, device: torch.device) -> str:
     """The engine of 'auto' for this run: `d2q9_kstep.choose_engine` against
     the free memory of a CUDA `device`; on another device the kernel engines
@@ -224,7 +214,6 @@ def run_simulation_with_checkpoints(
     if engine == "auto":
         engine = choose_engine(p, dtype, device)
     if engine in SHARDED_ENGINES:
-        refuse_sharded_bf16(dtype)
         n = _sharded_world(engine, strategy, False, num_devices, device)
         return launch.run(_checkpoint_rank, n, p, obstacles.mask, Path(checkpoint_path),
                           checkpoint_every, dtype, engine, strategy or "ppermute", resume,
@@ -406,7 +395,7 @@ def _checkpoint_rank(p, mask, ck_path, checkpoint_every, dtype, engine, strategy
     """The body of a checkpointed sharded run on each rank; rank 0 writes the
     checkpoint and returns the result."""
     plan = _resume_plan(p, ck_path, resume, checkpoint_every, k_steps, engine == "sharded-cuda",
-                        numpy_dtype(dtype))
+                        host_dtype(dtype))
     mesh = _sharded_mesh(engine, p)
     aw = d2q9.AccelWeights.from_params(p)
     kw = dict(omega=p.omega, accel_w1=aw.w1, accel_w2=aw.w2)
@@ -425,6 +414,7 @@ def _checkpoint_rank(p, mask, ck_path, checkpoint_every, dtype, engine, strategy
             return kstep_sharded.run(f, mask_ext, mesh=mesh, num_steps=n, k_steps=plan.k_steps,
                                      accel_row=p.ny - 2, ny=p.ny, **kw)
 
+    # the free-cell count in the state's type, as on one device
     num_free = torch.tensor(int((~np.asarray(mask, bool)).sum()), dtype=f.dtype,
                             device=f.to_local().device)
     return _checkpoint_loop(p, plan, run_chunk,
@@ -460,7 +450,6 @@ def run_simulation_sharded(
     p = params if num_steps is None else dataclasses.replace(params, max_iters=num_steps)
     if engine not in SHARDED_ENGINES:
         raise ValueError(f"unknown sharded engine {engine!r}; choose from {SHARDED_ENGINES}")
-    refuse_sharded_bf16(dtype)
     n = _sharded_world(engine, strategy, overlap, num_devices, device)
     return launch.run(_sharded_rank, n, p, obstacles.mask, dtype, engine,
                       strategy or "ppermute", overlap, device_type=device.type)
@@ -471,7 +460,7 @@ def _sharded_rank(p, mask, dtype, engine, strategy, overlap) -> LbmResult | None
     import torch.distributed as dist
 
     mesh = _sharded_mesh(engine, p)
-    f0 = state.initial_distributions(p, numpy_dtype(dtype))
+    f0 = state.initial_distributions(p, host_dtype(dtype))
     if engine == "sharded-cuda":
         def sim():
             return kstep_sharded.simulate(p, f0, mask, mesh, overlap=overlap)
@@ -494,8 +483,8 @@ def _sharded_rank(p, mask, dtype, engine, strategy, overlap) -> LbmResult | None
         compute_seconds = time.perf_counter() - t0
     if not launch.is_rank0():
         return None
-    av_np = av.cpu().numpy().astype(np.float64)
-    f_np = f_final.cpu().numpy()
+    av_np = av.double().cpu().numpy()
+    f_np = state.host_state(f_final)
     return LbmResult(
         f_final=f_np,
         av_vels=av_np,

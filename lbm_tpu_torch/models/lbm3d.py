@@ -36,7 +36,7 @@ import torch.distributed as dist
 from ..core import checkpoint, state
 from ..ops import d3q19, d3q19_kstep, d3q19_lattice
 from ..parallel import halo, kstep_sharded_3d, launch, mesh as mesh_lib
-from .lbm import default_num_devices, host_dtype, numpy_dtype, refuse_sharded_bf16, resolve_device
+from .lbm import default_num_devices, host_dtype, numpy_dtype, resolve_device
 
 
 def select_k_steps(engine: str, num_steps: int, checkpoint_every: int, shape=None,
@@ -106,7 +106,6 @@ def run_simulation_with_checkpoints(
             raise ValueError(
                 f"checkpointing supports engines {d3q19.ENGINES + ('sharded-cuda',)}, not "
                 f"{engine!r} (use the z-mesh engine sharded-cuda for checkpointed runs)")
-        refuse_sharded_bf16(dtype)
         n = num_devices or default_num_devices(device)
         launch.check_world(n, device.type)
         return launch.run(_checkpoint_rank, n, mask_np, Path(checkpoint_path), num_steps,
@@ -228,7 +227,7 @@ def _checkpoint_rank(mask_np, ck_path, num_steps, checkpoint_every, physics, dty
     k_steps = k_steps or select_k_steps("sharded-cuda", num_steps, checkpoint_every,
                                         (nz, ny, nx), n)
     f_host, start, av_parts = _start_or_resume(ck_path, resume, (nz, ny, nx), physics,
-                                               numpy_dtype(dtype), num_steps, k_steps)
+                                               host_dtype(dtype), num_steps, k_steps)
     mesh = kstep_sharded_3d.make_z_mesh(n)
     f, mask_ext = kstep_sharded_3d.prepare(f_host, mask_np, mesh, k_steps=k_steps,
                                            density=physics["density"])
@@ -237,6 +236,7 @@ def _checkpoint_rank(mask_np, ck_path, num_steps, checkpoint_every, physics, dty
         return kstep_sharded_3d.run(f, mask_ext, mesh=mesh, num_steps=steps, k_steps=k_steps,
                                     accel_plane=nz - 2, nz=nz, **physics)
 
+    # the free-cell count in the state's type, as on one device
     num_free = torch.tensor(int((~mask_np).sum()), dtype=f.dtype, device=f.to_local().device)
     result = _chunks(run_chunk, lambda f: f.full_tensor()[:, :nz], f, start, num_steps,
                      checkpoint_every, av_parts, num_free, ck_path, physics,
@@ -391,7 +391,7 @@ def _sharded_rank(engine, nz, ny, nx, kw) -> ShardedRun | None:
     f_final, av = finish(*result)
     if not launch.is_rank0():
         return None
-    return ShardedRun(f_final.cpu().numpy(), av.cpu().numpy().astype(np.float64), seconds,
+    return ShardedRun(state.host_state(f_final), av.double().cpu().numpy(), seconds,
                       info["k_steps"], info["mesh_shape"], info.get("kernel"),
                       info.get("block"))
 

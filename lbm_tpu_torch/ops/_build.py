@@ -77,15 +77,14 @@ SIGNATURES = {
         "overlap_manual_blocks": [_I] * 6,
     },
     "d3q19_kstep": {
-        "d3q19_kstep_f32": [_P] * 6 + _D3Q19_SCALARS,
-        "d3q19_kstep_f64": [_P] * 6 + _D3Q19_SCALARS,
-        "d3q19_kstep_bf16": [_P] * 6 + _D3Q19_SCALARS,  # scratch: a float lattice
+        # ... partials, tot, zmajor, then the scalars (bf16: scratch a float lattice)
+        **{f"d3q19_kstep_{t}": [_P] * 6 + [_I] + _D3Q19_SCALARS for t in ("f32", "f64", "bf16")},
         "d3q19_kstep_inplace_f32": [_P] * 4 + _D3Q19_SCALARS,
         "d3q19_kstep_inplace_f64": [_P] * 4 + _D3Q19_SCALARS,
         "d3q19_kstep_inplace_bf16": [_P] * 5 + _D3Q19_SCALARS,  # f, mask, scratch, ...
-        # ... tot, counters, mode, inplace, then the plan and the scalars
-        "d3q19_wave_f32": [_P] * 6 + [_I] * 2 + _D3Q19_WAVE + _D3Q19_SCALARS,
-        "d3q19_wave_f64": [_P] * 6 + [_I] * 2 + _D3Q19_WAVE + _D3Q19_SCALARS,
+        # ... tot, counters, mode, inplace, zmajor, then the plan and the scalars
+        "d3q19_wave_f32": [_P] * 6 + [_I] * 3 + _D3Q19_WAVE + _D3Q19_SCALARS,
+        "d3q19_wave_f64": [_P] * 6 + [_I] * 3 + _D3Q19_WAVE + _D3Q19_SCALARS,
         "d3q19_wave_blocks": [_I] * 3,
     },
     "d3q19_blocked": {

@@ -375,9 +375,7 @@ def simulate(
                                       obstacle_mask=obstacle_mask, dtype=numpy_dtype(dtype))
         return torch.from_numpy(f), torch.from_numpy(av)
     if engine in SHARDED_ENGINES:
-        from ..models.lbm import default_num_devices, refuse_sharded_bf16, resolve_device
-
-        refuse_sharded_bf16(dtype)
+        from ..models.lbm import default_num_devices, resolve_device
         from ..models.lbm3d import simulate_engine
         from ..parallel import launch
 

@@ -31,8 +31,19 @@ cannot take the call raises. B6's
 diagnostic modes (`MODES`, those of the TPU kernel) run on the wave path:
 `stepk(mode=...)` and `stepk_plain(mode=...)`.
 
+B6 takes the layouts of the TPU kernel (`LAYOUTS`): `stepk(layout=
+"zmajor")` takes and returns (nz, 19, ny, nx), the same lattice with other
+strides, which the kernel steps in place of the q-major (19, nz, ny, nx);
+"fused" is the TPU kernel's rank-3 (19, nz * ny, nx) view of the q-major
+array at the HBM boundary, the same bytes, so it takes and returns the
+q-major state and launches as "qmajor". `run(layout=)` takes the q-major
+state and transposes it once at entry and once at exit. The mask is (nz, ny,
+nx) in every layout, and a pass in any layout is bit-equal to a q-major one.
+B4 and the blocked kernels take q-major only.
+
 `stepk_plain` is the plain PyTorch version: K steps of `d3q19` on the whole
-periodic array (a bfloat16 state upcast for the pass, rounded at its end).
+periodic array (a bfloat16 state upcast for the pass, rounded at its end; a
+z-major state transposed to q-major and back).
 It agrees with the CUDA kernels on every cell for every
 window, since both take each step on planes [0, nz) only. The TPU kernels
 also step their K-plane halo and test those planes at their unwrapped index,
@@ -67,6 +78,8 @@ MAX_K = 4
 # collision).
 MODES = ("full", "stream_only", "copy", "collide_no_roll")
 PATHS = ("step", "wave")
+# B6's lattice layouts, those of `lbm_tpu.ops.d3q19_pallas.stepk`
+LAYOUTS = ("qmajor", "zmajor", "fused")
 # Threads per block along (x, y, z), in order of preference: the first whose
 # x extent is not wider than the grid (rounded up to a warp). Measured at
 # 64x128x256 float32 on an H100 (experiments/cuda-kstep-tiles/results3d.csv):
@@ -119,6 +132,20 @@ def check_mode(mode: str) -> int:
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     return MODES.index(mode)
+
+
+def qmajor_view(f: torch.Tensor, layout: str = "qmajor") -> torch.Tensor:
+    """f in `layout` as a (19, nz, ny, nx) view of the same storage (not
+    contiguous for z-major). Raises on an unknown layout, or a state of
+    another rank or shape than the layout's."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    axis = 1 if layout == "zmajor" else 0
+    if f.dim() != 4 or f.shape[axis] != 19:
+        want = "(nz, 19, ny, nx)" if layout == "zmajor" else "(19, nz, ny, nx)"
+        raise ValueError(f"layout {layout!r} takes a state of shape {want}, got "
+                         f"{tuple(f.shape)}")
+    return f.transpose(0, 1) if layout == "zmajor" else f
 
 
 def wave_fits(nz: int, block: tuple[int, int, int]) -> bool:
@@ -337,6 +364,7 @@ def stepk_plain(
     valid_rows: tuple | None = None,
     global_nz: int | None = None,
     mode: str = "full",
+    layout: str = "qmajor",
 ):
     """The plain PyTorch version of the K-step kernels: K steps of
     `d3q19.collide_fields` on `d3q19.stream_pull`, with per-step Sum|u| over
@@ -345,8 +373,16 @@ def stepk_plain(
     rest-speed plane; "copy", f itself and a Sum|u| of zeros;
     "collide_no_roll", the collision on the pull along z alone. A bfloat16
     state steps in float32 and is rounded once, at the end, with a float32
-    Sum|u|, as the kernels do. Returns (f_after_K, tot (K,))."""
+    Sum|u|, as the kernels do. A z-major state (`layout`) is stepped as its
+    q-major transpose and transposed back. Returns (f_after_K, tot (K,))."""
     check_mode(mode)
+    q = qmajor_view(f, layout)
+    if layout == "zmajor":
+        f_new, tot = stepk_plain(q, mask, k_steps=k_steps, omega=omega, density=density,
+                                 accel=accel, accel_plane=accel_plane, plane_offset=plane_offset,
+                                 valid_planes=valid_planes, valid_rows=valid_rows,
+                                 global_nz=global_nz, mode=mode)
+        return f_new.transpose(0, 1).contiguous(), tot
     if mode == "copy":
         return f.clone(), torch.zeros(k_steps, dtype=compute_dtype(f.dtype), device=f.device)
     if f.dtype == torch.bfloat16:
@@ -379,17 +415,18 @@ def stepk_plain(
     return f, torch.stack(tots)
 
 
-def check_state(f: torch.Tensor, mask_u8: torch.Tensor, k_steps: int) -> None:
-    """Raises on a state, mask or K that the 3-D CUDA kernels do not take."""
+def check_state(f: torch.Tensor, mask_u8: torch.Tensor, k_steps: int,
+                layout: str = "qmajor") -> None:
+    """Raises on a state, mask or K that the 3-D CUDA kernels do not take (B6
+    takes every layout of LAYOUTS, the others q-major)."""
     if f.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got one on {f.device}")
-    if f.dim() != 4 or f.shape[0] != 19:
-        raise ValueError(f"state must have shape (19, nz, ny, nx), got {tuple(f.shape)}")
+    q = qmajor_view(f, layout)
     if f.dtype not in DTYPES:
         raise ValueError(f"the kernel takes float32, float64 or bfloat16, got {f.dtype}")
     if not f.is_contiguous():
         raise ValueError("state must be contiguous")
-    _, nz, ny, nx = f.shape
+    _, nz, ny, nx = q.shape
     if mask_u8.shape != (nz, ny, nx) or mask_u8.device != f.device or mask_u8.dtype != torch.uint8:
         raise ValueError(f"mask must be ({nz}, {ny}, {nx}) uint8 on {f.device}")
     if not 1 <= k_steps <= MAX_K:
@@ -412,11 +449,12 @@ def window_scalars(f: torch.Tensor, *, omega: float, density: float, accel: floa
 
 
 def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int,
-                block: tuple | None = None, **window):
+                block: tuple | None = None, layout: str = "qmajor", **window):
     """Checks a CUDA call of either kernel and returns (block, nblocks: the
     step path's blocks, the trailing scalar arguments of its C entry
-    points)."""
-    check_state(f, mask_u8, k_steps)
+    points). `layout` as in `stepk` (B6)."""
+    check_state(f, mask_u8, k_steps, layout)
+    f = qmajor_view(f, layout)
     _, nz, ny, nx = f.shape
     bx, by, bz = block or choose_block(nx)
     threads = bx * by * bz
@@ -479,14 +517,14 @@ def wave_words(f: torch.Tensor, nz: int) -> torch.Tensor:
 
 
 def wave_launch(f: torch.Tensor, out: torch.Tensor, mask_u8, partials, tot, plan: WavePlan, *,
-                mode: str, scalars, what: str) -> None:
+                mode: str, scalars, what: str, zmajor: bool = False) -> None:
     """One pass on the wave path, f -> out: B4 where `plan` is in place (f is
-    out), else B6 in `mode`."""
+    out), else B6 in `mode` (on z-major lattices with `zmajor`)."""
     words = wave_words(f, plan.nz)
     rc = entry(f, "d3q19_wave")(
         f.data_ptr(), mask_u8.data_ptr(), out.data_ptr(), partials.data_ptr(), tot.data_ptr(),
-        words.data_ptr(), check_mode(mode), int(plan.inplace), plan.blocks, plan.chunk,
-        plan.lag, *scalars)
+        words.data_ptr(), check_mode(mode), int(plan.inplace), int(zmajor), plan.blocks,
+        plan.chunk, plan.lag, *scalars)
     check_rc(rc, what)
 
 
@@ -500,21 +538,23 @@ def wave_plan(f: torch.Tensor, k_steps: int, *, inplace: bool, mode: str, block)
                        chunk=_plan_override.get("chunk"), lag=_plan_override.get("lag"))
 
 
-def _launch(f, mask_u8, out, partials, tot, *, path, mode, scalars, plan=None, scratch=None):
-    """One pass of B6 on `path`: the step path's scratch is a second lattice
-    (null for K = 1; float32 for a bfloat16 state); the wave path needs
-    none."""
+def _launch(f, mask_u8, out, partials, tot, *, path, mode, scalars, layout, plan=None,
+            scratch=None):
+    """One pass of B6 on `path` in `layout`: the step path's scratch is a
+    second lattice (null for K = 1; float32 for a bfloat16 state); the wave
+    path needs none."""
     global launches, last_path
     launches += 1
     last_path = path
+    zmajor = layout == "zmajor"
     if path == "step":
         rc = entry(f, "d3q19_kstep")(f.data_ptr(), mask_u8.data_ptr(), out.data_ptr(),
                                      0 if scratch is None else scratch.data_ptr(),
-                                     partials.data_ptr(), tot.data_ptr(), *scalars)
+                                     partials.data_ptr(), tot.data_ptr(), int(zmajor), *scalars)
         check_rc(rc, "d3q19_kstep")
         return
     wave_launch(f, out, mask_u8, partials, tot, plan, mode=mode, scalars=scalars,
-                what="d3q19_wave")
+                what="d3q19_wave", zmajor=zmajor)
 
 
 def stepk(
@@ -533,30 +573,33 @@ def stepk(
     block: tuple[int, int, int] | None = None,
     mode: str = "full",
     path: str | None = None,
+    layout: str = "qmajor",
 ):
     """K timesteps in one pass (kernel B6 on CUDA, `stepk_plain` on the CPU)
     in `mode`. Returns (f_after_K_steps, tot_u per step (K,)); f is
-    unchanged. `path` as in `resolve_path`."""
+    unchanged. `path` as in `resolve_path`; `layout` one of LAYOUTS (f and
+    the result (nz, 19, ny, nx) for "zmajor", else (19, nz, ny, nx))."""
     check_mode(mode)
     kw = dict(k_steps=k_steps, omega=omega, density=density, accel=accel,
               accel_plane=accel_plane, plane_offset=plane_offset, valid_planes=valid_planes,
               valid_rows=valid_rows, global_nz=global_nz)
     if f.device.type == "cpu":
-        return stepk_plain(f, mask, mode=mode, **kw)
+        return stepk_plain(f, mask, mode=mode, layout=layout, **kw)
     mask_u8 = obstacle_u8(mask)
-    block, nblocks, scalars = kernel_args(f, mask_u8, block=block, **kw)
-    path = resolve_path(path, f, k_steps, block=block, mode=mode)
+    block, nblocks, scalars = kernel_args(f, mask_u8, block=block, layout=layout, **kw)
+    q = qmajor_view(f, layout)
+    path = resolve_path(path, q, k_steps, block=block, mode=mode)
     out = torch.empty_like(f)
     partials, tot = sums(f, k_steps * nblocks), sums(f, k_steps)
     if path == "step":
         scratch = (rounding_scratch(f, k_steps) if f.dtype == torch.bfloat16
                    else torch.empty_like(f) if k_steps > 1 else None)
         _launch(f, mask_u8, out, partials, tot, path=path, mode=mode, scalars=scalars,
-                scratch=scratch)
+                layout=layout, scratch=scratch)
     else:
-        plan = wave_plan(f, k_steps, inplace=False, mode=mode, block=block)
+        plan = wave_plan(q, k_steps, inplace=False, mode=mode, block=block)
         _launch(f, mask_u8, out, partials, tot, path=path, mode=mode, scalars=scalars,
-                plan=plan)
+                layout=layout, plan=plan)
     return out, tot
 
 
@@ -573,27 +616,50 @@ def run(
     block: tuple[int, int, int] | None = None,
     mode: str = "full",
     path: str | None = None,
+    layout: str = "qmajor",
 ):
     """`num_steps` timesteps, `k_steps` per pass, in `mode`. Returns
     (f_final, tot_u (num_steps,)); f is unchanged. On the wave path an even
     K holds one lattice beside the caller's (a pass after the first writes
     its own input, as B4 does); an odd K, and the step path, two. `path` as
-    in `stepk`."""
+    in `stepk`. f and f_final are q-major in every `layout`; "zmajor"
+    transposes f once at entry and the result once at exit, and the passes
+    between run on the z-major lattice."""
     check_mode(mode)
+    qmajor_view(f)
+    layout = pass_layout(layout)
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
+    zmajor = layout == "zmajor"
+    f_final, tots = _run(f.transpose(0, 1).contiguous() if zmajor else f, mask,
+                         num_steps=num_steps, k_steps=k_steps, block=block, mode=mode, path=path,
+                         layout=layout, omega=omega, density=density, accel=accel,
+                         accel_plane=accel_plane)
+    return (f_final.transpose(0, 1).contiguous() if zmajor else f_final), tots
+
+
+def pass_layout(layout: str) -> str:
+    """The layout a pass runs in: "fused" is the q-major lattice's bytes."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    return "qmajor" if layout == "fused" else layout
+
+
+def _run(f, mask, *, num_steps, k_steps, block, mode, path, layout, **kw):
+    """`run`'s passes on f in `layout` ("qmajor" or "zmajor")."""
     tots = sums(f, num_steps)
     if f.device.type == "cpu":
         for i in range(num_steps // k_steps):
             f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps,
-                                                                mode=mode, **kw)
+                                                                mode=mode, layout=layout, **kw)
         return f, tots
     mask_u8 = obstacle_u8(mask)
-    block, nblocks, scalars = kernel_args(f, mask_u8, k_steps=k_steps, block=block, **kw)
-    path = resolve_path(path, f, k_steps, block=block, mode=mode)
+    block, nblocks, scalars = kernel_args(f, mask_u8, k_steps=k_steps, block=block,
+                                          layout=layout, **kw)
+    q = qmajor_view(f, layout)
+    path = resolve_path(path, q, k_steps, block=block, mode=mode)
     partials = sums(f, k_steps * nblocks)
-    common = dict(path=path, mode=mode, scalars=scalars)
+    common = dict(path=path, mode=mode, scalars=scalars, layout=layout)
     if f.dtype == torch.bfloat16:
         # the step path through one float32 lattice: for K > 1 only a pass's
         # first step reads its input and only its last writes its output, so
@@ -611,7 +677,7 @@ def run(
             cur = out
         return cur, tots
     if path == "wave":
-        plan = wave_plan(f, k_steps, inplace=False, mode=mode, block=block)
+        plan = wave_plan(q, k_steps, inplace=False, mode=mode, block=block)
         out = torch.empty_like(f)
         other = torch.empty_like(f) if k_steps % 2 else None
         cur = f

@@ -287,7 +287,7 @@ def run_sharded(
     pad_cols: int = 0,
 ):
     """num_steps explicit-halo steps. Returns (f_final DTensor, tot_u
-    (num_steps,), the same on every rank)."""
+    (num_steps,) in the state's type, the same on every rank)."""
     step = make_sharded_step(mesh, omega=omega, accel_w1=accel_w1, accel_w2=accel_w2,
                              exchange=exchange, pad_rows=pad_rows, pad_cols=pad_cols)
     tots = torch.empty(num_steps, dtype=f.dtype, device=f.to_local().device)
@@ -311,15 +311,14 @@ def prepare_sharded(
     the grid does not divide the mesh, shard it, and apply the one-off
     guarded acceleration (skip with first_accelerate=False when resuming
     from a checkpoint — the state is already accelerated). `f` and the mask
-    are the full arrays, the same on every rank. Returns (f, padded_mask,
-    amask, (pad_rows, pad_cols)), the first three DTensors on this rank's
-    device."""
+    are the full arrays, the same on every rank (f a numpy array, or a host
+    bfloat16 tensor). Returns (f, padded_mask, amask, (pad_rows, pad_cols)),
+    the first three DTensors on this rank's device."""
     aw = d2q9.AccelWeights.from_params(params)
     accel_row = params.ny - 2
     ny, nx = params.ny, params.nx
     n_r, n_c = mesh.shape
 
-    f = np.asarray(f)
     padded_mask = np.asarray(obstacle_mask, bool)
     pad_r = pad_c = 0
     if ny % n_r or nx % n_c:
@@ -336,7 +335,7 @@ def prepare_sharded(
         f, padded_mask = mesh_lib.pad_grid(params, f, obstacle_mask, pad_r, pad_c)
 
     device = mesh_lib.local_device()
-    f_full = torch.from_numpy(np.ascontiguousarray(f)).to(device)
+    f_full = mesh_lib.full_tensor(f, device)
     mask_full = torch.from_numpy(np.ascontiguousarray(padded_mask)).to(device)
     if first_accelerate:
         # elementwise, so the full array gives every block's bits

@@ -14,7 +14,11 @@ ghost-extended block K steps, with row_offset / valid_rows / valid_cols /
 global_ny describing where the block sits in the grid. Information
 propagates one cell per step, so owned cells stay exact for K <= GHOST.
 Sum|u| partials exclude ghost cells; each rank keeps them per step and the
-mesh adds them once a run in rank order (`mesh.sum_by_rank`).
+mesh adds them once a run in rank order (`mesh.sum_by_rank`). A bfloat16
+state is stored in bfloat16 and stepped by the kernels' bfloat16 instance,
+which steps in float32 and rounds once a pass; Sum|u| is float32
+(`d2q9_kstep.compute_dtype`), and the free-cell count is rounded to
+bfloat16 before the float32 division, as on one device.
 
 Each rank keeps one persistent ghost-extended buffer: a chunk writes the
 ghost bands it receives into it and passes the whole contiguous buffer to
@@ -288,7 +292,7 @@ class _Overlap(_Chunk):
                                     valid_cols=(gcw, 2 * gcw))
             self.strip_passes += [self.chain(b, m_b, None, **self.side_window) for b, m_b in
                                   zip((self.wb, self.eb), self.masks[1:3])]
-        self.t = f_loc.new_empty((4, self.kw["k_steps"]))
+        self.t = d2q9_kstep.sums(f_loc, 4 * self.kw["k_steps"]).view(4, -1)
 
     def interior(self, buf, mask, tot):
         """The interior kernel on the owned block, Sum|u| into tot: buf."""
@@ -448,7 +452,7 @@ def run(
     scheme: str = "auto",
 ):
     """num_steps steps in chunks of k_steps. Returns (f_final DTensor, tot_u
-    (num_steps,), the same on every rank)."""
+    (num_steps,) in the kernels' compute type, the same on every rank)."""
     if num_steps % k_steps:
         raise ValueError("num_steps must be a multiple of k_steps")
     if scheme == "full2d" and not overlap:
@@ -460,7 +464,7 @@ def run(
              else make_chunk_fn(mesh, **kw))
     f_loc = f.to_local()
     chunk.start(f_loc, mask_ext.to_local())
-    tots = torch.empty(num_steps, dtype=f_loc.dtype, device=f_loc.device)
+    tots = d2q9_kstep.sums(f_loc, num_steps)
     for i in range(num_steps // k_steps):
         chunk(tots[i * k_steps:(i + 1) * k_steps])
         if profiling.NAN_DEBUG:
@@ -480,19 +484,20 @@ def prepare(
     """Lay the state out for run(): pad-and-mask uneven rows, shard, one-off
     guarded acceleration (skip with first_accelerate=False when resuming a
     checkpoint), and build the ghost-extended obstacle mask. `f` and the
-    mask are the full arrays, the same on every rank. Returns (f, mask_ext,
-    pad_rows), the first two DTensors on this rank's device."""
+    mask are the full arrays, the same on every rank (f a numpy array, or a
+    host bfloat16 tensor). Returns (f, mask_ext, pad_rows), the first two
+    DTensors on this rank's device."""
     n_rows, n_cols = mesh.shape
     aw = d2q9.AccelWeights.from_params(params)
     obstacle_np = np.asarray(obstacle_mask, bool)
     _, pad = plan_rows(params.ny, n_rows)
-    f_np, mask_padded = np.asarray(f), obstacle_np
+    mask_padded = obstacle_np
     if pad:
         # pad-and-mask: equilibrium-filled dead rows in the last shard,
         # masked as obstacles (shared helper with halo.simulate_sharded)
-        f_np, mask_padded = mesh_lib.pad_grid(params, f_np, obstacle_np, pad, 0)
+        f, mask_padded = mesh_lib.pad_grid(params, f, obstacle_np, pad, 0)
     device = mesh_lib.local_device()
-    f_full = torch.from_numpy(np.ascontiguousarray(f_np)).to(device)
+    f_full = mesh_lib.full_tensor(f, device)
     if first_accelerate:
         f_full = d2q9.first_accelerate(
             f_full, torch.from_numpy(np.ascontiguousarray(mask_padded)).to(device),
@@ -531,6 +536,8 @@ def simulate(
         accel_row=ny - 2, ny=ny, local_engine=local_engine,
         overlap=overlap, scheme=scheme,
     )
+    # the free-cell count in the state's type (rounded for bfloat16), the
+    # division in Sum|u|'s
     num_free = ny * nx - int(np.asarray(obstacle_mask, bool).sum())
     return (f_final.full_tensor()[:, :ny, :],
-            tot_u / torch.tensor(num_free, dtype=tot_u.dtype, device=tot_u.device))
+            tot_u / torch.tensor(num_free, dtype=f_sh.dtype, device=tot_u.device))

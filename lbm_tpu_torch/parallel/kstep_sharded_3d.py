@@ -11,7 +11,11 @@ place (`ops.d3q19_kstep_inplace`; local_engine='two-stream' runs B6,
 plane_offset / valid_planes / global_nz saying where it sits in the grid.
 Information moves one plane a step, so owned planes stay exact for K <= the
 ghost depth. Sum|u| excludes ghost planes; each rank keeps it per step and
-the mesh adds it once a run in rank order (`mesh.sum_by_rank`).
+the mesh adds it once a run in rank order (`mesh.sum_by_rank`). A bfloat16
+slab is stored in bfloat16 and stepped by the local kernel's bfloat16
+instance (the step path, through a float32 scratch lattice of the extended
+slab, rounding once a pass); Sum|u| is float32, and the free-cell count is
+rounded to bfloat16 before the float32 division, as on one device.
 
 Each rank keeps one persistent ghost-extended buffer (19, h + 2K, ny, nx): a
 chunk writes the ghost planes it receives into it (a band is 19 runs of
@@ -250,7 +254,7 @@ class _Overlap(_Chunk):
         self.sb = f_loc.new_empty((19, 3 * g, ny, nx))
         self.nb = f_loc.new_empty((19, 3 * g, ny, nx))
         self.masks = (m[g:g + h], m[:3 * g], m[h - g:h + 2 * g])
-        self.t = f_loc.new_empty((2, g))
+        self.t = d3q19_kstep.sums(f_loc, 2 * g).view(2, g)
         self.interior_kernel, kw = self.kernel(self.buf)
         self.interior_kw = dict(kw, plane_offset=self.z0, valid_planes=(g, h - g))
         self.strip_kernel, kw = self.kernel(self.sb)
@@ -380,7 +384,7 @@ def _run_chunks(chunk, f: DTensor, mask_ext: DTensor, mesh, num_steps: int, k_st
         raise ValueError("num_steps must be a multiple of k_steps")
     f_loc = f.to_local()
     chunk.start(f_loc, mask_ext.to_local())
-    tots = torch.empty(num_steps, dtype=f_loc.dtype, device=f_loc.device)
+    tots = d3q19_kstep.sums(f_loc, num_steps)
     for i in range(num_steps // k_steps):
         chunk(tots[i * k_steps:(i + 1) * k_steps])
     return (DTensor.from_local(chunk.own().contiguous(), mesh, f.placements, run_check=False),
@@ -409,24 +413,26 @@ def run_zy(f: DTensor, mask_ext: DTensor, *, mesh: DeviceMesh, num_steps: int, k
     return _run_chunks(chunk, f, mask_ext, mesh, num_steps, k_steps)
 
 
-def _padded(f, density: float, pad_z: int, pad_y: int = 0) -> np.ndarray:
-    """f (19, nz, ny, nx) with pad_z planes and pad_y rows of the initial
-    equilibrium after it (pad-and-mask: finite values in dead cells)."""
-    f = np.asarray(f)
+def _padded(f, density: float, pad_z: int, pad_y: int = 0):
+    """f (19, nz, ny, nx), a numpy array or a host bfloat16 tensor, with
+    pad_z planes and pad_y rows of the initial equilibrium after it
+    (pad-and-mask: finite values in dead cells), in f's host form."""
+    bf16 = isinstance(f, torch.Tensor) and f.dtype == torch.bfloat16
+    f = f.cpu() if bf16 else np.asarray(f)
     _, nz, ny, nx = f.shape
     if not (pad_z or pad_y):
         return f
     out = d3q19_lattice.initial_distributions(nz + pad_z, ny + pad_y, nx, density,
-                                              f.dtype.type)
+                                              torch.bfloat16 if bf16 else f.dtype.type)
     out[:, :nz, :ny] = f
     return out
 
 
 def prepare(f, obstacle_mask, mesh: DeviceMesh, *, k_steps: int, density: float = 0.1):
-    """Lay a full state (numpy (19, nz, ny, nx), the same on every rank) out
-    for run() on a z-mesh: pad-and-mask uneven nz, shard it, and build the
-    ghost-extended obstacle mask. Returns (f, mask_ext) as DTensors on this
-    rank's device."""
+    """Lay a full state ((19, nz, ny, nx), a numpy array or a host bfloat16
+    tensor, the same on every rank) out for run() on a z-mesh: pad-and-mask
+    uneven nz, shard it, and build the ghost-extended obstacle mask. Returns
+    (f, mask_ext) as DTensors on this rank's device."""
     mask = np.asarray(obstacle_mask, bool)
     n_z = mesh_lib.axis_size(mesh, ROW)
     _, pad = plan_planes(mask.shape[0], n_z, k_steps)
@@ -447,19 +453,22 @@ def prepare_zy(f, obstacle_mask, mesh: DeviceMesh, *, k_steps: int, density: flo
 
 
 def start_state(nz, ny, nx, obstacle_mask, density, dtype):
-    """(the uniform state at rest as a numpy array, the obstacle mask; default:
+    """(the uniform state at rest on the host, a numpy array or for bfloat16
+    a CPU tensor; the obstacle mask, by default
     `ops.d3q19.default_obstacle_mask`)."""
-    from ..models.lbm import numpy_dtype
+    from ..models.lbm import host_dtype
 
     mask = (d3q19.default_obstacle_mask(nz, ny, nx) if obstacle_mask is None
             else np.asarray(obstacle_mask, bool))
-    return d3q19_lattice.initial_distributions(nz, ny, nx, density, numpy_dtype(dtype)), mask
+    return d3q19_lattice.initial_distributions(nz, ny, nx, density, host_dtype(dtype)), mask
 
 
 def finisher(mask: np.ndarray, nz: int, ny: int):
-    """finish(f_final, tot_u): the full (19, nz, ny, nx) state and av_vels."""
+    """finish(f_final, tot_u): the full (19, nz, ny, nx) state and av_vels,
+    Sum|u| divided by the free-cell count in the state's type (rounded for
+    bfloat16), as on one device."""
     def finish(f_final: DTensor, tot: torch.Tensor):
-        num_free = torch.tensor(int((~mask).sum()), dtype=tot.dtype, device=tot.device)
+        num_free = torch.tensor(int((~mask).sum()), dtype=f_final.dtype, device=tot.device)
         return f_final.full_tensor()[:, :nz, :ny], tot / num_free
 
     return finish

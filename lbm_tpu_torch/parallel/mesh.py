@@ -96,18 +96,28 @@ def pad_grid(params, f, obstacle_mask, pad_rows: int, pad_cols: int):
     (halo.simulate_sharded, kstep_sharded.simulate): padding cells hold the
     initial equilibrium (finite values), are masked as obstacles (excluded
     from Sum|u|, dynamics bounded by rebound) and sit after the real rows
-    (top) / cols (east). Returns (f_padded, mask_padded) as numpy arrays."""
+    (top) / cols (east). Returns (f_padded, mask_padded): the state in f's
+    host form (a numpy array, or a CPU tensor for bfloat16,
+    `core.state.host_state`), the mask as a numpy array."""
     from ..core import state
 
-    f_np = np.asarray(f)
+    bf16 = isinstance(f, torch.Tensor) and f.dtype == torch.bfloat16
+    f_host = f.cpu() if bf16 else np.asarray(f)
     new_ny, new_nx = params.ny + pad_rows, params.nx + pad_cols
-    fpad = np.empty((9, new_ny, new_nx), f_np.dtype)
-    fpad[:] = state.initial_distributions(
-        dataclasses.replace(params, ny=new_ny, nx=new_nx), f_np.dtype)
-    fpad[:, : params.ny, : params.nx] = f_np
+    fpad = state.initial_distributions(dataclasses.replace(params, ny=new_ny, nx=new_nx),
+                                       torch.bfloat16 if bf16 else f_host.dtype)
+    fpad[:, : params.ny, : params.nx] = f_host
     mask_pad = np.ones((new_ny, new_nx), bool)
     mask_pad[: params.ny, : params.nx] = np.asarray(obstacle_mask)
     return fpad, mask_pad
+
+
+def full_tensor(f, device) -> torch.Tensor:
+    """A full state held on the host (a numpy array, or a CPU tensor for
+    bfloat16) as a contiguous tensor on `device`."""
+    if isinstance(f, torch.Tensor):
+        return f.contiguous().to(device)
+    return torch.from_numpy(np.ascontiguousarray(f)).to(device)
 
 
 def device_type() -> str:

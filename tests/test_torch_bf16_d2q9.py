@@ -232,7 +232,14 @@ def test_cli_runs_bf16_and_refuses_it_where_it_is_not_implemented(tmp_path, caps
     assert cli.main(base + ["--engine", "auto"]) == 0
     assert "engine:\t\t\t\tcuda" in capsys.readouterr().out
     assert len((tmp_path / "out" / "av_vels.dat").read_text().splitlines()) == 8
-    for bad in (["--engine", "native"], ["--engine", "sharded"]):
-        with pytest.raises(SystemExit):
-            cli.main(base + bad)
-    assert "ROADMAP.md, A3" in capsys.readouterr().err
+    # the plain sharded engine on one gloo rank: the torch engine's bits
+    sharded = base[:-1] + [str(tmp_path / "sharded"), "--engine", "sharded"]
+    assert cli.main(sharded) == 0
+    assert "engine:\t\t\t\tsharded" in capsys.readouterr().out
+    got = io.read_av_vels(tmp_path / "sharded" / "av_vels.dat")
+    want = lbm.run_simulation(p, obs, engine="torch", dtype=torch.bfloat16, device="cpu")
+    assert torch.equal(torch.from_numpy(got).to(torch.bfloat16),  # the file's 13 digits
+                       torch.from_numpy(want.av_vels).to(torch.bfloat16))
+    with pytest.raises(SystemExit):
+        cli.main(base + ["--engine", "native"])
+    assert "--engine native takes float32 or float64" in capsys.readouterr().err

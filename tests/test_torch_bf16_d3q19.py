@@ -175,8 +175,8 @@ def test_bf16_resume_bit_equal_to_a_whole_run(tmp_path, engine):
 def test_bf16_paths_and_refusals():
     """A bfloat16 pass of B4/B6 takes the step path (its middle steps in a
     float32 scratch lattice), of B5/B7 the thread path; the wave path and
-    the diagnostic modes refuse it; the sharded engines name the ROADMAP
-    item that holds them."""
+    the diagnostic modes refuse it; the ghost-plane engine on one rank runs
+    B4's bfloat16 pass, bit-equal to the single-device run."""
     for kernel in ("b4", "b6"):
         for k in (1, 2, 3, 4):
             assert d3q19_kstep.choose_path(64, 128, 256, k, torch.bfloat16,
@@ -189,6 +189,8 @@ def test_bf16_paths_and_refusals():
         d3q19_kstep.resolve_path("wave", f, 2)
     assert d3q19_kstep.rounding_scratch(f, 1) is None
     assert d3q19_kstep.rounding_scratch(f, 2).dtype == torch.float32
-    with pytest.raises(ValueError, match="ROADMAP.md, A3"):
-        d3q19.simulate(8, 8, 16, num_steps=2, dtype=torch.bfloat16, engine="sharded-cuda",
-                       device="cpu", num_devices=1)
+    kw = dict(num_steps=2, dtype=torch.bfloat16, k_steps=2, device="cpu")
+    sf, sav = d3q19.simulate(8, 8, 16, engine="sharded-cuda", num_devices=1, **kw)
+    pf, pav = d3q19.simulate(8, 8, 16, engine="cuda-inplace", **kw)
+    assert sf.dtype == torch.bfloat16 and sav.dtype == torch.float32
+    assert torch.equal(sf, pf) and torch.equal(sav, pav)

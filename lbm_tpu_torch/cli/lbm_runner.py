@@ -81,7 +81,7 @@ def main(argv=None) -> int:
         return f, torch.stack(tots) if tots else f.new_zeros(0)
 
     run()[1].cpu()  # warm-up
-    with profiling.timed_run():
+    with profiling.span(profiling.TIMED_RUN):
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)

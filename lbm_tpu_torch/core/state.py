@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .params import Params
 
 NUM_SPEEDS = 9
@@ -60,26 +61,27 @@ def initial_distributions(params: Params, dtype=np.float32):
     array, or for dtype=torch.bfloat16 a CPU tensor whose every operation
     rounds to bfloat16.
     """
-    if dtype == torch.bfloat16:
-        def c(x):
-            return torch.tensor(x, dtype=torch.bfloat16)
+    with profiling.span(profiling.START_STATE):
+        if dtype == torch.bfloat16:
+            def c(x):
+                return torch.tensor(x, dtype=torch.bfloat16)
 
-        d = c(params.density)
-        f = torch.empty((NUM_SPEEDS, params.ny, params.nx), dtype=torch.bfloat16)
-        f[0] = d * c(4.0) / c(9.0)
-        f[1:5] = d / c(9.0)
-        f[5:9] = d / c(36.0)
+            d = c(params.density)
+            f = torch.empty((NUM_SPEEDS, params.ny, params.nx), dtype=torch.bfloat16)
+            f[0] = d * c(4.0) / c(9.0)
+            f[1:5] = d / c(9.0)
+            f[5:9] = d / c(36.0)
+            return f
+        dtype = np.dtype(dtype)
+        d = np.asarray(params.density, dtype=dtype)
+        w0 = d * np.asarray(4.0, dtype) / np.asarray(9.0, dtype)
+        w1 = d / np.asarray(9.0, dtype)
+        w2 = d / np.asarray(36.0, dtype)
+        f = np.empty((NUM_SPEEDS, params.ny, params.nx), dtype=dtype)
+        f[0] = w0
+        f[1:5] = w1
+        f[5:9] = w2
         return f
-    dtype = np.dtype(dtype)
-    d = np.asarray(params.density, dtype=dtype)
-    w0 = d * np.asarray(4.0, dtype) / np.asarray(9.0, dtype)
-    w1 = d / np.asarray(9.0, dtype)
-    w2 = d / np.asarray(36.0, dtype)
-    f = np.empty((NUM_SPEEDS, params.ny, params.nx), dtype=dtype)
-    f[0] = w0
-    f[1:5] = w1
-    f[5:9] = w2
-    return f
 
 
 def macroscopics(f: np.ndarray):
@@ -110,7 +112,8 @@ def total_density(f) -> float:
 def host_state(f: torch.Tensor):
     """A state tensor on the host as the port keeps it there: a numpy array,
     or a CPU tensor for bfloat16, which numpy cannot hold."""
-    f = f.detach().cpu()
+    with profiling.span(profiling.COPY_OUT):
+        f = f.detach().cpu()
     return f if f.dtype == torch.bfloat16 else f.numpy()
 
 
@@ -130,13 +133,14 @@ def _to_tensors(f_np, mask_np, speeds: int, axes: str, *, device, dtype):
         raise ValueError(f"state must have shape ({speeds}, {axes}), got {f_np.shape}")
     if tuple(mask_np.shape) != tuple(f_np.shape[1:]):
         raise ValueError(f"mask shape {mask_np.shape} != grid {f_np.shape[1:]}")
-    if isinstance(f_np, torch.Tensor):  # a host bfloat16 state
-        f = f_np.detach().to(device=device, copy=True).contiguous()
-    else:
-        f = torch.tensor(np.ascontiguousarray(f_np), device=device)
-    if dtype is not None:
-        f = f.to(dtype)
-    mask = torch.tensor(np.ascontiguousarray(mask_np, dtype=np.bool_), device=device)
+    with profiling.span(profiling.UPLOAD):
+        if isinstance(f_np, torch.Tensor):  # a host bfloat16 state
+            f = f_np.detach().to(device=device, copy=True).contiguous()
+        else:
+            f = torch.tensor(np.ascontiguousarray(f_np), device=device)
+        if dtype is not None:
+            f = f.to(dtype)
+        mask = torch.tensor(np.ascontiguousarray(mask_np, dtype=np.bool_), device=device)
     return f, mask
 
 

@@ -6,8 +6,10 @@ The counterpart of `lbm_tpu.models.lbm` (`run_simulation`,
 loop on the device, or on the ranks of a mesh (`parallel/`), or on the host
 through the native serial engine (`ops/d2q9_native.py`), write
 av_vels.dat / final_state.dat and print the `==done==` summary block
-(main/LastChance.cpp:279-284). The timed run of `run_simulation` is the
-range `utils.profiling.TIMED_RUN` in a profiler's trace.
+(main/LastChance.cpp:279-284). In a profiler's trace `run_simulation`'s
+phases are ranges (`utils.profiling.SPANS`): the start state, the upload,
+the engine's choice, the warm-up run, the timed run (TIMED_RUN), the
+copy-out and the total density.
 """
 
 from __future__ import annotations
@@ -84,9 +86,10 @@ def choose_engine(params: Params, dtype, device: torch.device) -> str:
     the free memory of a CUDA `device`; on another device the kernel engines
     run their plain version, so memory counts as ample and CUDA is never
     asked."""
-    free = d2q9_kstep.free_device_bytes(device) if device.type == "cuda" else math.inf
-    return d2q9_kstep.choose_engine(params.ny, params.nx, dtype, free,
-                                    num_steps=params.max_iters)
+    with profiling.span(profiling.CHOOSE_ENGINE):
+        free = d2q9_kstep.free_device_bytes(device) if device.type == "cuda" else math.inf
+        return d2q9_kstep.choose_engine(params.ny, params.nx, dtype, free,
+                                        num_steps=params.max_iters)
 
 
 def run_simulation(
@@ -125,9 +128,10 @@ def run_simulation(
     # warm-up run (kernel build and load) outside the timed one, as
     # lbm_tpu.models.lbm.run_simulation does; its state is dropped at once,
     # so the timed run holds what choose_engine reckoned
-    simulate(p, f0, mask)[1].cpu()
+    with profiling.span(profiling.WARM_UP):
+        simulate(p, f0, mask)[1].cpu()
 
-    with profiling.timed_run():
+    with profiling.span(profiling.TIMED_RUN):
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -141,14 +145,18 @@ def run_simulation(
             f_final, av_vels = simulate(p, f0, mask)
             compute_seconds = time.perf_counter() - t0
 
-    av_np = av_vels.double().cpu().numpy()
+    with profiling.span(profiling.COPY_OUT):
+        av_np = av_vels.double().cpu().numpy()
     f_np = state.host_state(f_final)
+    with profiling.span(profiling.TOTAL_DENSITY):
+        reynolds = reynolds_number(p, float(av_np[-1]))
+        density = state.total_density(f_np)
     return LbmResult(
         f_final=f_np,
         av_vels=av_np,
         compute_seconds=compute_seconds,
-        reynolds=reynolds_number(p, float(av_np[-1])),
-        total_density=state.total_density(f_np),
+        reynolds=reynolds,
+        total_density=density,
         engine=engine,
     )
 
@@ -160,7 +168,7 @@ def _run_native(p: Params, obstacles: Obstacles, dtype) -> LbmResult:
 
     f_host = state.initial_distributions(p, numpy_dtype(dtype))
     d2q9_native.require()
-    with profiling.timed_run():
+    with profiling.span(profiling.TIMED_RUN):
         t0 = time.perf_counter()
         f_np, av_np = d2q9_native.simulate(p, f_host, obstacles.mask)
         compute_seconds = time.perf_counter() - t0

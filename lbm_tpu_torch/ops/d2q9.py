@@ -300,7 +300,7 @@ def run(
     """`num_steps` fused timesteps in a Python loop. Returns (f_final,
     tot_u per step of shape (num_steps,)), both on f's device."""
     tots = []
-    for i in range(num_steps):
+    for i in profiling.passes(num_steps, "torch", "plain", 1):
         f, tot_u = step(f, obstacle_mask, accel_mask,
                         omega=omega, accel_w1=accel_w1, accel_w2=accel_w2)
         tots.append(tot_u)

@@ -457,13 +457,15 @@ def step(f, mask, **kw):
     return f_new, tots[0]
 
 
-def run_plain(f, mask, *, num_steps: int, k_steps: int, mode: str = "full", **kw):
+def run_plain(f, mask, *, num_steps: int, k_steps: int, mode: str = "full", kernel: str = "B2",
+              **kw):
     """`num_steps` timesteps in passes of `stepk_plain`, the CPU route of
-    every wrapper's `run`. Returns (f_final, tot_u (num_steps,))."""
+    every wrapper's `run`; `kernel` names the wrapper's kernel in a trace.
+    Returns (f_final, tot_u (num_steps,))."""
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     tots = sums(f, num_steps)
-    for i in range(num_steps // k_steps):
+    for i in profiling.passes(num_steps // k_steps, kernel, "plain", k_steps):
         f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps,
                                                              mode=mode, **kw)
         if profiling.NAN_DEBUG:
@@ -501,7 +503,7 @@ def run(
     path = launch_path(f, tile, k_steps, False, *bufs)
     partials = sums(f, k_steps * ntiles)
     recip = shared_reciprocal and mode == "full"
-    for i in range(num_steps // k_steps):
+    for i in profiling.passes(num_steps // k_steps, "B2", path, k_steps):
         out = bufs[i % 2]
         _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars,
                 recip)

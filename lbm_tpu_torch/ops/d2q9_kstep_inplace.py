@@ -113,7 +113,7 @@ def run(
     kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
     if f.device.type == "cpu":
         f_new, tots = d2q9_kstep.run_plain(f, mask, num_steps=num_steps, k_steps=k_steps,
-                                           mode=mode, **kw)
+                                           mode=mode, kernel="B1", **kw)
         f.copy_(f_new)
         return f, tots
     if num_steps % k_steps:
@@ -125,7 +125,7 @@ def run(
     snaps = (_snapshot(f, tile, k_steps), _snapshot(f, tile, k_steps))
     path = d2q9_kstep.launch_path(f, tile, k_steps, True, *snaps[0], *snaps[1])
     partials = d2q9_kstep.sums(f, k_steps * ntiles)
-    for i in range(num_steps // k_steps):
+    for i in profiling.passes(num_steps // k_steps, "B1", path, k_steps):
         _launch(f, mask_u8, snaps[i % 2], i == 0, snaps[(i + 1) % 2], partials,
                 tots[i * k_steps:(i + 1) * k_steps], path, scalars)
         if profiling.NAN_DEBUG:

@@ -229,7 +229,7 @@ def run(
     kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
     if f.device.type == "cpu":
         return d2q9_kstep.run_plain(f, mask, num_steps=num_steps, k_steps=k_steps, mode=mode,
-                                    **kw)
+                                    kernel="B3", **kw)
     if num_steps % k_steps:
         raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     tots = d2q9_kstep.sums(f, num_steps)
@@ -237,7 +237,7 @@ def run(
     bufs = (torch.empty_like(f), torch.empty_like(f))
     path = _path(f, tile, k_steps, *bufs)
     partials = d2q9_kstep.sums(f, k_steps * ntiles)
-    for i in range(num_steps // k_steps):
+    for i in profiling.passes(num_steps // k_steps, "B3", path, k_steps):
         out = bufs[i % 2]
         _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars)
         f = out

@@ -32,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .d2q9 import scalar
 from .d3q19_lattice import (  # noqa: F401  (re-exported for callers)
     E, NUM_SPEEDS, OPPOSITE, W, initial_distributions,
@@ -219,7 +220,7 @@ def run(
     """`num_steps` fused timesteps in a Python loop. Returns (f_final,
     tot_u per step of shape (num_steps,)), both on f's device."""
     tots = []
-    for _ in range(num_steps):
+    for _ in profiling.passes(num_steps, "torch", "plain", 1):
         f, tot = step(f, obstacle_mask, accel_mask,
                       omega=omega, density=density, accel=accel)
         tots.append(tot)
@@ -249,33 +250,34 @@ def resolve_engine(engine: str, nz: int, ny: int, nx: int, step_counts, *,
     `step_counts` are the counts K must divide (the total, and the chunk of a
     checkpointed run). k_steps=None picks the kind's preferred K among those;
     an explicit k_steps is honoured exactly or raises."""
-    from . import (d3q19_kstep, d3q19_kstep_blocked, d3q19_kstep_inplace,
-                   d3q19_kstep_inplace_blocked)
+    with profiling.span(profiling.CHOOSE_ENGINE):
+        from . import (d3q19_kstep, d3q19_kstep_blocked, d3q19_kstep_inplace,
+                       d3q19_kstep_inplace_blocked)
 
-    families = {"cuda": (d3q19_kstep, d3q19_kstep_blocked),
-                "cuda-inplace": (d3q19_kstep_inplace, d3q19_kstep_inplace_blocked)}
-    forced = engine.endswith("-blocked")
-    family = engine[:-len("-blocked")] if forced else engine
-    if family not in families:
-        raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
-    slab, blocked = families[family]
-    if k_steps is not None and (not 1 <= k_steps <= d3q19_kstep.MAX_K
-                                or any(n % k_steps for n in step_counts)):
-        raise ValueError(
-            f"k_steps={k_steps} has no feasible kernel configuration for step counts "
-            f"{tuple(step_counts)} (it must lie in 1..{d3q19_kstep.MAX_K} and divide "
-            "them); pass k_steps=None to pick one")
-    if forced:
-        kind, tile = "blocked", None
-        k_steps = k_steps or d3q19_kstep_blocked.choose_k(*step_counts)
-    elif k_steps is None:
-        kind, tile, k_steps = d3q19_kstep_blocked.kind_and_k(
-            blocked.pick_engine, nz, ny, nx, step_counts, dtype, device)
-    else:
-        kind, tile = blocked.pick_engine(nz, ny, nx, k_steps, dtype, device)
-    if kind == "blocked":
-        return blocked.run, kind, k_steps, dict(tile=tile)
-    return slab.run, kind, k_steps, {}
+        families = {"cuda": (d3q19_kstep, d3q19_kstep_blocked),
+                    "cuda-inplace": (d3q19_kstep_inplace, d3q19_kstep_inplace_blocked)}
+        forced = engine.endswith("-blocked")
+        family = engine[:-len("-blocked")] if forced else engine
+        if family not in families:
+            raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
+        slab, blocked = families[family]
+        if k_steps is not None and (not 1 <= k_steps <= d3q19_kstep.MAX_K
+                                    or any(n % k_steps for n in step_counts)):
+            raise ValueError(
+                f"k_steps={k_steps} has no feasible kernel configuration for step counts "
+                f"{tuple(step_counts)} (it must lie in 1..{d3q19_kstep.MAX_K} and divide "
+                "them); pass k_steps=None to pick one")
+        if forced:
+            kind, tile = "blocked", None
+            k_steps = k_steps or d3q19_kstep_blocked.choose_k(*step_counts)
+        elif k_steps is None:
+            kind, tile, k_steps = d3q19_kstep_blocked.kind_and_k(
+                blocked.pick_engine, nz, ny, nx, step_counts, dtype, device)
+        else:
+            kind, tile = blocked.pick_engine(nz, ny, nx, k_steps, dtype, device)
+        if kind == "blocked":
+            return blocked.run, kind, k_steps, dict(tile=tile)
+        return slab.run, kind, k_steps, {}
 
 
 def initial_state(nz: int, ny: int, nx: int, *, density: float = 0.1, obstacle_mask=None,

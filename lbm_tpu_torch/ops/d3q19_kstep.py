@@ -58,6 +58,7 @@ import dataclasses
 
 import torch
 
+from ..utils import profiling
 from . import d3q19
 from .d2q9_kstep import (DTYPES, TYPE_SUFFIX, check_rc, compute_dtype, obstacle_bool,
                          obstacle_u8, sums)
@@ -649,7 +650,7 @@ def _run(f, mask, *, num_steps, k_steps, block, mode, path, layout, **kw):
     """`run`'s passes on f in `layout` ("qmajor" or "zmajor")."""
     tots = sums(f, num_steps)
     if f.device.type == "cpu":
-        for i in range(num_steps // k_steps):
+        for i in profiling.passes(num_steps // k_steps, "B6", "plain", k_steps):
             f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps,
                                                                 mode=mode, layout=layout, **kw)
         return f, tots
@@ -666,7 +667,7 @@ def _run(f, mask, *, num_steps, k_steps, block, mode, path, layout, **kw):
         # the passes after the first step in place; K = 1 alternates two
         scratch = rounding_scratch(f, k_steps)
         cur, spare = f, None  # K = 1: the lattice the next pass may write
-        for i in range(num_steps // k_steps):
+        for i in profiling.passes(num_steps // k_steps, "B6", path, k_steps):
             if k_steps > 1:
                 out = torch.empty_like(f) if i == 0 else cur
             else:
@@ -681,7 +682,7 @@ def _run(f, mask, *, num_steps, k_steps, block, mode, path, layout, **kw):
         out = torch.empty_like(f)
         other = torch.empty_like(f) if k_steps % 2 else None
         cur = f
-        for i in range(num_steps // k_steps):
+        for i in profiling.passes(num_steps // k_steps, "B6", path, k_steps):
             # an even K: the first pass leaves the caller's f alone, the
             # later ones write their own input; an odd K, whose first stage
             # reads its input after others have written out, alternates two
@@ -692,7 +693,7 @@ def _run(f, mask, *, num_steps, k_steps, block, mode, path, layout, **kw):
                 out, other = other, out
         return cur, tots
     cur, other = f, None
-    for i in range(num_steps // k_steps):
+    for i in profiling.passes(num_steps // k_steps, "B6", path, k_steps):
         # Step j of a pass writes `out` when K - j is even and `scratch`
         # otherwise, and only the first step reads the pass's input. So after
         # the first pass, which must leave the caller's f alone, two lattices

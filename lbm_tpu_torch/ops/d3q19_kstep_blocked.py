@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import d3q19_kstep
 from .d2q9_kstep import check_mode, check_rc, compute_dtype, obstacle_u8
 from .d3q19_kstep import MAX_K
@@ -455,7 +456,7 @@ def run(
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
     tots = d3q19_kstep.sums(f, num_steps)
     if f.device.type == "cpu":
-        for i in range(num_steps // k_steps):
+        for i in profiling.passes(num_steps // k_steps, "B7", "plain", k_steps):
             f, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
                 f, mask, k_steps=k_steps, **kw)
         return f, tots
@@ -464,7 +465,9 @@ def run(
                                         threads=threads, **kw)
     partials = d3q19_kstep.sums(f, k_steps * ntiles)
     cur, other = f, None
-    for i in range(num_steps // k_steps):
+    # a trace names the loop by its first pass's path, resolved only then
+    for i in profiling.passes(num_steps // k_steps, "B7",
+                              lambda: resolve_path(path, f, tile, k_steps), k_steps):
         # the first pass leaves the caller's f alone; later ones swap two lattices
         out = torch.empty_like(f) if i < 2 else other
         _launch(cur, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps],

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import d3q19_kstep
 from .d2q9_kstep import check_rc, obstacle_u8
 from .d3q19_kstep import choose_k  # noqa: F401  (the in-place engine's own K)
@@ -118,12 +119,12 @@ def run(
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
     tots = d3q19_kstep.sums(f, num_steps)
     if f.device.type == "cpu":
-        for i in range(num_steps // k_steps):
+        for i in profiling.passes(num_steps // k_steps, "B4", "plain", k_steps):
             f_new, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
                 f, mask, k_steps=k_steps, **kw)
             f.copy_(f_new)
         return f, tots
     mask_u8, partials, launch = _setup(f, mask, k_steps, block, path, **kw)
-    for i in range(num_steps // k_steps):
+    for i in profiling.passes(num_steps // k_steps, "B4", launch["path"], k_steps):
         _launch(f, mask_u8, partials, tots[i * k_steps:(i + 1) * k_steps], **launch)
     return f, tots

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import d3q19_kstep, d3q19_kstep_blocked
 from .d2q9_kstep import check_mode, check_rc, obstacle_u8
 from .d3q19_kstep_blocked import PATHS, PREFERRED_K, scratch_planes  # noqa: F401  (B5's own)
@@ -174,7 +175,7 @@ def run(
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
     tots = d3q19_kstep.sums(f, num_steps)
     if f.device.type == "cpu":
-        for i in range(num_steps // k_steps):
+        for i in profiling.passes(num_steps // k_steps, "B5", "plain", k_steps):
             f_new, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
                 f, mask, k_steps=k_steps, mode=mode, **kw)
             f.copy_(f_new)
@@ -185,7 +186,7 @@ def run(
     ring, snap = _scratch(f, tile, k_steps)
     partials = d3q19_kstep.sums(f, k_steps * ntiles)
     path = d3q19_kstep_blocked.resolve_path(path, f, tile, k_steps)
-    for i in range(num_steps // k_steps):
+    for i in profiling.passes(num_steps // k_steps, "B5", path, k_steps):
         _launch(f, mask_u8, ring, snap, partials, tots[i * k_steps:(i + 1) * k_steps], mode,
                 path, scalars)
     return f, tots

@@ -4,9 +4,15 @@ The counterpart of `lbm_tpu.utils.profiling`:
   * `timed` — wall-clock timing of a block (the reference's timedStep);
   * `trace` — a `torch.profiler` trace of a block, written as Chrome trace
     JSON; on the card it names each hand-written kernel and times it on the
-    device (CUPTI). `TIMED_RUN` marks the timed run of an entry point in it,
-    and `kernel_summary` reads a trace back: launches and device time of
-    each kernel, and the device's idle share in that run's window;
+    device (CUPTI). `kernel_summary` reads a trace back: launches and device
+    time of each kernel, and the device's idle share in the window of the
+    timed run (`TIMED_RUN`);
+  * `span`, `passes` — the program's own ranges in such a trace, on the
+    host clock the kernels and copies are put on: the phases of an entry
+    point (SPANS) and, in every single-device engine loop, the loop
+    (ENGINE + "<kernel> <path> K=<k>") and each pass in it (PASS). While no
+    profiler runs they record nothing: a span costs one flag check, and a
+    loop's passes are a plain range;
   * `dump_graph` — the `torch.export` graph of a function as text (the
     counterpart of `dump_hlo`);
   * `set_build_dir` — where the kernels and the native library are built,
@@ -32,8 +38,19 @@ from pathlib import Path
 
 import torch
 
-# the name of the range an entry point records around its timed run
+# the ranges `span` records (while a profiler runs): the phases of an entry
+# point (models.lbm.run_simulation; core.state; ops.d3q19.advance)
+START_STATE = "lbm_tpu_torch: start state"  # the host's start state
+UPLOAD = "lbm_tpu_torch: upload"  # host state and mask to the device
+CHOOSE_ENGINE = "lbm_tpu_torch: choose engine"  # the engine, kernel and K of a run
+WARM_UP = "lbm_tpu_torch: warm-up run"  # the run before the timed one
 TIMED_RUN = "lbm_tpu_torch: timed run"
+COPY_OUT = "lbm_tpu_torch: copy-out"  # state and av_vels to the host
+TOTAL_DENSITY = "lbm_tpu_torch: total density"  # and the Reynolds number
+SPANS = (START_STATE, UPLOAD, CHOOSE_ENGINE, WARM_UP, TIMED_RUN, COPY_OUT, TOTAL_DENSITY)
+# an engine loop, ENGINE + "<kernel> <path> K=<k>" (`passes`), and each pass in it
+ENGINE = "lbm_tpu_torch: engine "
+PASS = "lbm_tpu_torch: pass"
 # the trace file that `trace` writes into its directory
 TRACE_FILE = "trace.json"
 # the device events of a trace, by their category
@@ -69,10 +86,34 @@ def trace(log_dir: str | Path, cuda: bool | None = None):
     prof.export_chrome_trace(str(log_dir / (f"trace_rank{rank}.json" if rank else TRACE_FILE)))
 
 
-def timed_run():
-    """The range an entry point records around its timed run (TIMED_RUN),
-    for `kernel_summary`; a no-op while no profiler runs."""
-    return torch.profiler.record_function(TIMED_RUN)
+# what `span` returns while no profiler runs (nullcontext is reusable)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range `name` in the trace (torch.profiler.record_function) while a
+    profiler runs; else a shared context that does nothing: record_function
+    costs some fifty times the check even while no profiler runs."""
+    return torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else _OFF
+
+
+def passes(n: int, kernel: str, path, k_steps: int):
+    """The pass indices of an engine loop: range(n) while no profiler runs,
+    so a pass pays nothing. While one runs, the loop is a range named
+    ENGINE + f"{kernel} {path} K={k_steps}" (kernel "B1".."B7" or "torch";
+    path the launches' `last_path`, or "plain" for the plain version; a
+    callable `path` is asked for it then, and only then) and each pass a
+    PASS range in it around the loop's body."""
+    if not torch.autograd._profiler_enabled():
+        return range(n)
+    return _traced_passes(n, f"{ENGINE}{kernel} {path() if callable(path) else path} K={k_steps}")
+
+
+def _traced_passes(n: int, name: str):
+    with torch.profiler.record_function(name):
+        for i in range(n):
+            with torch.profiler.record_function(PASS):
+                yield i
 
 
 def _union_us(intervals) -> float:

@@ -8,8 +8,8 @@ through the native serial engine (`ops/d2q9_native.py`), write
 av_vels.dat / final_state.dat and print the `==done==` summary block
 (main/LastChance.cpp:279-284). In a profiler's trace `run_simulation`'s
 phases are ranges (`utils.profiling.SPANS`): the start state, the upload,
-the engine's choice, the warm-up run, the timed run (TIMED_RUN), the
-copy-out and the total density.
+the engine's choice, the warm-up run (one pass), the timed run
+(TIMED_RUN), the copy-out and the total density.
 """
 
 from __future__ import annotations
@@ -107,8 +107,10 @@ def run_simulation(
     (kernel B1, in place, ops/d2q9_kstep_inplace.py), 'cuda-manual' (kernel
     B3, B2 through an explicit copy pipeline, ops/d2q9_kstep_manual.py; the
     counterpart of 'pallas-manual') or 'auto' (`choose_engine`). On the CPU
-    the kernel engines run their kernels' plain version. 'native' runs the
-    serial C++ engine on the host whatever `device` says, and never asks
+    the kernel engines run their kernels' plain version. A warm-up run of
+    one pass (`d2q9_kstep.choose_k` steps) precedes the timed run, which
+    alone `compute_seconds` times. 'native' runs the serial C++ engine on
+    the host whatever `device` says, has no warm-up, and never asks
     CUDA."""
     p = params if num_steps is None else dataclasses.replace(params, max_iters=num_steps)
     if engine == "native":
@@ -125,11 +127,14 @@ def run_simulation(
     f0, mask = state.to_torch(state.initial_distributions(p, host_dtype(dtype)),
                               obstacles.mask, device=device)
 
-    # warm-up run (kernel build and load) outside the timed one, as
-    # lbm_tpu.models.lbm.run_simulation does; its state is dropped at once,
-    # so the timed run holds what choose_engine reckoned
+    # warm-up run outside the timed one: one pass at the timed run's K
+    # launches every kernel instance the timed run launches, so their load
+    # stays out of compute_seconds (lbm_tpu.models.lbm.run_simulation runs
+    # the whole job there, to compile its scan). Its state is dropped at
+    # once, so the timed run holds what choose_engine reckoned
+    warm_up = dataclasses.replace(p, max_iters=min(p.max_iters, d2q9_kstep.choose_k(p.max_iters)))
     with profiling.span(profiling.WARM_UP):
-        simulate(p, f0, mask)[1].cpu()
+        simulate(warm_up, f0, mask)[1].cpu()
 
     with profiling.span(profiling.TIMED_RUN):
         if device.type == "cuda":

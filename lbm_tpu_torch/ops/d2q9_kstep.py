@@ -78,6 +78,17 @@ WARPS_PER_BLOCK = 8
 # kernels take any tile whose sides are at least K.
 TILE_CANDIDATES = ((16, 32), (8, 32), (16, 16), (8, 16), (8, 8))
 PREFERRED_K = 4
+
+
+def choose_k(num_steps: int) -> int:
+    """Steps per pass of a run of `num_steps`: the largest of PREFERRED_K,
+    PREFERRED_K/2, ..., 1 that divides it."""
+    k_steps = PREFERRED_K
+    while num_steps % k_steps:
+        k_steps //= 2
+    return k_steps
+
+
 # the diagnostic modes of the kernels, by their index in the C entry points
 MODES = ("full", "stream_only", "copy")
 # how a launch moves its regions, by index in the C entry points (Path)
@@ -515,19 +526,15 @@ def run(
 
 def simulate_with(run_fn, params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor):
     """First-accelerate, then max_iters steps through `run_fn` (the `run`
-    of a kernel's wrapper), at the largest K of PREFERRED_K, PREFERRED_K/2,
-    ..., 1 that divides max_iters. Returns (f_final, av_vels) as
-    `d2q9.simulate` does."""
+    of a kernel's wrapper), at the K of `choose_k(max_iters)`. Returns
+    (f_final, av_vels) as `d2q9.simulate` does."""
     aw = d2q9.AccelWeights.from_params(params)
     accel_row = params.ny - 2
     f = d2q9.first_accelerate(f, obstacle_mask, accel_row=accel_row,
                               accel_w1=aw.w1, accel_w2=aw.w2)
-    k_steps = PREFERRED_K
-    while params.max_iters % k_steps:
-        k_steps //= 2
     f_final, tot_u = run_fn(f, obstacle_mask, num_steps=params.max_iters, omega=params.omega,
                             accel_w1=aw.w1, accel_w2=aw.w2, accel_row=accel_row,
-                            k_steps=k_steps)
+                            k_steps=choose_k(params.max_iters))
     num_free = (~obstacle_bool(obstacle_mask)).sum().to(f.dtype)
     return f_final, tot_u / num_free
 

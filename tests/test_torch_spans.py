@@ -18,7 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 from lbm_tpu_torch.core import state
 from lbm_tpu_torch.core.params import Obstacles, Params
 from lbm_tpu_torch.models import lbm
-from lbm_tpu_torch.ops import d3q19
+from lbm_tpu_torch.ops import d2q9_kstep, d3q19
 from lbm_tpu_torch.utils import profiling
 
 CALL = "test: call"
@@ -70,9 +70,10 @@ def owner(event):
     return e
 
 
-def check_loops(events, kernel, k=None):
+def check_loops(events, kernel, k=None, steps=None):
     """Every pass lies in a loop named for `kernel` on the plain path, each
-    loop holds num_steps / K passes; returns the loops."""
+    loop holds its steps / K passes: `steps[name]` for a loop inside the
+    range `name`, STEPS where `steps` is None; returns the loops."""
     loops = [e for e in events if e.name.startswith(profiling.ENGINE)]
     passes = [e for e in events if e.name == profiling.PASS]
     assert loops and passes
@@ -82,8 +83,9 @@ def check_loops(events, kernel, k=None):
         assert m and m.group(1) == kernel and m.group(2) == "plain", loop.name
         loop_k = int(m.group(3))
         assert k is None or loop_k == k
-        assert STEPS % loop_k == 0
-        assert sum(1 for e in passes if owner(e) is loop) == STEPS // loop_k
+        n = STEPS if steps is None else steps[owner(loop).name]
+        assert n % loop_k == 0
+        assert sum(1 for e in passes if owner(e) is loop) == n // loop_k
     return loops
 
 
@@ -95,7 +97,11 @@ def test_run_simulation_records_its_phases_loops_and_passes(engine):
     assert phases <= names
     assert (profiling.CHOOSE_ENGINE in names) == (engine == "auto")
     kernel, k = ENGINES_2D[engine]
-    loops = check_loops(events, kernel, k)
+    # the warm-up run steps choose_k(STEPS) steps (a pass of the kernel
+    # engines), the timed run all STEPS
+    steps = {profiling.WARM_UP: min(STEPS, d2q9_kstep.choose_k(STEPS)),
+             profiling.TIMED_RUN: STEPS}
+    loops = check_loops(events, kernel, k, steps)
     # one loop in the warm-up run, one in the timed run, both in the call
     assert sorted(owner(e).name for e in loops) == sorted([profiling.WARM_UP,
                                                            profiling.TIMED_RUN])

@@ -56,23 +56,28 @@ def from_events(events) -> Trace:
     return Trace(window=window, jobs=sorted(jobs), device=device, host=host)
 
 
-def from_profiler(prof) -> Trace:
+def from_profiler(prof, card: int | None = None) -> Trace:
     """A Trace from a finished torch.profiler.profile, through its Chrome
-    trace, written to a temporary file (under TMPDIR) and removed."""
+    trace, written to a temporary file (under TMPDIR) and removed; with
+    `card`, the device events of that card only (see from_chrome)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         data = json.loads(path.read_text())
-    return from_chrome(data)
+    return from_chrome(data, card)
 
 
-def from_chrome(data) -> Trace:
+def from_chrome(data, card: int | None = None) -> Trace:
     """A Trace from a Chrome trace's JSON (a dict with "traceEvents", or
-    the list of events)."""
+    the list of events). With `card`, a device event that names another
+    card (its "args"' "device") is left out: a process traces what it ran on
+    every card, and a rank's trace stands for its own."""
     events = data.get("traceEvents", []) if isinstance(data, dict) else data
     return from_events((e.get("name", ""), e.get("cat"), float(e["ts"]),
                         float(e["ts"]) + float(e["dur"]))
-                       for e in events if e.get("ph") == "X" and "dur" in e)
+                       for e in events if e.get("ph") == "X" and "dur" in e
+                       and (card is None or e.get("cat") not in DEVICE_KINDS
+                            or e.get("args", {}).get("device", card) == card))
 
 
 def union(intervals) -> float:
@@ -89,6 +94,16 @@ def union(intervals) -> float:
 def clip(intervals, lo: float, hi: float) -> list[tuple[float, float]]:
     """The parts of `intervals` inside [lo, hi]."""
     return [(max(a, lo), min(b, hi)) for a, b in intervals if b > lo and a < hi]
+
+
+def busy(trace: Trace) -> dict:
+    """A rank's traced figures: `busy_s`, the seconds in which an operation
+    ran on its card inside the traced window, `window_s`, the window's
+    length, and `busy_share`, the one over the other."""
+    lo, hi = trace.window
+    busy_s = union(clip(trace.device_intervals(), lo, hi)) / 1e6
+    window_s = (hi - lo) / 1e6
+    return {"busy_s": busy_s, "window_s": window_s, "busy_share": busy_s / window_s}
 
 
 def busy_in_spans(intervals, spans) -> list[float]:

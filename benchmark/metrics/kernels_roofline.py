@@ -13,7 +13,10 @@ job is the larger of
     once, the mask read once, at the card's memory bandwidth.
 The body force on one row or plane and the first acceleration are left out
 of the operations, so the bound is a lower one and the share cannot pass
-100% unless the kernels' time leaves out part of the work."""
+100% unless the kernels' time leaves out part of the work. On n ranks the
+work is the whole job's, shared by n cards (one a rank, in every run that
+prints a result), and the kernels' time is rank 0's: the least time of its
+card is the job's over n."""
 
 from benchmark import devtrace
 
@@ -31,6 +34,7 @@ def read(ctx):
     if t is None or card is None or not t.jobs or not t.kernels():
         return None
     kernel_s = sum(devtrace.busy_in_spans(t.kernels(), t.jobs)) / 1e6
+    cards = len(ctx.device["ranks"])
     least = max(ctx.flop_per_job / card["flop_per_s"][ctx.compute],
-                ctx.bytes_per_job / card["bytes_per_s"]) * len(t.jobs)
+                ctx.bytes_per_job / card["bytes_per_s"]) * len(t.jobs) / cards
     return 100.0 * least / kernel_s if kernel_s > 0 else None

@@ -1,6 +1,16 @@
 """Run one cell of the benchmark once (see benchmark/harness.py):
 
     python3 benchmark/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
+
+A cell whose `chips` is n > 1 runs as n ranks, one process a card: this
+process is rank 0, and it starts ranks 1..n-1 as this same command with
+`--rank <r> --group <dir>` added (the rendezvous directory it made), once a
+run. They meet in one process group, run the same jobs, each judges its
+part of the answer, and rank 0 alone prints the result; the other ranks'
+output comes out on its standard error, each line after "rank <r>: ". A job
+driver of such a cell is built on every rank inside that group: its `run()`
+and `reference(storage)` return this rank's part, its `updates`, `flop` and
+`bytes` count the whole job.
 """
 
 import sys

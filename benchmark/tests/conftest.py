@@ -54,6 +54,27 @@ def small_root(tmp_path: Path) -> Path:
     return root
 
 
+def ranks_cell(root: Path, name: str, chips: int, **config) -> str:
+    """Adds to `root` the cell `name` on `chips` ranks: the test driver
+    drivers/d3q19_ranks_job.py (copied into the root's benchmark) on the
+    plain multi-device engine "sharded" at 8x8x16, 40 steps, with
+    `config`'s keys over those; held to d3q19-channel.f32's limits."""
+    bench = root / "benchmark"
+    shutil.copy(Path(__file__).parent / "drivers" / "d3q19_ranks_job.py", bench / "drivers")
+    c = json.loads((bench / "configs" / "d3q19-channel-64x128x256.json").read_text())
+    c.update(driver="d3q19_ranks_job", nz=8, ny=8, nx=16, steps=40, engine="sharded")
+    c.update(config)
+    (bench / "configs" / f"{name}.json").write_text(json.dumps(c))
+    shutil.copy(bench / "limits" / "d3q19-channel.f32.json", bench / "limits" / f"{name}.json")
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": name, "source": "test", "file": f"benchmark/configs/{name}.json",
+                            "reduced": [], "why": "test"})
+    spec["workloads"].append({"name": name, "config": name, "traffic": "back_to_back.f32",
+                              "chips": chips, "why": "test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return name
+
+
 @pytest.fixture
 def root(tmp_path):
     return small_root(tmp_path)

@@ -34,8 +34,9 @@ def test_keys_names_and_limits_of_the_contract():
         assert NAME.match(c["name"]) and c["file"].startswith("benchmark/")
     for w in s["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and w["chips"] == 1
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and w["chips"] in (1, 4)
         assert len(w["why"]) <= 200
+    assert sum(w["chips"] == 4 for w in s["workloads"]) <= max(1, cells // 4)
     for m in s["end_to_end"] + s["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     for m in s["end_to_end"]:

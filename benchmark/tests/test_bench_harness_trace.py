@@ -6,6 +6,7 @@ import json
 import types
 
 import pytest
+import torch
 
 from benchmark import devtrace, harness
 
@@ -34,10 +35,21 @@ def synthetic():
     return devtrace.from_events(events)
 
 
-def ctx(trace, **kw):
+def report(rank, **kw):
+    """A rank's report as `harness.run` makes it."""
+    return {"rank": rank, "card": rank, "uuid": f"GPU-{rank}", "memory_peak_bytes": 2**30,
+            "allocations": 40, "other_cards_peak_bytes": 0, "jobs": 2, **kw}
+
+
+def ctx(trace, reports=None, **kw):
+    """A reader's context; its device block from `reports`, by default one
+    rank's, with `trace`'s busy figures."""
+    if reports is None:
+        reports = [report(0, **(devtrace.busy(trace) if trace else {}))]
     base = dict(trace=trace, device_kind="NVIDIA H100 80GB HBM3", compute="float32",
                 peaks=json.loads((BENCH / "peaks.json").read_text()),
-                flop_per_job=0.0, bytes_per_job=0.0, jobs=2)
+                flop_per_job=0.0, bytes_per_job=0.0, jobs=2,
+                device=harness.device_block(torch.device("cpu"), reports, trace is not None))
     base.update(kw)
     return types.SimpleNamespace(**base)
 
@@ -85,6 +97,23 @@ def test_readers_on_a_synthetic_trace():
     assert read["device_idle_pct"](ctx(None)) is None
 
 
+def test_on_two_ranks_the_readers_agree_with_the_device_block():
+    """Rank 0 busy 69 us of its 100 (the synthetic trace), rank 1 95 of 100:
+    device_idle_pct is the idle share that the result's busy_s and window_s
+    give, and kernels_roofline holds rank 0's kernels to half the job's
+    least time (the job's work shared by two cards)."""
+    t = synthetic()
+    roofline, idle = (harness.reader(BENCH, m) for m in ("kernels_roofline", "device_idle_pct"))
+    other = report(1, busy_s=95e-6, window_s=100e-6, busy_share=0.95)
+    two = ctx(t, [report(0, **devtrace.busy(t)), other], flop_per_job=6.7e6)
+    d = two.device
+    assert d["busy_s"] == pytest.approx(82e-6) and d["window_s"] == pytest.approx(100e-6)
+    assert idle(two) == pytest.approx(100 * (1 - d["busy_s"] / d["window_s"]))
+    assert idle(two) == pytest.approx(18.0) and idle(ctx(t)) == pytest.approx(31.0)
+    assert roofline(two) == pytest.approx(roofline(ctx(t, flop_per_job=6.7e6)) / 2)
+    assert d["count"] == 2 and [r["rank"] for r in d["ranks"]] == [0, 1]
+
+
 def test_breakdown():
     t = synthetic()
     ops = devtrace.device_ops(t)
@@ -110,3 +139,22 @@ def test_a_chrome_trace_reads_as_its_events():
     assert t.window == (10.0, 100.0) and t.jobs == [(10.0, 50.0)]
     assert t.kernels() == [(12.0, 17.0)] and len(t.device) == 2
     assert ("cudaLaunchKernel", 11.0, 12.0) in t.host
+
+
+def test_a_trace_of_one_card_leaves_out_the_device_events_of_others():
+    """A rank's trace stands for its card: a copy this process made on
+    another card is left out; host events and device events that name no
+    card stay."""
+    data = {"traceEvents": [
+        {"ph": "X", "cat": "user_annotation", "name": devtrace.WINDOW, "ts": 0, "dur": 100},
+        {"ph": "X", "cat": "kernel", "name": "k", "ts": 10, "dur": 5, "args": {"device": 1}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 20, "dur": 30,
+         "args": {"device": 0}},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset", "ts": 60, "dur": 2},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 19, "dur": 31,
+         "args": {"device": 0}},
+    ]}
+    assert len(devtrace.from_chrome(data).device) == 3
+    t = devtrace.from_chrome(data, card=1)
+    assert [name for name, *_ in t.device] == ["k", "Memset"]
+    assert ("cudaMemcpyAsync", 19.0, 50.0) in t.host

@@ -19,9 +19,11 @@ closes at the end of the last. With --trace 1 the window runs under
 torch.profiler and the per-layer metrics are read from its trace, else the
 end-to-end metrics from the host's clock. Once the window has closed the
 program's state is freed and every job's answer is compared with one replay
-of the job by the plain reference. The run prints the numbers compared, each
-beside its limit, as the last lines of standard error, and one JSON object
-as the last line of standard output.
+of the job by the plain reference, in blocks of planes (`reference.compare`),
+so an answer as large as the program's state on a card is never on the card
+whole twice. The run prints the numbers compared, each beside its limit, as
+the last lines of standard error, and one JSON object as the last line of
+standard output.
 
 A cell on n > 1 cards runs as n ranks, one process a card, started once a
 run. Rank 0 is the process that was started; it starts ranks 1..n-1 as
@@ -52,6 +54,21 @@ gather (`judge`). The result's `device` block is measured: each rank
 reports its card, its peak and its allocations in the window, and `count`
 is the number of distinct cards that the window used (`cards_used`); a run
 that used fewer cards than the cell asks for prints no result.
+
+A driver of any cell may declare `last_state_only = True` on its Job, where
+a job's state is too large to keep more than one (a state that fills most
+of a card: the next job's state would not fit beside it, nor a run's states
+on the host). Its `run()` may then hand back the state on the card, the
+program's own. The window takes a digest of each job's state on the card
+(`digest`: sums of its bits) and lets the previous job's state go before
+the next job starts, so it holds one state; after the window the last
+job's state is moved to the host (`keep_off_card`). The judge compares that
+state in full, holds each earlier job to it by its digest (equal: the
+kept state's numbers; not equal: it fails), and compares every job's
+av_vels in full. This asks the program to give the same bits in every job
+of a run, as every job starts from the same inputs: the program is
+bit-deterministic on the state (the 3-D cells read `state_gap` 0 on every
+seed). Drivers whose jobs can be kept whole keep them and leave it unset.
 
 Failure never hangs a run. Set-up, every message of the harness between
 ranks and the wait for the ranks' exit each have the limit TIMEOUT_S (600
@@ -87,6 +104,10 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "lbm_tpu")
 # seconds: set-up, each message between ranks, the ranks' exit
 TIMEOUT_S = 600.0
+# values of a state a chunk of `digest` takes (256 MB as int64)
+DIGEST_VALUES = 1 << 25
+# the range around each digest of a job's state in a traced window
+DIGEST = "benchmark: digest"
 # seconds beyond TIMEOUT_S without progress after which rank 0's watch ends
 # the run (a rank stuck in the program's own collectives)
 GRACE_S = 60.0
@@ -425,18 +446,54 @@ def device_block(device, reports: list[dict], traced: bool) -> dict:
     return dev
 
 
+def digest(f) -> tuple[int, int]:
+    """(plain, position-weighted) sums modulo 2**64 of the bits of a state
+    (q, ...), each value read as the signed integer of its width, on the
+    state's device: equal for states that are equal bit for bit, and
+    different for one value altered. Taken a chunk of f[k] at a time (at
+    most DIGEST_VALUES values), so no temporary is the size of the state."""
+    import torch
+
+    itype = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[f.element_size()]
+    plain = weighted = torch.zeros((), dtype=torch.int64, device=f.device)
+    offset = 0
+    for k in range(f.shape[0]):
+        fk = f[k].reshape(-1, f.shape[-1])
+        rows = max(1, DIGEST_VALUES // fk.shape[1])
+        for a in range(0, fk.shape[0], rows):
+            v = fk[a:a + rows].view(itype).to(torch.int64)
+            r, c = v.shape
+            row_sums, col_sums = v.sum(dim=1), v.sum(dim=0)
+            total = row_sums.sum()
+            # sum over values of (offset + r_i * c + c_i + 1) * value
+            weighted = (weighted + offset * total
+                        + c * (torch.arange(r, device=v.device) * row_sums).sum()
+                        + (torch.arange(1, c + 1, device=v.device) * col_sums).sum())
+            plain = plain + total
+            offset += r * c
+            del v, row_sums, col_sums
+    return int(plain), int(weighted)
+
+
 def window(job, seconds: float, device, traced: bool, group: Group | None = None):
-    """Jobs back to back for `seconds`. Returns (outputs, host spans of the
-    jobs, the profiler or None). On ranks, rank 0 decides before each job
-    whether it starts, and a job ends at a barrier of every rank."""
+    """Jobs back to back for `seconds`. Returns (outputs: each job's (final
+    state, av_vels), the states' digests or None, host spans of the jobs,
+    the profiler or None). On ranks, rank 0 decides before each job whether
+    it starts, and a job ends at a barrier of every rank.
+
+    For a job whose `last_state_only` is true, each job's state is digested
+    (`digest`, after the job's span) and the previous job's state is let go
+    before the next job starts: the state of the last job alone is kept
+    (the others' entries hold None), so the window holds one state."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from . import devtrace
 
+    last_only = getattr(job, "last_state_only", False)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
                                            else [])
     prof = profile(activities=activities) if traced else contextlib.nullcontext()
-    outputs, spans = [], []
+    outputs, spans, digests = [], [], ([] if last_only else None)
     with prof:
         with record_function(devtrace.WINDOW):
             start = time.perf_counter()
@@ -444,6 +501,8 @@ def window(job, seconds: float, device, traced: bool, group: Group | None = None
                 go = time.perf_counter() - start < seconds
                 if not (group.decide(go) if group else go):
                     break
+                if last_only and outputs:
+                    outputs[-1] = (None, outputs[-1][1])
                 t0 = time.perf_counter()
                 with record_function(devtrace.JOB):
                     outputs.append(job.run())
@@ -451,23 +510,61 @@ def window(job, seconds: float, device, traced: bool, group: Group | None = None
                     if group:
                         group.barrier()
                 spans.append((t0, time.perf_counter()))
-    return outputs, spans, (prof if traced else None)
+                if last_only:
+                    with record_function(DIGEST):
+                        digests.append(digest(outputs[-1][0]))
+    return outputs, digests, spans, (prof if traced else None)
 
 
-def judge(job, outputs, storage=None, group: Group | None = None) -> list[dict]:
+def keep_off_card(outputs: list) -> int:
+    """Moves the states that `outputs` keeps on a card to the host, one at a
+    time, and returns the bytes they take there. Pageable memory: the
+    caching host allocator rounds a pinned block up to a power of two, 64
+    GiB for a 40.8 GB state."""
+    import torch
+
+    held = 0
+    for i, (f, av) in enumerate(outputs):
+        if isinstance(f, torch.Tensor) and f.device.type == "cuda":
+            outputs[i] = (f.cpu(), av)
+            del f
+        if isinstance(outputs[i][0], torch.Tensor):
+            held += outputs[i][0].nbytes
+    return held
+
+
+def judge(job, outputs, storage=None, group: Group | None = None, digests=None) -> list[dict]:
     """compare.gaps of each output against one replay of the job by the
     reference, at the cell's storage type (or `storage`). On ranks, each
     compares its part of the answer with its part of the replay, and the
     parts (compare.parts) are reduced by their maximum over the ranks before
-    the division: the gaps of the whole answer, with no gather."""
+    the division: the gaps of the whole answer, with no gather.
+
+    With `digests` (a window of `last_state_only`), the one state kept, the
+    last job's, is compared in full, and an earlier job's state counts as
+    the kept one's where its digest is equal, and fails each state number
+    where it is not; every job's av_vels is compared in full. Prints on
+    standard error the seconds of the replay and of the comparison."""
     import torch
 
     from .reference import compare
 
+    t0 = time.perf_counter()
     ref_f, ref_av = job.reference(storage or job.dtype)
     obstacle = job.obstacle()
-    parts = torch.stack([compare.parts(f, av, ref_f, ref_av, job.speed, obstacle)
-                         for f, av in outputs])
+    _sync(ref_f.device)
+    t1 = time.perf_counter()
+    states = [None if f is None else compare.state_parts(f, ref_f, job.speed, obstacle)
+              for f, _ in outputs]
+    if digests is not None:
+        kept = {digests[i]: s for i, s in enumerate(states) if s is not None}
+        differs = torch.stack([*compare.MISMATCH, *compare.MISMATCH])
+        states = [kept.get(digests[i], differs) if s is None else s for i, s in enumerate(states)]
+    rows = [compare.finish(torch.cat([s, compare.av_parts(av, ref_av)]))
+            for s, (_, av) in zip(states, outputs)]
+    print(f"benchmark: replay {t1 - t0:.3f} s, comparison {time.perf_counter() - t1:.3f} s",
+          file=sys.stderr)
+    parts = torch.stack(rows)
     if group:
         parts = group.max(parts)
     return [compare.ratios(p) for p in parts]
@@ -500,17 +597,28 @@ def run(root: Path, workload: str, seed: int, seconds: float, traced: bool, devi
         for i, (name, t) in enumerate(phases)), file=sys.stderr)
     # the peak of the window's jobs, not of the set-up's temporaries
     start = card_start(device)
-    outputs, spans, prof = window(job, seconds, device, traced, group)
+    outputs, digests, spans, prof = window(job, seconds, device, traced, group)
     report = {"rank": group.rank if group else 0, **card_report(device, start),
               "jobs": len(spans)}
+    if digests is not None:
+        t0 = time.perf_counter()
+        held = keep_off_card(outputs)
+        print(f"benchmark: the last job's state kept, {held} B on the host, moved there in "
+              f"{time.perf_counter() - t0:.3f} s", file=sys.stderr)
+    card_start(device)
     parsed = (devtrace.from_profiler(prof, device.index if device.type == "cuda" else None)
               if prof is not None else None)
     del prof
     if parsed is not None:
         report.update(devtrace.busy(parsed))
     job.release()
-    rows, names = judge(job, outputs, group=group), list(c.limits)
+    rows, names = judge(job, outputs, group=group, digests=digests), list(c.limits)
     del outputs
+    if device.type == "cuda":
+        import torch
+
+        print(f"benchmark: peak {torch.cuda.max_memory_allocated(device)} B on the card in "
+              f"the replay and the comparison", file=sys.stderr)
     reports = group.gather(report) if group else [report]
     if reports is None:
         return None

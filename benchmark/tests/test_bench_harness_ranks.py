@@ -95,8 +95,11 @@ def test_a_job_that_starts_ranks_of_its_own_is_seen(root):
 
 
 def test_the_reduced_gaps_are_those_of_the_gathered_answer(root, tmp_path):
-    """Each rank judges its slab; the numbers of the run equal, to the bit,
-    compare.gaps of the slabs put together against one replay."""
+    """Each rank judges its slab against its own slab's replay; the numbers
+    of the run equal those of the slabs put together against one replay of
+    the whole domain (`solve`): the state's and |u|'s to the bit, av_vels'
+    within 1e-6 (the two replays sum Sum|u| in float32 in another order,
+    which moves av_vels by some 1e-7 of itself)."""
     cell = ranks_cell(root, "dump2", 2, dump=str(tmp_path))
     r = result_of(launch(root, cell, seconds=0.01)[0])
     assert r["attempted"] == 1
@@ -104,12 +107,16 @@ def test_the_reduced_gaps_are_those_of_the_gathered_answer(root, tmp_path):
     assert np.array_equal(parts[0]["av"], parts[1]["av"])
     spec = harness.load_spec(root)
     c = harness.cell(spec, cell, root)
-    job = harness.driver(c.bench, c.config["driver"]).Job(c.config, c.config_dir, c.traffic,
-                                                          SEED, torch.device("cpu"))
-    ref_f, ref_av = job.reference(job.dtype)
+    drv = harness.driver(c.bench, c.config["driver"])
+    job = drv.Job(c.config, c.config_dir, c.traffic, SEED, torch.device("cpu"))
+    f0 = drv.rest_state((19, *job.shape), job.kw["density"], job.dtype, "cpu")
+    ref_f, ref_av = d3q19.solve(f0, job.mask, steps=job.steps, storage=job.dtype,
+                                store_every=job.store_every, device="cpu", **job.kw)
     whole = compare.gaps(np.concatenate([p["f"] for p in parts], axis=1), parts[0]["av"],
                          ref_f, ref_av, job.speed, job.obstacle())
-    assert {n: r["checks"][n]["value"] for n in compare.NAMES} == whole
+    got = {n: r["checks"][n]["value"] for n in compare.NAMES}
+    assert got["state_gap"] == whole["state_gap"] and got["velocity_gap"] == whole["velocity_gap"]
+    assert abs(got["av_vels_gap"] - whole["av_vels_gap"]) <= 1e-6, (got, whole)
 
 
 def test_a_value_altered_on_one_rank_fails_the_job(root):

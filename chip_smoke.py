@@ -164,7 +164,9 @@ Phases, each of which must pass or the script exits non-zero:
      `ops.d3q19.simulate(dtype=torch.bfloat16)` through each 3-D engine
      (its kernel alone); a checkpointed bfloat16 run through B4 resumed, bit
      for bit; each one's ms a pass beside float32's and the bound (77 B a
-     cell). Last, in a child process with LBM_D3Q19_GROUPING=reference (the
+     cell), and B4's on both its paths at 64x128x256 K = 4 (one wave launch
+     a pass, four step launches), three passes' state and Sum|u| bit-equal.
+     Last, in a child process with LBM_D3Q19_GROUPING=reference (the
      per_speed libraries, built with the others), B4-B7 in float32 against
      the plain per-speed step (1e-5) and unequal to the paired grouping;
   7g. B6's layouts (A9): `d3q19_kstep.stepk` with layout='zmajor' and
@@ -845,8 +847,8 @@ def phase_main_path(torch, mods, golden, mask):
                       f"--engine auto did not choose {picked}")
             seconds = float(re.search(r"Total compute time:\s+([0-9.eE+-]+)", text).group(1))
             mlups = float(re.search(r"MLUPS:\s+([0-9.eE+-]+)", text).group(1))
-            # launches count the warm-up run and the timed run, which are equal
-            per_launch_ms = seconds / (launches / 2) * 1e3
+            # launches count the warm-up run, one pass, and the timed run
+            per_launch_ms = seconds / (launches - 1) * 1e3
             path = mod.last_path
             # the flagship shape moves its regions by TMA
             check(path == "box", f"--engine {engine}: {kernel} took the {path} path")
@@ -2711,9 +2713,9 @@ def phase_tooling(torch, mods, mask):
                                                  str(tmp / "trace")], "d2q9_kstep")
         print(f"{label}:\n{text.rstrip()}")
         check(traced.engine == "cuda", f"{label}: auto chose {traced.engine}, not cuda (B2)")
-        check(launches["d2q9_kstep"] == 2 * passes,
-              f"{label}: B2 launched {launches['d2q9_kstep']} times, not {2 * passes} "
-              "(warm-up and timed run)")
+        check(launches["d2q9_kstep"] == passes + 1,
+              f"{label}: B2 launched {launches['d2q9_kstep']} times, not {passes + 1} "
+              "(a one-pass warm-up run and the timed run)")
         summary = profiling.kernel_summary(tmp / "trace" / profiling.TRACE_FILE)
         check(summary["device_events"] > 0,
               f"{label}: the trace holds no device event in the timed run: torch.profiler "
@@ -3217,8 +3219,38 @@ def phase_bf16_3d(torch, mods3, modsb):
             out[name].update(plain_ms=plain_ms, bound=bound, k_steps=k, launches=launches[name])
             print(f"bf16 timing {name:27s}: bound {bound[0]:.5f} ms ({bound[1]}: "
                   f"{BF16_BYTES_3D} B a cell), plain version {plain_ms:.4f} ms")
+        if shape == SHAPE_3D:
+            out["d3q19_kstep_inplace"]["ms_by_path"] = bf16_b4_paths(
+                torch, d3q19_kstep_inplace, f, mask, k, passes, kw)
         del f, g
     return out
+
+
+def bf16_b4_paths(torch, d3q19_kstep_inplace, f, mask, k, passes, kw):
+    """B4's bfloat16 pass on its wave path (one launch a pass) and its step
+    path (K launches through the float32 scratch): the state and Sum|u| of
+    three passes bit-equal, then each path's ms a pass, in turns step, wave,
+    wave, step. Returns {path: ms}."""
+    got = {}
+    for path in ("step", "wave"):
+        g = f.clone()
+        got[path] = d3q19_kstep_inplace.run(g, mask, num_steps=3 * k, k_steps=k, path=path, **kw)
+        check(d3q19_kstep_inplace.last_path == path, f"bf16 B4 asked for {path}, ran "
+              f"{d3q19_kstep_inplace.last_path}")
+    check(torch.equal(got["wave"][0], got["step"][0]) and torch.equal(got["wave"][1],
+                                                                      got["step"][1]),
+          f"bf16 B4 K={k}: the wave path is not bit-equal to the step path")
+    times = {"step": [], "wave": []}
+    for path in ("step", "wave", "wave", "step"):
+        g = f.clone()
+        times[path].append(time_ms(torch, lambda: d3q19_kstep_inplace.run(
+            g, mask, num_steps=k * passes, k_steps=k, path=path, **kw), 1) / passes)
+    ms = {path: sum(t) / len(t) for path, t in times.items()}
+    nz, ny, nx = f.shape[1:]
+    print(f"bf16 timing d3q19_kstep_inplace by path {nz}x{ny}x{nx} K={k}: wave {ms['wave']:.4f}, "
+          f"step {ms['step']:.4f} ms a pass ({100 * (ms['wave'] / ms['step'] - 1):+.1f}%); "
+          "three passes' state and Sum|u| bit-equal")
+    return ms
 
 
 # phase 7g: B6's layouts at the 3-D bench shapes (f32), in float64 at a small
@@ -3859,8 +3891,8 @@ def main() -> int:
             "sharded_cuda_mlups": sharded3["two_stream"]["mlups"]}),
         "bf16": bf16_entry(bf16_3d[name], bf16_3d[name]["launches"],
                            bit_equal=bf16_3d[name]["bit_equal"],
-                           **({"extra_lattices": bf16_3d[name]["extra_lattices"]}
-                              if "extra_lattices" in bf16_3d[name] else {})),
+                           **{key: bf16_3d[name][key] for key in ("extra_lattices", "ms_by_path")
+                              if key in bf16_3d[name]}),
         "grouping_per_speed": grouping[name],
         **({"bf16_sharded": bf16_sharded_entry(name, [
             "3-D cuda-inplace", "3-D sharded-cuda", "3-D sharded-cuda --overlap",

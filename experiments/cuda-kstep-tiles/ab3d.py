@@ -6,8 +6,10 @@ The 3-D counterpart of ab2d.py. Each copy (a directory that holds a
 runs in a process of its own, which imports that copy's package and builds
 its kernels into that copy's `build/`. Both copies are built before anything
 is timed. The processes run in the order A, B, B, A, so that a drift of the
-card's clock or temperature falls on both copies alike. Each times, float32,
-K steps a pass for each K of `--ks`, at each grid: B4
+card's clock or temperature falls on both copies alike. Each times, in each
+type of `--dtypes` (float32 unless asked; bfloat16 storage rounds once a
+pass), K steps a pass for each K of `--ks`, at each grid, the kernels of
+`--kernels` (all four unless asked): B4
 (`d3q19_kstep_inplace.run`) and B6 (`d3q19_kstep.run`) on the path their
 `run` takes, and B5 (`d3q19_kstep_inplace_blocked.run`) and B7
 (`d3q19_kstep_blocked.run`) at the copy's own tile (`choose_config`). A
@@ -25,7 +27,7 @@ Run on a machine with the card, from the repository root:
     git archive PARENT lbm_tpu_torch | tar -x -C build/parent
     python3 experiments/cuda-kstep-tiles/ab3d.py --a build/parent --b . \\
         [--grids 32x256x256 64x128x256] [--ks 1 2 3 4] [--passes 100] [--repeats 5]
-        [--out FILE]
+        [--dtypes float32 bfloat16] [--kernels B4 B6 B5 B7] [--out FILE]
 """
 
 from __future__ import annotations
@@ -43,8 +45,9 @@ KERNELS = ("B4", "B6", "B5", "B7")
 KW = dict(omega=1.85, density=0.1, accel=0.005)
 
 
-def worker(root: str, grids, ks, passes: int, repeats: int, build_only: bool) -> None:
-    """Time B5, B7, B4 and B6 of the package under `root`; print one JSON line."""
+def worker(root: str, grids, ks, passes: int, repeats: int, build_only: bool, dtypes,
+           kernels) -> None:
+    """Time `kernels` of the package under `root`; print one JSON line."""
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
@@ -58,12 +61,13 @@ def worker(root: str, grids, ks, passes: int, repeats: int, build_only: bool) ->
         return
     mods = {"B5": d3q19_kstep_inplace_blocked, "B7": d3q19_kstep_blocked,
             "B4": d3q19_kstep_inplace, "B6": d3q19_kstep}
+    mods = {name: mod for name, mod in mods.items() if name in kernels}
     times, paths, tiles = {}, {}, {}
-    for shape in grids:
+    for shape, dname in ((shape, dname) for shape in grids for dname in dtypes):
         gen = torch.Generator(device="cuda").manual_seed(3)
         w = torch.tensor(d3q19_lattice.W, dtype=torch.float32, device="cuda")[:, None, None, None]
         f = (0.1 * w * (1.0 + 0.2 * (2.0 * torch.rand((19, *shape), generator=gen, device="cuda")
-                                     - 1.0))).contiguous()
+                                     - 1.0))).to(getattr(torch, dname)).contiguous()
         mask = torch.rand(shape, generator=gen, device="cuda") < 0.05
         npass = max(20, passes * 32 * 256 * 256 // (shape[0] * shape[1] * shape[2]))
         grid = "x".join(map(str, shape))
@@ -80,7 +84,7 @@ def worker(root: str, grids, ks, passes: int, repeats: int, build_only: bool) ->
                 mod.run(g, mask, **run_kw)
                 end.record()
                 end.synchronize()
-                key = f"{grid} {k} {name}"
+                key = f"{grid} {k} {name} {dname}"
                 times.setdefault(key, []).append(start.elapsed_time(end) / npass)
                 paths[key] = getattr(mod, "last_path", None) or "-"
                 tiles[key] = ("x".join(map(str, mod.choose_config(*shape, k)))
@@ -99,7 +103,8 @@ def shown(root: str) -> str:
 def worker_cmd(args, root: str, build_only: bool = False) -> list:
     cmd = [sys.executable, __file__, "--a", args.a, "--b", args.b, "--worker", root,
            "--ks", *map(str, args.ks), "--passes", str(args.passes), "--repeats",
-           str(args.repeats), "--grids", *args.grids]
+           str(args.repeats), "--grids", *args.grids, "--dtypes", *args.dtypes,
+           "--kernels", *args.kernels]
     return cmd + ["--build-only"] if build_only else cmd
 
 
@@ -119,13 +124,16 @@ def main() -> int:
     ap.add_argument("--ks", type=int, nargs="+", default=[1, 2, 3, 4])
     ap.add_argument("--passes", type=int, default=100)
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--dtypes", nargs="+", default=["float32"], choices=["float32", "bfloat16"])
+    ap.add_argument("--kernels", nargs="+", default=list(KERNELS), choices=list(KERNELS))
     ap.add_argument("--out", default=str(Path(__file__).with_name("results_ab3d.csv")))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     grids = [tuple(int(v) for v in g.split("x")) for g in args.grids]
     if args.worker:
-        worker(args.worker, grids, args.ks, args.passes, args.repeats, args.build_only)
+        worker(args.worker, grids, args.ks, args.passes, args.repeats, args.build_only,
+               args.dtypes, args.kernels)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -141,31 +149,34 @@ def main() -> int:
         res = finish(subprocess.Popen(worker_cmd(args, root), stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
         for key, ms_list in res["times"].items():
-            grid, k, kernel = key.split()
+            grid, k, kernel, dname = key.split()
             for rep, ms in enumerate(ms_list):
                 rows.append(dict(copy=label, root=shown(root), process=order, grid=grid,
-                                 k=int(k), kernel=kernel, tile=res["tiles"][key],
+                                 k=int(k), kernel=kernel, dtype=dname, tile=res["tiles"][key],
                                  path=res["paths"][key], repeat=rep, ms_per_pass=round(ms, 6)))
         print(f"process {order} ({label}, {shown(root)}):",
               {k: [round(v, 5) for v in ms] for k, ms in res["times"].items()}, flush=True)
     with open(args.out, "w", newline="") as fh:
-        fh.write(f"# {card}; float32, K in {args.ks}, {args.passes} passes a timing at 32x256x256 "
+        fh.write(f"# {card}; {' '.join(args.dtypes)}, K in {args.ks}, {args.passes} passes a "
+                 "timing at 32x256x256 "
                  f"(scaled by the cells elsewhere); A = {shown(args.a)}, B = {shown(args.b)}; "
                  "experiments/cuda-kstep-tiles/ab3d.py\n")
         writer = csv.DictWriter(fh, fieldnames=list(rows[0]))
         writer.writeheader()
         writer.writerows(rows)
-    for grid, k, kernel in ((g, k, n) for g in args.grids for k in args.ks for n in KERNELS):
+    for grid, k, kernel, dname in ((g, k, n, d) for g in args.grids for k in args.ks
+                                   for n in args.kernels for d in args.dtypes):
         med = {}
         for label in ("A", "B"):
             sel = [r for r in rows if r["copy"] == label and r["kernel"] == kernel
-                   and r["grid"] == grid and r["k"] == k]
+                   and r["grid"] == grid and r["k"] == k and r["dtype"] == dname]
             ms = [r["ms_per_pass"] for r in sel]
             med[label] = statistics.median(ms)
-            print(f"{grid} K={k} {kernel} {label} (tile {sel[0]['tile'] or '-'}, {sel[0]['path']} "
-                  f"path): median {med[label]:.5f} ms a pass ({min(ms):.5f}-{max(ms):.5f}, "
-                  f"{len(ms)} timings)")
-        print(f"{grid} K={k} {kernel}: B against A {100 * (med['B'] / med['A'] - 1):+.2f}%")
+            print(f"{grid} K={k} {kernel} {dname} {label} (tile {sel[0]['tile'] or '-'}, "
+                  f"{sel[0]['path']} path): median {med[label]:.5f} ms a pass "
+                  f"({min(ms):.5f}-{max(ms):.5f}, {len(ms)} timings)")
+        print(f"{grid} K={k} {kernel} {dname}: B against A "
+              f"{100 * (med['B'] / med['A'] - 1):+.2f}%")
     return 0
 
 

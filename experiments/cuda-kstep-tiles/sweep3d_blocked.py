@@ -20,7 +20,9 @@ this file (or --out).
 launch a step) at each K and type, the median of `--repeats` timings (the
 repeats in turn, every case once in each), into results3d_slab.csv beside
 this file (or --out): the rows of d3q19_kstep.PATH_MS and the b6 and b4
-rows of d3q19_kstep_blocked.MS_PER_PASS.
+rows of d3q19_kstep_blocked.MS_PER_PASS. `--dtypes bfloat16` takes the
+passes the wave path has in bfloat16 (`d3q19_kstep.wave_takes`: B4's at
+K > 1) and the step path's of both (results3d_slab_bf16.csv, with --out).
 
 `--probe` is the short first call after a change to the kernels: it prints
 what `nvcc -Xptxas -v` says of csrc/d3q19_blocked.cu (registers, spills),
@@ -71,6 +73,7 @@ PROBE_SHAPES = ((NZ, NY, NX), (12, 16, 32), (13, 50, 70))
 # tiles of the box path that the probe takes where B5's own tile is not one
 BOX_TILES = ((4, 6, 16), (2, 4, 8), (2, 2, 4), (1, 2, 2))
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
+SLAB_DTYPES = {**DTYPES, "bfloat16": torch.bfloat16}  # --slab only
 KW = dict(omega=1.85, density=0.1, accel=0.005)
 
 
@@ -216,11 +219,13 @@ def slab(dtypes, ks, passes: int, repeats: int, out: str, card: str) -> int:
     """B6 and B4 on each path at each K and type (the module doc's --slab)."""
     rows = []
     for dname in dtypes:
-        f, mask = make_case((NZ, NY, NX), DTYPES[dname])
+        dtype = SLAB_DTYPES[dname]
+        f, mask = make_case((NZ, NY, NX), dtype)
         kw = dict(accel_plane=NZ - 2, **KW)
         cases = [(k, name, mod, path) for k in ks
                  for name, mod in (("b6", d3q19_kstep), ("b4", d3q19_kstep_inplace))
-                 for path in d3q19_kstep.PATHS]
+                 for path in d3q19_kstep.PATHS
+                 if path == "step" or d3q19_kstep.wave_takes(dtype, name, k)]
         times = {case[:2] + case[3:]: [] for case in cases}
         for _ in range(repeats):
             for k, name, mod, path in cases:
@@ -252,7 +257,7 @@ def main() -> int:
     ap.add_argument("--slab", action="store_true")
     ap.add_argument("--passes", type=int, default=50)
     ap.add_argument("--repeats", type=int, default=5, help="timings a case (--slab)")
-    ap.add_argument("--dtypes", nargs="+", default=list(DTYPES), choices=list(DTYPES))
+    ap.add_argument("--dtypes", nargs="+", default=list(DTYPES), choices=list(SLAB_DTYPES))
     ap.add_argument("--ks", nargs="+", type=int, default=list(KS), choices=list(KS))
     ap.add_argument("--out", default=str(Path(__file__).with_name("results3d_blocked.csv")))
     args = ap.parse_args()

@@ -103,15 +103,27 @@
 // sum, division and the square root rounds on its own, as in
 // collide_fields.
 //
-// bfloat16 lattices (B4, B6) run on the step path only, and round once a
-// pass as the TPU kernels do (they step in float32 and cast at the store):
-// the AA pattern keeps a pass's middle steps in the lattice's own slots,
-// which would round every step. So a pass of K > 1 steps its first step from
-// the bfloat16 lattice into a float scratch lattice (19 x 4 bytes a cell,
-// the caller's), its middle steps there in the AA pattern, and its last back
-// into a bfloat16 lattice (launch_rounded). A step moves 77 bytes a cell in
-// bfloat16 (19 x 2 in, 19 x 2 out, the mask), 115 from or to the scratch
-// and 153 within it.
+// bfloat16 lattices (B4, B6) round once a pass as the TPU kernels do (they
+// step in float32 and cast at the store). The AA pattern would keep a pass's
+// middle steps in the lattice's own slots and round every step, so a pass
+// of K > 1 steps its first step from the bfloat16 lattice into a float
+// scratch lattice (19 x 4 bytes a cell, the caller's), its middle steps
+// there in the AA pattern, and its last back into a bfloat16 lattice: a
+// two-stream step where the scratch is in its natural layout (an even K),
+// else a step B. On the step path that is K launches (launch_rounded); a
+// step moves 77 bytes a cell in bfloat16 (19 x 2 in, 19 x 2 out, the mask),
+// 115 from or to the scratch and 153 within it. B4 takes the same stages
+// on the wave path as one launch (wave_kernel<__nv_bfloat16, float>, the
+// "rounded" plan): stage 0 reads the bfloat16 lattice and stores to the
+// scratch, the last stage reads the scratch and stores to the lattice in
+// place. That is safe because the last stage at plane z waits, through K - 1
+// chained waits, on stage 0 at planes z - 1 .. z + 1, the only items that
+// read the lattice's plane z; the wrapped planes too. So the pass reads
+// and writes the bfloat16 lattice once, and its scratch traffic stays in
+// L2 where the front keeps it: at 64x128x256, K = 4, 0.362 ms a pass
+// against the step path's 0.425 on an H100, but at K = 2 no faster
+// (PATH_MS). B6's bfloat16 pass (out != in) stays on the step path. K = 1
+// runs in the lattice itself, on the step path.
 //
 // Layouts (B6): the lattice is (19, nz, ny, nx), speed-major ("q-major"), or
 // (nz, 19, ny, nx), plane-major ("z-major", the JAX package's layout='zmajor'):
@@ -131,6 +143,8 @@
 // kernels allocate nothing; the caller passes every buffer. The collision
 // coefficients come from the caller as doubles, computed as collide_fields
 // computes them, and are rounded to the working type here.
+
+#include <type_traits>
 
 #include "d3q19_collide.cuh"
 
@@ -231,6 +245,16 @@ __device__ __forceinline__ void st_l2(double* p, double v, uint64_t pol) {
   asm volatile("st.global.cg.L2::cache_hint.f64 [%0], %1, %2;"
                ::"l"(p), "d"(v), "l"(pol) : "memory");
 }
+__device__ __forceinline__ __nv_bfloat16 ld_l2(const __nv_bfloat16* p, uint64_t pol) {
+  unsigned short v;
+  asm volatile("ld.global.cg.L2::cache_hint.b16 %0, [%1], %2;"
+               : "=h"(v) : "l"(p), "l"(pol) : "memory");
+  return __ushort_as_bfloat16(v);
+}
+__device__ __forceinline__ void st_l2(__nv_bfloat16* p, __nv_bfloat16 v, uint64_t pol) {
+  asm volatile("st.global.cg.L2::cache_hint.b16 [%0], %1, %2;"
+               ::"l"(p), "h"(__bfloat16_as_ushort(v)), "l"(pol) : "memory");
+}
 
 template <typename T, bool kL2>
 __device__ __forceinline__ T ld(const T* p, const Policy& pol) {
@@ -260,7 +284,7 @@ struct Planes {
 // Returns |u| (the rest speed in stream_only, 0 in copy). Src and Dst are
 // the types of the two lattices; the step runs in T, the compute type of
 // both (a bfloat16 pass reads or writes a float lattice between its first
-// and its last step; the wave path takes float and double only).
+// and its last step).
 template <typename Src, typename Dst, int kKind, int kMode, bool kL2,
           typename T = typename storage::Compute<Src>::type>
 __device__ __forceinline__ T step_cell(const Planes<const Src>& src, const Planes<Dst>& dst,
@@ -521,15 +545,20 @@ struct WavePlan {
   int bx, by, gx, gy;  // the step path's block (one plane deep) and blocks along x, y
   int chunk, chunks;   // step-path blocks an item, items a (stage, plane)
   int stages, k;       // stages of the pass (K, or K + 1 with B4's swap), steps
-  int two_stream;      // B6 after an odd K: stage 0 is a two-stream step
+  int two_stream;      // B6 after an odd K, and a rounded pass: stage 0 is a two-stream step
   int swap;            // B4 after an odd K: the last stage is the swap
   int lag;             // planes a stage trails the one before
   int items;           // stages * nz * chunks
 };
 
 // The kind of step of stage s: a two-stream step first for B6 after an odd
-// K, the swap last for B4 after an odd K, A and B in turn between.
+// K, the swap last for B4 after an odd K, A and B in turn between. A
+// rounded pass (kRounded: a bfloat16 lattice through a float scratch) takes
+// a two-stream step first and, last, a two-stream step after an even K or
+// a step B after an odd one, as launch_rounded does.
+template <bool kRounded>
 __device__ __forceinline__ int stage_kind(const WavePlan& a, int s) {
+  if (kRounded && s == a.stages - 1) return a.k % 2 ? kLocal : kTwoStream;
   if (a.swap && s == a.stages - 1) return kSwap;
   if (a.two_stream && s == 0) return kTwoStream;
   return (s - a.two_stream) % 2 == 0 ? kPullSwap : kLocal;
@@ -596,10 +625,42 @@ __device__ __forceinline__ T wave_cell(int kind, const Planes<const T>& src, con
   return step_cell<T, T, kLocal, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
 }
 
-template <typename T, int kMode, bool kZ>
+// One step-path block of an item of a rounded pass, from `from` to `to`
+// (speed stride vol, plane offsets zo): stage 0 (first) from the lattice
+// (S) into the scratch (T), the last stage from the scratch into the
+// lattice, the stages between A or B in the scratch. Two untyped buffers a
+// stage, not the three of lattice in, scratch and lattice out: with three
+// the instance spilled at the 80 registers of three blocks an SM and ran
+// 14% slower (PERF.md section 6).
+template <typename S, typename T, int kMode>
+__device__ __forceinline__ T rounded_cell(int kind, bool first, bool last, const void* from,
+                                          void* to, size_t vol, const size_t zo[3],
+                                          const size_t yo[3], const size_t xo[3], bool obstacle,
+                                          bool accel, const Coef<T>& p, const Policy& pol) {
+  const Planes<const S> lat{static_cast<const S*>(from), vol, {zo[0], zo[1], zo[2]}};
+  const Planes<S> res{static_cast<S*>(to), vol, {zo[0], zo[1], zo[2]}};
+  const Planes<const T> src{static_cast<const T*>(from), vol, {zo[0], zo[1], zo[2]}};
+  const Planes<T> dst{static_cast<T*>(to), vol, {zo[0], zo[1], zo[2]}};
+  if (first)
+    return step_cell<S, T, kTwoStream, kMode, true>(lat, dst, yo, xo, obstacle, accel, p, pol);
+  if (last) {
+    if (kind == kTwoStream)
+      return step_cell<T, S, kTwoStream, kMode, true>(src, res, yo, xo, obstacle, accel, p, pol);
+    return step_cell<T, S, kLocal, kMode, true>(src, res, yo, xo, obstacle, accel, p, pol);
+  }
+  if (kind == kPullSwap)
+    return step_cell<T, T, kPullSwap, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
+  return step_cell<T, T, kLocal, kMode, true>(src, dst, yo, xo, obstacle, accel, p, pol);
+}
+
+// S: the type of in and out; T: the compute type. A float or double S is
+// the pass as the note at the top gives it (scratch unused); a bfloat16 S
+// is a rounded pass of B4 (in == out) through the float lattice scratch.
+template <typename S, typename T, int kMode, bool kZ>
 __global__ void __launch_bounds__(kMaxThreads, WaveOccupancy<T>::kMinBlocks)
-wave_kernel(const T* in, T* out, const uint8_t* __restrict__ mask, T* __restrict__ partials,
-            unsigned* counters, Grid g, Window win, Coef<T> p, WavePlan a) {
+wave_kernel(const S* in, S* out, const uint8_t* __restrict__ mask, T* __restrict__ partials,
+            unsigned* counters, Grid g, Window win, Coef<T> p, WavePlan a, T* scratch) {
+  constexpr bool kRounded = !std::is_same<S, T>::value;
   __shared__ T red[kMaxWarps];
   __shared__ int claim[3];
   __shared__ bool last;
@@ -641,15 +702,22 @@ wave_kernel(const T* in, T* out, const uint8_t* __restrict__ mask, T* __restrict
     const int z = (i + s) % nz;
     const size_t zo[3] = {(z == 0 ? nz - 1 : z - 1) * zs, z * zs, (z == nz - 1 ? 0 : z + 1) * zs};
     // stage 0 reads in, every stage writes out
-    const Planes<const T> src{s == 0 ? in : out, vol, {zo[0], zo[1], zo[2]}};
-    const Planes<T> dst{out, vol, {zo[0], zo[1], zo[2]}};
-    const int kind = stage_kind(a, s);
+    const Planes<const S> src{s == 0 ? in : out, vol, {zo[0], zo[1], zo[2]}};
+    const Planes<S> dst{out, vol, {zo[0], zo[1], zo[2]}};
+    const int kind = stage_kind<kRounded>(a, s);
     const bool accel = wrap(z + win.plane_offset, win.global_nz) == win.accel_plane;
     const bool counted = z >= win.valid_lo && z < win.valid_hi;
     // L2 policies: what the pass reads from in and writes last may leave L2
-    // first; what a later stage reads again should stay
-    const Policy pol{make_policy(s == 0 && in != out ? kEvictFirst : kEvictUnchanged),
-                     make_policy(s == a.stages - 1 ? kEvictFirst : kEvictLast)};
+    // first; what a later stage reads again should stay. A rounded pass
+    // reads the lattice first and the scratch last, both dead after that
+    const bool last_stage = s == a.stages - 1;
+    const Policy pol{make_policy((kRounded ? s == 0 || last_stage : s == 0 && in != out)
+                                     ? kEvictFirst : kEvictUnchanged),
+                     make_policy(last_stage ? kEvictFirst : kEvictLast)};
+    // a rounded pass's stage reads `from` and writes `to`: the lattice in,
+    // the scratch between, the lattice out
+    const void* from = kRounded && s > 0 ? static_cast<const void*>(scratch) : in;
+    void* to = kRounded && !last_stage ? static_cast<void*>(scratch) : out;
     const int b1 = min((c + 1) * a.chunk, per_plane);
     for (int b = c * a.chunk; b < b1; ++b) {
       const int x = (b % a.gx) * a.bx + threadIdx.x;
@@ -658,13 +726,17 @@ wave_kernel(const T* in, T* out, const uint8_t* __restrict__ mask, T* __restrict
       if (x < g.nx && y < g.ny) {
         size_t yo[3], xo[3];
         row_neighbours(g, y, x, yo, xo);
-        if (kind == kSwap) {
-          swap_cell<T, true>(dst, yo, xo, pol);
+        if (!kRounded && kind == kSwap) {
+          swap_cell<S, true>(dst, yo, xo, pol);
         } else {
           // the mask's plane offset: the lattice's in q-major
           const size_t mz = kZ ? (size_t)z * plane : zo[1];
-          u = wave_cell<T, kMode>(kind, src, dst, yo, xo, mask[mz + yo[1] + xo[1]] != 0, accel,
-                                  p, pol);
+          const bool obstacle = mask[mz + yo[1] + xo[1]] != 0;
+          if constexpr (kRounded)
+            u = rounded_cell<S, T, kMode>(kind, s == 0, last_stage, from, to, vol, zo, yo, xo,
+                                          obstacle, accel, p, pol);
+          else
+            u = wave_cell<T, kMode>(kind, src, dst, yo, xo, obstacle, accel, p, pol);
           if (!counted || y < win.row_lo || y >= win.row_hi) u = T(0);
         }
       }
@@ -695,21 +767,22 @@ wave_kernel(const T* in, T* out, const uint8_t* __restrict__ mask, T* __restrict
 // Checks a wave launch and fills its plan; false where the wave path does
 // not take it (ops/d3q19_kstep.py wave_fits and WavePlan hold the same). An
 // odd K of B6 reads in after its first stage has written out, so in and out
-// must differ then.
+// must differ then. A rounded pass (B4 on a bfloat16 lattice) takes K > 1
+// stages, the first two-stream, and no swap.
 bool make_plan(const Grid& g, int bx, int by, int bz, int k, bool inplace, bool aliased,
-               int chunk, int lag, WavePlan* a) {
+               bool rounded, int chunk, int lag, WavePlan* a) {
   Launch l;
   if (!make_launch(g, bx, by, bz, &l) || bz != 1 || g.nz < 3 || k < 1 || k > kMaxStages)
     return false;
-  if (chunk < 1 || lag < 2 || (!inplace && aliased && k % 2)) return false;
+  if (chunk < 1 || lag < 2 || (!inplace && aliased && k % 2) || (rounded && k < 2)) return false;
   a->bx = bx;
   a->by = by;
   a->gx = (int)l.grid.x;
   a->gy = (int)l.grid.y;
   a->chunk = chunk;
   a->chunks = (a->gx * a->gy + chunk - 1) / chunk;
-  a->two_stream = !inplace && k % 2;
-  a->swap = inplace && k % 2;
+  a->two_stream = rounded || (!inplace && k % 2);
+  a->swap = !rounded && inplace && k % 2;
   a->stages = k + a->swap;
   a->k = k;
   a->lag = lag;
@@ -721,38 +794,51 @@ bool make_plan(const Grid& g, int bx, int by, int bz, int k, bool inplace, bool 
 }
 
 // One pass on the wave path: B6 (out = K steps of in, in `mode`; kZ: on
-// z-major lattices) or, with inplace, B4 (in == out, K steps in place).
-template <typename T, bool kZ>
-int launch_wave(const void* in, const void* mask, void* out, void* partials, void* tot,
-                void* counters, int mode, int inplace, int blocks, int chunk, int lag, Grid g,
-                int bx, int by, int bz, int k, Window win, Coef<T> p, cudaStream_t stream) {
+// z-major lattices) or, with inplace, B4 (in == out, K steps in place). S
+// the lattice's type, T the compute type; a bfloat16 S is B4's rounded pass
+// (in place, mode full, q-major) through scratch, a float lattice distinct
+// from in.
+template <typename S, typename T, bool kZ>
+int launch_wave(const void* in, const void* mask, void* out, void* scratch, void* partials,
+                void* tot, void* counters, int mode, int inplace, int blocks, int chunk, int lag,
+                Grid g, int bx, int by, int bz, int k, Window win, Coef<T> p,
+                cudaStream_t stream) {
+  constexpr bool kRounded = !std::is_same<S, T>::value;
   WavePlan a;
-  if (!make_plan(g, bx, by, bz, k, inplace != 0, in == out, chunk, lag, &a) ||
+  if (!make_plan(g, bx, by, bz, k, inplace != 0, in == out, kRounded, chunk, lag, &a) ||
       blocks < 1 || mode < kFull || mode > kNoRoll ||
       (inplace && (in != out || mode != kFull || kZ)))
     return (int)cudaErrorInvalidValue;
-  const T* src = static_cast<const T*>(in);
-  T* dst = static_cast<T*>(out);
+  if (kRounded && (!inplace || scratch == nullptr || scratch == in))
+    return (int)cudaErrorInvalidValue;
+  const S* src = static_cast<const S*>(in);
+  S* dst = static_cast<S*>(out);
+  T* mid = static_cast<T*>(scratch);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   T* part = static_cast<T*>(partials);
   unsigned* cnt = static_cast<unsigned*>(counters);
   const dim3 block(a.bx, a.by, 1);
-  switch (mode) {
-    case kStreamOnly:
-      wave_kernel<T, kStreamOnly, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win,
-                                                                   p, a);
-      break;
-    case kCopy:
-      wave_kernel<T, kCopy, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win,
-                                                             p, a);
-      break;
-    case kNoRoll:
-      wave_kernel<T, kNoRoll, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win,
-                                                               p, a);
-      break;
-    default:
-      wave_kernel<T, kFull, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win,
-                                                             p, a);
+  if constexpr (kRounded) {
+    wave_kernel<S, T, kFull, false><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g, win,
+                                                                  p, a, mid);
+  } else {
+    switch (mode) {
+      case kStreamOnly:
+        wave_kernel<S, T, kStreamOnly, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt,
+                                                                         g, win, p, a, mid);
+        break;
+      case kCopy:
+        wave_kernel<S, T, kCopy, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g,
+                                                                   win, p, a, mid);
+        break;
+      case kNoRoll:
+        wave_kernel<S, T, kNoRoll, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g,
+                                                                     win, p, a, mid);
+        break;
+      default:
+        wave_kernel<S, T, kFull, kZ><<<blocks, block, 0, stream>>>(src, dst, m, part, cnt, g,
+                                                                   win, p, a, mid);
+    }
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -766,20 +852,28 @@ int wave_blocks(int mode, int threads) {
   switch (mode) {
     case kStreamOnly:
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, wave_kernel<T, kStreamOnly, false>, threads, 0);
+          &n, wave_kernel<T, T, kStreamOnly, false>, threads, 0);
       break;
     case kCopy:
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, wave_kernel<T, kCopy, false>, threads, 0);
+          &n, wave_kernel<T, T, kCopy, false>, threads, 0);
       break;
     case kNoRoll:
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, wave_kernel<T, kNoRoll, false>, threads, 0);
+          &n, wave_kernel<T, T, kNoRoll, false>, threads, 0);
       break;
     default:
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, wave_kernel<T, kFull, false>, threads, 0);
+          &n, wave_kernel<T, T, kFull, false>, threads, 0);
   }
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// the rounded pass's instance (mode full only)
+int wave_blocks_rounded(int threads) {
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, wave_kernel<__nv_bfloat16, float, kFull, false>, threads, 0);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -864,24 +958,42 @@ int d3q19_kstep_inplace_bf16(void* f, const void* mask, void* scratch, void* par
 // zmajor (B6 only): f and out are (nz, 19, ny, nx).
 int d3q19_wave_f32(const void* f, const void* mask, void* out, void* partials, void* tot,
                    void* counters, int mode, int inplace, int zmajor, WAVE_ARGS, LBM3_ARGS) {
-  return zmajor ? launch_wave<float, true>(f, mask, out, partials, tot, counters, mode, inplace,
-                                           blocks, chunk, lag, LBM3_PASS(float))
-                : launch_wave<float, false>(f, mask, out, partials, tot, counters, mode, inplace,
-                                            blocks, chunk, lag, LBM3_PASS(float));
+  return zmajor ? launch_wave<float, float, true>(f, mask, out, nullptr, partials, tot, counters,
+                                                  mode, inplace, blocks, chunk, lag,
+                                                  LBM3_PASS(float))
+                : launch_wave<float, float, false>(f, mask, out, nullptr, partials, tot, counters,
+                                                   mode, inplace, blocks, chunk, lag,
+                                                   LBM3_PASS(float));
 }
 int d3q19_wave_f64(const void* f, const void* mask, void* out, void* partials, void* tot,
                    void* counters, int mode, int inplace, int zmajor, WAVE_ARGS, LBM3_ARGS) {
-  return zmajor ? launch_wave<double, true>(f, mask, out, partials, tot, counters, mode, inplace,
-                                            blocks, chunk, lag, LBM3_PASS(double))
-                : launch_wave<double, false>(f, mask, out, partials, tot, counters, mode,
-                                             inplace, blocks, chunk, lag, LBM3_PASS(double));
+  return zmajor ? launch_wave<double, double, true>(f, mask, out, nullptr, partials, tot,
+                                                    counters, mode, inplace, blocks, chunk, lag,
+                                                    LBM3_PASS(double))
+                : launch_wave<double, double, false>(f, mask, out, nullptr, partials, tot,
+                                                     counters, mode, inplace, blocks, chunk, lag,
+                                                     LBM3_PASS(double));
+}
+// B4 on a bfloat16 lattice on the wave path: f = K steps of f (K > 1),
+// rounded once, its steps in the float lattice scratch (distinct from f);
+// inplace, f == out, mode 0 and q-major only (B6's bfloat16 pass takes the
+// step path). partials and tot are float.
+int d3q19_wave_bf16(const void* f, const void* mask, void* out, void* scratch, void* partials,
+                    void* tot, void* counters, int mode, int inplace, int zmajor, WAVE_ARGS,
+                    LBM3_ARGS) {
+  if (zmajor) return (int)cudaErrorInvalidValue;
+  return launch_wave<__nv_bfloat16, float, false>(f, mask, out, scratch, partials, tot, counters,
+                                                  mode, inplace, blocks, chunk, lag,
+                                                  LBM3_PASS(float));
 }
 
-// Resident blocks an SM of wave_kernel in mode `mode` (index in MODES),
-// float64 when f64 is nonzero (the q-major instance; the z-major ones have
-// the same launch bounds). Negative on an error.
-int d3q19_wave_blocks(int mode, int f64, int threads) {
-  return f64 ? wave_blocks<double>(mode, threads) : wave_blocks<float>(mode, threads);
+// Resident blocks an SM of wave_kernel in mode `mode` (index in MODES), by
+// the lattice's type: 0 float32, 1 float64, 2 bfloat16 (B4's rounded pass,
+// mode 0 only). The q-major instance; the z-major ones have the same launch
+// bounds. Negative on an error.
+int d3q19_wave_blocks(int mode, int type, int threads) {
+  if (type == 2) return mode == kFull ? wave_blocks_rounded(threads) : -(int)cudaErrorInvalidValue;
+  return type ? wave_blocks<double>(mode, threads) : wave_blocks<float>(mode, threads);
 }
 
 }  // extern "C"

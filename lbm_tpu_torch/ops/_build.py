@@ -85,6 +85,7 @@ SIGNATURES = {
         # ... tot, counters, mode, inplace, zmajor, then the plan and the scalars
         "d3q19_wave_f32": [_P] * 6 + [_I] * 3 + _D3Q19_WAVE + _D3Q19_SCALARS,
         "d3q19_wave_f64": [_P] * 6 + [_I] * 3 + _D3Q19_WAVE + _D3Q19_SCALARS,
+        "d3q19_wave_bf16": [_P] * 7 + [_I] * 3 + _D3Q19_WAVE + _D3Q19_SCALARS,  # ... out, scratch
         "d3q19_wave_blocks": [_I] * 3,
     },
     "d3q19_blocked": {

@@ -11,7 +11,8 @@ Contract of `stepk` (shared with `d3q19_kstep_inplace.stepk`):
     is the (nz, ny, nx) obstacle mask (bool or uint8, nonzero = blocked);
   * a bfloat16 state is storage only, as in the TPU kernels: a pass steps in
     float32 and rounds once, at its end (through a float32 scratch lattice
-    for K > 1); Sum|u| is float32. It runs on the step path, full mode;
+    for K > 1); Sum|u| is float32. B6 runs it on the step path, full mode;
+    B4 (`d3q19_kstep_inplace`) on either path at K > 1 (`wave_takes`);
   * plane_offset / valid_planes / valid_rows / global_nz describe a
     ghost-extended block as in `lbm_tpu.ops.d3q19_pallas.stepk`: local plane
     p is global plane p + plane_offset, the accelerated plane is tested as
@@ -25,10 +26,11 @@ Contract of `stepk` (shared with `d3q19_kstep_inplace.stepk`):
 A pass runs on one of two paths (`PATHS`), which `choose_path` picks from
 the shape, K and type, and never on a failure: "wave", one launch of
 `wave_kernel` a pass, a z-wavefront whose middle steps stay in L2 (the plan
-of its work items is `WavePlan`), or "step", one launch a step. The launch
-reports the path in `last_path`; `path=` forces one, and a forced path that
-cannot take the call raises. B6's
-diagnostic modes (`MODES`, those of the TPU kernel) run on the wave path:
+of its work items is `WavePlan`; a bfloat16 pass of B4 steps them in its
+float32 scratch lattice, the plan's `rounded` stages), or "step", one
+launch a step. The launch reports the path in `last_path`; `path=` forces
+one, and a forced path that cannot take the call raises. B6's diagnostic
+modes (`MODES`, those of the TPU kernel) run on the wave path:
 `stepk(mode=...)` and `stepk_plain(mode=...)`.
 
 B6 takes the layouts of the TPU kernel (`LAYOUTS`): `stepk(layout=
@@ -100,9 +102,9 @@ WAVE_CHUNK = 2
 # use: "chunk", "lag" and "blocks" of every wave launch's plan in place of
 # WAVE_CHUNK, `wave_lag` and the card's resident blocks.
 _plan_override: dict = {}
-# ms a pass of B6 and B4 on each path by K = 1..4, float32 and float64, at
-# 32x256x256 (the grid of d3q19_kstep_blocked.MS_PER_PASS), measured on an
-# NVIDIA H100 80GB HBM3 (700 W) by experiments/cuda-kstep-tiles/
+# ms a pass of B6 and B4 on each path by K = 1..4, float32, float64 and
+# bfloat16, at 32x256x256 (the grid of d3q19_kstep_blocked.MS_PER_PASS),
+# measured on an NVIDIA H100 80GB HBM3 (700 W) by experiments/cuda-kstep-tiles/
 # sweep3d_blocked.py --slab (results3d_slab.csv, the median of 5 timings):
 # `choose_path` takes the faster where the shape allows both. The wave path
 # loses at K = 1 (one stage, no step held in L2; B4 pays its swap as a
@@ -116,6 +118,12 @@ PATH_MS = {
                            "wave": (0.2352, 0.4202, 0.6136, 0.8447)},
                     "b4": {"step": (0.4871, 0.4487, 0.9307, 0.8916),
                            "wave": (0.6360, 0.4216, 1.1150, 0.8499)}},
+    # B4 alone (`wave_takes`), its wave path from K = 2 (None: no such pass),
+    # `--dtypes bfloat16` (results3d_slab_bf16.csv): the wave's first and
+    # last stages move the lattice and the scratch, so at K = 2 it has no
+    # step in L2 to gain and loses
+    torch.bfloat16: {"b4": {"step": (0.2447, 0.1855, 0.2908, 0.4030),
+                            "wave": (None, 0.1887, 0.2777, 0.3751)}},
 }
 
 
@@ -157,11 +165,21 @@ def wave_fits(nz: int, block: tuple[int, int, int]) -> bool:
     return block[2] == 1 and nz >= 3
 
 
+def wave_takes(dtype, kernel: str, k_steps: int) -> bool:
+    """Whether the wave path has a pass of `kernel` ("b6" or "b4") at K in
+    `dtype`: every float32 and float64 pass; of a bfloat16 state, which
+    rounds once a pass, B4's at K > 1 only (stage 0 into a float32 scratch
+    lattice, the last stage back into the lattice in place). K = 1 steps in
+    the lattice itself, and B6's bfloat16 pass (out != in) keeps the step
+    path."""
+    return dtype != torch.bfloat16 or (kernel == "b4" and k_steps > 1)
+
+
 def pass_ms(dtype, kernel: str) -> tuple:
     """ms a pass of `kernel` ("b6" or "b4") at K = 1..4 on the path
     `choose_path` gives a shape both paths take (PATH_MS)."""
     ms = PATH_MS[dtype][kernel]
-    return tuple(min(w, s) for w, s in zip(ms["wave"], ms["step"]))
+    return tuple(s if w is None else min(w, s) for w, s in zip(ms["wave"], ms["step"]))
 
 
 # Steps per pass that `choose_k` prefers: the K at which a pass of B4, the
@@ -203,11 +221,11 @@ def wave_lag(blocks: int, stages: int, chunks: int) -> int:
 def choose_path(nz: int, ny: int, nx: int, k_steps: int, dtype=torch.float32, *,
                 kernel: str = "b6", block: tuple | None = None, mode: str = "full") -> str:
     """"wave" or "step" for a pass of `kernel` ("b6" or "b4"): "step" where
-    the wave path does not take the shape (`wave_fits`); else a diagnostic
+    the wave path does not take the shape (`wave_fits`) or has no such pass
+    (`wave_takes`: a bfloat16 pass of B6, or of one step); else a diagnostic
     mode goes to "wave" (it has them), and "full" to the path that measured
-    faster at this K and type (PATH_MS). A bfloat16 pass takes "step": the
-    wave path keeps a pass's middle steps in the lattice's own slots."""
-    if dtype == torch.bfloat16 or not wave_fits(nz, block or choose_block(nx)):
+    faster at this K and type (PATH_MS)."""
+    if not wave_takes(dtype, kernel, k_steps) or not wave_fits(nz, block or choose_block(nx)):
         return "step"
     if mode != "full":
         return "wave"
@@ -229,8 +247,9 @@ def resolve_path(path: str | None, f: torch.Tensor, k_steps: int, *, kernel: str
     if path == "wave" and not wave_fits(nz, block):
         raise ValueError(f"the wave path does not take block {block} on {nz} planes "
                          "(it needs a block one plane deep and at least 3 planes)")
-    if path == "wave" and f.dtype == torch.bfloat16:
-        raise ValueError("the wave path takes float32 and float64; bfloat16 runs on 'step'")
+    if path == "wave" and not wave_takes(f.dtype, kernel, k_steps):
+        raise ValueError("the wave path takes a bfloat16 state in B4's passes of K > 1 only; "
+                         "this one runs on 'step'")
     if path == "step" and mode != "full":
         raise ValueError(f"mode={mode!r} runs on the wave path only")
     return path
@@ -248,7 +267,11 @@ class WavePlan:
     stage order, each `chunks` items. A pass of K steps has K stages, and B4
     after an odd K one more, the swap (`swap`); B6 after an odd K takes a
     two-stream step first (`two_stream`). The other stages take the AA
-    pattern's steps A and B in turn (`kind`)."""
+    pattern's steps A and B in turn (`kind`). A `rounded` pass (B4 on a
+    bfloat16 lattice, K > 1) has K stages and no swap: a two-stream step
+    from the lattice into the float32 scratch first, A and B in the scratch,
+    and last a two-stream step back into the lattice after an even K, a step
+    B after an odd one."""
 
     nz: int
     k: int
@@ -257,34 +280,38 @@ class WavePlan:
     lag: int
     blocks: int  # the launch's blocks
     inplace: bool  # B4 (else B6)
+    rounded: bool = False  # through the float32 scratch (a bfloat16 lattice)
 
     @classmethod
     def of(cls, nz: int, ny: int, nx: int, k_steps: int, *, inplace: bool, blocks: int,
-           block: tuple | None = None, chunk: int | None = None, lag: int | None = None):
+           block: tuple | None = None, chunk: int | None = None, lag: int | None = None,
+           rounded: bool = False):
         """The plan of a pass of B4 (`inplace`) or B6 on `blocks` blocks;
         `chunk` and `lag` default to WAVE_CHUNK and `wave_lag`."""
         bx, by, bz = block or choose_block(nx)
         if not wave_fits(nz, (bx, by, bz)):
             raise ValueError(f"the wave path does not take block {(bx, by, bz)} on {nz} planes")
+        if rounded and k_steps < 2:
+            raise ValueError("a rounded pass of one step runs in the lattice itself")
         chunk = chunk or WAVE_CHUNK
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        stages = k_steps + (k_steps % 2 if inplace else 0)
+        stages = k_steps + (k_steps % 2 if inplace and not rounded else 0)
         chunks = -(-(-(-nx // bx) * -(-ny // by)) // chunk)
         blocks = min(blocks, stages * nz * chunks)
         lag = lag or wave_lag(blocks, stages, chunks)
         if lag < 2:
             raise ValueError(f"lag must be >= 2, got {lag}")
         return cls(nz=nz, k=k_steps, chunk=chunk, chunks=chunks, lag=lag, blocks=blocks,
-                   inplace=inplace)
+                   inplace=inplace, rounded=rounded)
 
     @property
     def swap(self) -> bool:
-        return self.inplace and self.k % 2 == 1
+        return self.inplace and not self.rounded and self.k % 2 == 1
 
     @property
     def two_stream(self) -> bool:
-        return not self.inplace and self.k % 2 == 1
+        return self.rounded or (not self.inplace and self.k % 2 == 1)
 
     @property
     def stages(self) -> int:
@@ -318,6 +345,8 @@ class WavePlan:
 
     def kind(self, s: int) -> str:
         """"two-stream", "A", "B" or "swap": the step stage s takes."""
+        if self.rounded and s == self.stages - 1:
+            return "B" if self.k % 2 else "two-stream"
         if self.swap and s == self.stages - 1:
             return "swap"
         if self.two_stream and s == 0:
@@ -488,6 +517,8 @@ def rounding_scratch(f: torch.Tensor, k_steps: int):
 _WAVE_WORDS: dict = {}
 # resident blocks an SM of wave_kernel by (device, index in MODES, type, threads)
 _BLOCKS_PER_SM: dict = {}
+# d3q19_wave_blocks's code of each lattice type
+WAVE_TYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 def wave_blocks(f: torch.Tensor, mode: int, threads: int) -> int:
@@ -498,7 +529,7 @@ def wave_blocks(f: torch.Tensor, mode: int, threads: int) -> int:
     key = (f.device.index, mode, f.dtype, threads)
     if key not in _BLOCKS_PER_SM:
         n = _build.load("d3q19_kstep", d3q19.kernel_variant()).d3q19_wave_blocks(
-            mode, int(f.dtype == torch.float64), threads)
+            mode, WAVE_TYPES[f.dtype], threads)
         if n < 1:
             raise RuntimeError(f"d3q19_wave_blocks: CUDA error {-n}")
         _BLOCKS_PER_SM[key] = n
@@ -518,25 +549,30 @@ def wave_words(f: torch.Tensor, nz: int) -> torch.Tensor:
 
 
 def wave_launch(f: torch.Tensor, out: torch.Tensor, mask_u8, partials, tot, plan: WavePlan, *,
-                mode: str, scalars, what: str, zmajor: bool = False) -> None:
+                mode: str, scalars, what: str, zmajor: bool = False, scratch=None) -> None:
     """One pass on the wave path, f -> out: B4 where `plan` is in place (f is
-    out), else B6 in `mode` (on z-major lattices with `zmajor`)."""
+    out), else B6 in `mode` (on z-major lattices with `zmajor`). A rounded
+    plan (a bfloat16 f) steps through `scratch`, a float32 lattice."""
     words = wave_words(f, plan.nz)
+    bufs = [f.data_ptr(), mask_u8.data_ptr(), out.data_ptr()]
+    if plan.rounded:
+        bufs.append(scratch.data_ptr())
     rc = entry(f, "d3q19_wave")(
-        f.data_ptr(), mask_u8.data_ptr(), out.data_ptr(), partials.data_ptr(), tot.data_ptr(),
-        words.data_ptr(), check_mode(mode), int(plan.inplace), int(zmajor), plan.blocks,
-        plan.chunk, plan.lag, *scalars)
+        *bufs, partials.data_ptr(), tot.data_ptr(), words.data_ptr(), check_mode(mode),
+        int(plan.inplace), int(zmajor), plan.blocks, plan.chunk, plan.lag, *scalars)
     check_rc(rc, what)
 
 
 def wave_plan(f: torch.Tensor, k_steps: int, *, inplace: bool, mode: str, block) -> WavePlan:
     """The plan of a pass on f of B4 (`inplace`) or B6 in `mode`, on as many
-    blocks as the card keeps resident (or those of `_plan_override`)."""
+    blocks as the card keeps resident (or those of `_plan_override`);
+    rounded for a bfloat16 f."""
     _, nz, ny, nx = f.shape
     blocks = (_plan_override.get("blocks")
               or wave_blocks(f, check_mode(mode), block[0] * block[1]))
     return WavePlan.of(nz, ny, nx, k_steps, inplace=inplace, block=block, blocks=blocks,
-                       chunk=_plan_override.get("chunk"), lag=_plan_override.get("lag"))
+                       chunk=_plan_override.get("chunk"), lag=_plan_override.get("lag"),
+                       rounded=f.dtype == torch.bfloat16)
 
 
 def _launch(f, mask_u8, out, partials, tot, *, path, mode, scalars, layout, plan=None,

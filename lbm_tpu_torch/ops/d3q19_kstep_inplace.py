@@ -17,9 +17,13 @@ number of steps (csrc/d3q19_kstep.cu). On the wave path (`d3q19_kstep.PATHS`,
 `choose_path` with kernel "b4") a pass is one launch, the swap its last
 stage; on the step path a launch a step and one for the swap. The launch
 reports its path in `last_path`. B4's state and Sum|u| are bit-identical to
-B6's. A bfloat16 state takes the step path and rounds once a pass, through
-a float32 scratch lattice for K > 1 (19 x 4 bytes a cell beside the
-lattice's 19 x 2).
+B6's. A bfloat16 state rounds once a pass, through a float32 scratch lattice
+for K > 1 (19 x 4 bytes a cell beside the lattice's 19 x 2): on the step
+path a launch a step, on the wave path one launch whose first stage reads
+the lattice into the scratch and whose last writes it back in place
+(`d3q19_kstep.WavePlan`, rounded), bit-equal to the step path; K = 1 steps
+in the lattice on the step path. B6's bfloat16 pass, whose output is
+another lattice, keeps the step path (`d3q19_kstep.wave_takes`).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def _launch(f, mask_u8, partials, tot, *, path, scalars, plan=None, scratch=None
         check_rc(rc, "d3q19_kstep_inplace")
         return
     d3q19_kstep.wave_launch(f, f, mask_u8, partials, tot, plan, mode="full", scalars=scalars,
-                            what="d3q19_wave (in place)")
+                            what="d3q19_wave (in place)", scratch=scratch)
 
 
 def _setup(f, mask, k_steps, block, path, **kw):

@@ -13,8 +13,9 @@ Information moves one plane a step, so owned planes stay exact for K <= the
 ghost depth. Sum|u| excludes ghost planes; each rank keeps it per step and
 the mesh adds it once a run in rank order (`mesh.sum_by_rank`). A bfloat16
 slab is stored in bfloat16 and stepped by the local kernel's bfloat16
-instance (the step path, through a float32 scratch lattice of the extended
-slab, rounding once a pass); Sum|u| is float32, and the free-cell count is
+instance (through a float32 scratch lattice of the extended slab, rounding
+once a pass; B4 on the path `d3q19_kstep.choose_path` gives the slab, the
+wave path where it fits); Sum|u| is float32, and the free-cell count is
 rounded to bfloat16 before the float32 division, as on one device.
 
 Each rank keeps one persistent ghost-extended buffer (19, h + 2K, ny, nx): a

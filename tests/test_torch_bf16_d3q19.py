@@ -173,20 +173,30 @@ def test_bf16_resume_bit_equal_to_a_whole_run(tmp_path, engine):
 
 
 def test_bf16_paths_and_refusals():
-    """A bfloat16 pass of B4/B6 takes the step path (its middle steps in a
-    float32 scratch lattice), of B5/B7 the thread path; the wave path and
-    the diagnostic modes refuse it; the ghost-plane engine on one rank runs
-    B4's bfloat16 pass, bit-equal to the single-device run."""
+    """A bfloat16 pass of B4 at K > 1 takes the faster of its step and wave
+    paths (PATH_MS; both step through a float32 scratch lattice), of one
+    step and every bfloat16 pass of B6 the step path; of B5/B7 the thread
+    path; the wave path refuses B6's bfloat16 pass and a pass of one step;
+    the ghost-plane engine on one rank runs B4's bfloat16 pass, bit-equal to
+    the single-device run."""
+    ms = d3q19_kstep.PATH_MS[torch.bfloat16]["b4"]
     for kernel in ("b4", "b6"):
         for k in (1, 2, 3, 4):
+            want = ("wave" if kernel == "b4" and k > 1 and ms["wave"][k - 1] <= ms["step"][k - 1]
+                    else "step")
             assert d3q19_kstep.choose_path(64, 128, 256, k, torch.bfloat16,
-                                           kernel=kernel) == "step"
+                                           kernel=kernel) == want
+    assert d3q19_kstep.choose_path(64, 128, 256, 4, torch.bfloat16, kernel="b4") == "wave"
+    assert d3q19_kstep.choose_path(2, 128, 256, 4, torch.bfloat16, kernel="b4") == "step"
     assert d3q19_kstep_blocked.choose_path(32, 256, 256, (4, 4, 32), 2, torch.bfloat16) == "thread"
     assert d3q19_kstep_blocked.shared_bytes((4, 4, 32), 2, torch.bfloat16) == \
         d3q19_kstep_blocked.shared_bytes((4, 4, 32), 2, torch.float32)
     f = torch.zeros((19, 8, 8, 32), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="wave path"):
         d3q19_kstep.resolve_path("wave", f, 2)
+    with pytest.raises(ValueError, match="wave path"):
+        d3q19_kstep.resolve_path("wave", f, 1, kernel="b4")
+    assert d3q19_kstep.resolve_path("wave", f, 2, kernel="b4") == "wave"
     assert d3q19_kstep.rounding_scratch(f, 1) is None
     assert d3q19_kstep.rounding_scratch(f, 2).dtype == torch.float32
     kw = dict(num_steps=2, dtype=torch.bfloat16, k_steps=2, device="cpu")

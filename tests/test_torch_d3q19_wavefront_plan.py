@@ -6,7 +6,10 @@ No card is needed: this is the plan, not the kernel.
 position, chunk of step-path blocks), the order of their tickets, the
 (stage, plane) counters each waits on, and the step each stage takes (B4:
 the AA pattern's A and B in turn in place, and the swap after an odd K; B6:
-A and B from in into out, after a two-stream step first for an odd K).
+A and B from in into out, after a two-stream step first for an odd K; B4's
+rounded pass of a bfloat16 lattice, K > 1: a two-stream step from the
+lattice into a scratch lattice, A and B there, and last a two-stream step
+or a step B back into the lattice).
 Held here, on grids of 3, 4, 5 and 7 planes (rows and columns that no block
 divides) at K = 1..4, lags 2 and 3 and chunks of one and two blocks:
   * every item waits only on items of smaller tickets, so a launch cannot
@@ -17,7 +20,8 @@ divides) at K = 1..4, lags 2 and 3 and chunks of one and two blocks:
     the waits (an item loads all its values, then stores them, while other
     items run between the two), give `stepk_plain`'s state bit for bit and
     its Sum|u| within 1e-12 (float64): B4 in place, B6 into out, B6 into its
-    own input at an even K, and B6's diagnostic modes;
+    own input at an even K, B4's rounded pass through its scratch (here
+    float64, so the emulated pass rounds nowhere), and B6's diagnostic modes;
   * the lag rule (`wave_lag`), the path rule (`choose_path`) and the refusal
     of a forced path that cannot run.
 """
@@ -78,7 +82,8 @@ class Emulator:
     `load(t)` reads what ticket t's item reads and steps, `store(t)` writes
     what it writes and records its partial Sum|u|s. B4 steps `f` in place;
     B6 reads its first stage from `f` and writes `out` (f itself when
-    `alias`)."""
+    `alias`); a rounded plan reads its first stage from `f`, steps in `mid`
+    and writes its last stage to `f`."""
 
     def __init__(self, plan, shape, block, chunk, f, mask, *, alias, window, mode="full"):
         self.plan, self.shape, self.block, self.chunk = plan, shape, block, chunk
@@ -87,6 +92,7 @@ class Emulator:
         self.per_plane = -(-nx // block[0]) * -(-ny // block[1])
         self.f = f.copy()
         self.out = self.f if alias or plan.inplace else np.full_like(f, np.nan)
+        self.mid = np.full_like(f, np.nan) if plan.rounded else self.out
         self.partials = np.zeros((plan.k, nz * self.per_plane))
         self.pending = {}
 
@@ -115,7 +121,8 @@ class Emulator:
         kind = plan.kind(s)
         nz, ny, nx = self.shape
         z = plan.plane(s, i)
-        src = self.f if s == 0 else self.out
+        src = self.f if s == 0 else self.mid
+        dst = self.out if s == plan.stages - 1 else self.mid
         pz, py, px = DISPLACEMENT[self.mode]
         stores, sums = [], []
         for b in self.blocks_of(c):
@@ -128,8 +135,7 @@ class Emulator:
                     dz, dy, dx = (int(v) for v in E[q])
                     a = (q, z, ys, xs)
                     bb = (qb, (z + dz) % nz, (ys + dy) % ny, (xs + dx) % nx)
-                    stores += [(self.out, a, self.out[bb].copy()),
-                               (self.out, bb, self.out[a].copy())]
+                    stores += [(dst, a, dst[bb].copy()), (dst, bb, dst[a].copy())]
                 continue
             vals, addrs = [], []
             for q in range(19):
@@ -143,9 +149,9 @@ class Emulator:
             o, u = self.step(vals, z, ys, xs)
             for q in range(19):
                 if kind == "A":  # to the pulled slots, swapped
-                    stores.append((self.out, addrs[q], o[int(OPPOSITE[q])]))
+                    stores.append((dst, addrs[q], o[int(OPPOSITE[q])]))
                 else:
-                    stores.append((self.out, (q, z, ys, xs), o[q]))
+                    stores.append((dst, (q, z, ys, xs), o[q]))
             sums.append((z * self.per_plane + b, u.sum()))
         self.pending[t] = (s, stores, sums)
 
@@ -204,18 +210,27 @@ def execute(plan, emu, blocks=1, seed=None):
     return completed
 
 
-def plans(inplace):
+# the plans of each kernel: (inplace, rounded)
+KERNELS = {"b4": (True, False), "b6": (False, False), "b4-rounded": (True, True)}
+
+
+def plans(kernel):
+    inplace, rounded = KERNELS[kernel]
     for shape, k, (chunk, lag) in itertools.product(SHAPES, (1, 2, 3, 4), PLANS):
+        if rounded and k == 1:
+            continue  # a rounded pass of one step runs in the lattice itself
         yield shape, k, chunk, lag, WavePlan.of(*shape, k, inplace=inplace, block=BLOCK,
-                                                chunk=chunk, lag=lag, blocks=H100_BLOCKS)
+                                                chunk=chunk, lag=lag, blocks=H100_BLOCKS,
+                                                rounded=rounded)
 
 
-@pytest.mark.parametrize("inplace", [True, False], ids=["b4", "b6"])
-def test_items_wait_only_on_smaller_tickets(inplace):
-    for shape, k, chunk, lag, plan in plans(inplace):
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_items_wait_only_on_smaller_tickets(kernel):
+    inplace, rounded = KERNELS[kernel]
+    for shape, k, chunk, lag, plan in plans(kernel):
         tickets = {plan.item(t): t for t in range(plan.items)}
         assert len(tickets) == plan.items  # every (stage, position, chunk) once
-        assert plan.stages == (k + k % 2 if inplace else k)
+        assert plan.stages == (k + k % 2 if inplace and not rounded else k)
         for (s, i, c), t in tickets.items():
             for ws, wz in plan.waits(s, i):
                 wi = plan.position(ws, wz)
@@ -223,28 +238,40 @@ def test_items_wait_only_on_smaller_tickets(inplace):
                     shape, k, chunk, lag, (s, i, c), (ws, wz))
 
 
-@pytest.mark.parametrize("k, b4, b6", [(1, "A swap", "two-stream"), (2, "A B", "A B"),
-                                       (3, "A B A swap", "two-stream A B"),
-                                       (4, "A B A B", "A B A B")])
-def test_the_steps_of_the_stages(k, b4, b6):
+@pytest.mark.parametrize("k, b4, b6, rounded", [
+    (1, "A swap", "two-stream", None), (2, "A B", "A B", "two-stream two-stream"),
+    (3, "A B A swap", "two-stream A B", "two-stream A B"),
+    (4, "A B A B", "A B A B", "two-stream A B two-stream")])
+def test_the_steps_of_the_stages(k, b4, b6, rounded):
     """Every pass ends in the natural layout: A and B in pairs, after a swap
-    of an odd A (B4) or a two-stream step (B6)."""
+    of an odd A (B4) or a two-stream step (B6). B4's rounded pass (a
+    bfloat16 lattice) has no swap: it enters its scratch by a two-stream
+    step and leaves it by one after an even K, by a step B after an odd K;
+    of one step it has no plan."""
     for inplace, want in ((True, b4), (False, b6)):
         plan = WavePlan.of(8, 4, 32, k, inplace=inplace, block=BLOCK, blocks=H100_BLOCKS)
         assert " ".join(plan.kind(s) for s in range(plan.stages)) == want
+    if rounded is None:
+        with pytest.raises(ValueError, match="rounded pass of one step"):
+            WavePlan.of(8, 4, 32, k, inplace=True, block=BLOCK, blocks=H100_BLOCKS, rounded=True)
+        return
+    plan = WavePlan.of(8, 4, 32, k, inplace=True, block=BLOCK, blocks=H100_BLOCKS, rounded=True)
+    assert " ".join(plan.kind(s) for s in range(plan.stages)) == rounded
+    assert plan.stages == k and not plan.swap and plan.two_stream
 
 
 def run_emulated(kernel, shape, k, mode="full"):
-    """Every plan and schedule of `kernel` ("b4", "b6" or "b6-aliased") at
-    K against `stepk_plain` in `mode`."""
-    inplace, alias = kernel == "b4", kernel == "b6-aliased"
+    """Every plan and schedule of `kernel` ("b4", "b6", "b6-aliased" or
+    "b4-rounded") at K against `stepk_plain` in `mode`."""
+    inplace, alias = kernel.startswith("b4"), kernel == "b6-aliased"
+    rounded = kernel == "b4-rounded"
     f, mask = make_case(shape)
     window = window_of(shape)
     ref_f, ref_t = d3q19_kstep.stepk_plain(torch.from_numpy(f), torch.from_numpy(mask),
                                            k_steps=k, mode=mode, **KW, **window)
     for chunk, lag in PLANS:
         plan = WavePlan.of(*shape, k, inplace=inplace, block=BLOCK, chunk=chunk, lag=lag,
-                           blocks=H100_BLOCKS)
+                           blocks=H100_BLOCKS, rounded=rounded)
         for blocks, seed in ((1, None), (3, 0), (5, 1), (8, 2)):
             emu = Emulator(plan, shape, BLOCK, chunk, f, mask, alias=alias, window=window,
                            mode=mode)
@@ -257,11 +284,13 @@ def run_emulated(kernel, shape, k, mode="full"):
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("kernel", ["b4", "b6", "b6-aliased"])
+@pytest.mark.parametrize("kernel", ["b4", "b6", "b6-aliased", "b4-rounded"])
 def test_emulated_schedule_equals_stepk_plain(kernel, shape):
     for k in (1, 2, 3, 4):
         if kernel == "b6-aliased" and k % 2:
             continue  # the first stage reads in after others wrote out: out needs its own
+        if kernel == "b4-rounded" and k == 1:
+            continue  # one step runs in the lattice itself, on the step path
         run_emulated(kernel, shape, k)
 
 

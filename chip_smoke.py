@@ -139,8 +139,8 @@ Phases, each of which must pass or the script exits non-zero:
      their paths at K = 1..4, with the path each took. The main path
      `cli.lbm3d --nz 32 --ny 256 --nx 256 -n 1200` with
      `--engine cuda-inplace-blocked` (B5 alone), `--engine cuda-blocked` (B7
-     alone), no --engine and `--engine cuda` (the kind `pick_engine` names,
-     and for B4 and B6 the path `choose_path` gives), av_vels[1:24]
+     alone), no --engine and `--engine cuda` (the slab kind: B4 and B6 on
+     the path `choose_path` gives), av_vels[1:24]
      against the plain engine (4e-4). Golden 8x256x256 x 6000 against
      experiments/d3q19-drift/d3q19_8x256x256_6000.av_vels.dat (float32 both
      blocked engines <= 1.5e-3; float64 `cuda-blocked`, 200 steps, <= 1e-10).
@@ -1519,20 +1519,14 @@ def phase_main_path_blocked(torch, mods3, modsb):
             kind = re.search(r"^kernel:\s+(slab|blocked), (\d+) steps? per pass$", text, re.M)
             check(kind is not None, f"{label}: the CLI does not print the kind of kernel")
             if mod is None:
-                # the kind pick_engine names for the family
-                family = (b7, d3q19_kstep) if engine_args else (b5, d3q19_kstep_inplace)
-                picked = family[0].pick_engine(nz, ny, nx, int(kind.group(2)), torch.float32,
-                                               "cuda")[0]
-                check(kind.group(1) == picked, f"{label}: ran {kind.group(1)}, not {picked}")
-                mod = family[0] if picked == "blocked" else family[1]
-                print(f"blocked main path {label}: pick_engine chose the {picked} kind, kernel "
-                      f"{names[mod]}")
-                if picked == "slab":
-                    want = d3q19_kstep.choose_path(
-                        nz, ny, nx, int(kind.group(2)), torch.float32,
-                        kernel="b4" if mod is d3q19_kstep_inplace else "b6")
-                    check(mod.last_path == want,
-                          f"{label}: {names[mod]} ran on the {mod.last_path} path, not {want}")
+                # the one-step kernel of the engine: B6 for cuda, B4 by default
+                mod = d3q19_kstep if engine_args else d3q19_kstep_inplace
+                check(kind.group(1) == "slab", f"{label}: ran {kind.group(1)}, not slab")
+                want = d3q19_kstep.choose_path(
+                    nz, ny, nx, int(kind.group(2)), torch.float32,
+                    kernel="b4" if mod is d3q19_kstep_inplace else "b6")
+                check(mod.last_path == want,
+                      f"{label}: {names[mod]} ran on the {mod.last_path} path, not {want}")
             else:
                 check(kind.group(1) == "blocked", f"{label}: the kind is {kind.group(1)}")
             kernel = names[mod]
@@ -2997,7 +2991,7 @@ def phase_bf16_main_path(torch, mods, mask, f32_mlups):
     from lbm_tpu_torch.core import io as lbm_io
     from lbm_tpu_torch.core import state
     from lbm_tpu_torch.core.params import Obstacles, Params
-    from lbm_tpu_torch.ops import d2q9
+    from lbm_tpu_torch.ops import d2q9, passes
     d2q9_kstep = mods[0]
     by_engine = engine_modules(mods)
     steps = FLAGSHIP["max_iters"]
@@ -3035,7 +3029,10 @@ def phase_bf16_main_path(torch, mods, mask, f32_mlups):
         p100 = Params(**{**FLAGSHIP, "max_iters": BF16_AV_PREFIX})
         f0, tmask = state.to_torch(state.initial_distributions(p100, torch.bfloat16), mask,
                                    device="cuda")
-        _, plain_av = d2q9_kstep.simulate_with(d2q9_kstep.run_plain, p100, f0, tmask)
+        def run_plain(f, mask, **kw):
+            return passes.run_plain(d2q9_kstep.stepk_plain, f, mask, kernel="B2", **kw)
+
+        _, plain_av = d2q9_kstep.simulate_with(run_plain, p100, f0, tmask)
         plain_av = plain_av.double().cpu().numpy()
         err = float(np.abs(av[:BF16_AV_PREFIX] - plain_av).max() / np.abs(plain_av).max())
         print(f"bf16 av_vels[:{BF16_AV_PREFIX}] vs run_plain on the card: max rel err {err:.3e} "

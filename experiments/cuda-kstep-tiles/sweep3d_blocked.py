@@ -19,10 +19,9 @@ this file (or --out).
 (d3q19_kstep.PATHS: the wave path, one launch a pass, and the step path, a
 launch a step) at each K and type, the median of `--repeats` timings (the
 repeats in turn, every case once in each), into results3d_slab.csv beside
-this file (or --out): the rows of d3q19_kstep.PATH_MS and the b6 and b4
-rows of d3q19_kstep_blocked.MS_PER_PASS. `--dtypes bfloat16` takes the
-passes the wave path has in bfloat16 (`d3q19_kstep.wave_takes`: B4's at
-K > 1) and the step path's of both (results3d_slab_bf16.csv, with --out).
+this file (or --out): the rows of d3q19_kstep.PATH_MS. `--dtypes bfloat16`
+takes the passes the wave path has in bfloat16 (`d3q19_kstep.wave_takes`:
+B4's at K > 1) and the step path's of both (results3d_slab_bf16.csv, with --out).
 
 `--probe` is the short first call after a change to the kernels: it prints
 what `nvcc -Xptxas -v` says of csrc/d3q19_blocked.cu (registers, spills),

@@ -18,12 +18,12 @@ Usage:
 The counterpart of `python -m lbm_tpu.cli.lbm3d` on one device. Runs on the
 CUDA device unless `--device cpu` is given. The default engine is
 'cuda-inplace', the counterpart of the reference's fastest single-chip engine
-('pallas-inplace'): one lattice in memory, through kernel B4 (one launch per
-step, the 'slab' kind) or B5 (K steps of every tile per trip, the 'blocked'
-kind), whichever `pick_engine` names for the shape. 'cuda' is the two-stream
-pair B6 / B7 chosen the same way; 'cuda-inplace-blocked' and 'cuda-blocked'
-run B5 and B7 whatever the rule says, as passing `by=` does in the
-reference; 'torch' is the plain PyTorch engine; 'native' the serial C++
+('pallas-inplace'): one lattice in memory, through kernel B4 (K steps a
+pass, the 'slab' kind). 'cuda' is its two-stream twin B6;
+'cuda-inplace-blocked' and 'cuda-blocked' run the blocked kernels B5 and B7
+(K steps of every tile per trip, the 'blocked' kind), which run only when
+named, as passing `by=` does in the reference (`ops.d3q19.resolve_engine`);
+'torch' is the plain PyTorch engine; 'native' the serial C++
 engine on the host (built with g++ at first use; it never asks CUDA, so it
 runs without --device cpu). Writes av_vels_3d.dat and
 prints the engine, the kind of kernel and its K, then the `==done==` block.
@@ -59,8 +59,8 @@ def main(argv=None) -> int:
                                  "cuda-inplace-blocked", "native", "sharded", "sharded-cuda",
                                  "sharded-cuda-zy"],
                         help="compute path: 'cuda-inplace' (one lattice in memory: kernel "
-                             "B4 or B5 as pick_engine names), 'cuda' (two-stream: B6 or "
-                             "B7), 'cuda-inplace-blocked' (B5), 'cuda-blocked' (B7), "
+                             "B4), 'cuda' (two-stream: B6), 'cuda-inplace-blocked' (B5), "
+                             "'cuda-blocked' (B7), "
                              "'torch' (plain PyTorch), 'native' (the serial C++ engine on "
                              "the host); on a mesh of ranks 'sharded-cuda' "
                              "(ghost planes around B4 over z), 'sharded-cuda-zy' (a (z, y) "
@@ -152,9 +152,7 @@ def main(argv=None) -> int:
         kernel_line = f"ghost planes, {k_steps} step{'s' if k_steps > 1 else ''} per pass"
         mesh_line = str(n)
     elif args.engine not in ("torch", "native"):
-        _, kind, k_steps, _ = d3q19.resolve_engine(
-            args.engine, args.nz, args.ny, args.nx, (args.num_steps, chunk), dtype=dtype,
-            device=device)
+        _, kind, k_steps, _ = d3q19.resolve_engine(args.engine, (args.num_steps, chunk))
         kernel_line = f"{kind}, {k_steps} step{'s' if k_steps > 1 else ''} per pass"
     if checkpointed:
         ck = Path(args.checkpoint or out / "checkpoint_3d.npz")

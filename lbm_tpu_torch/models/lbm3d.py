@@ -6,8 +6,8 @@ The counterpart of `lbm_tpu.models.lbm3d`, and the 3-D counterpart of
 applies: chunking is bit-identical to one uninterrupted run of the same
 engine at the same K; atomic .npz checkpoints; resume validates the grid and
 physics signature). Engines: 'torch' (plain) and the kernel engines of
-`ops.d3q19.resolve_engine`: 'cuda' (kernel B6 or B7), 'cuda-inplace' (B4 or
-B5), 'cuda-blocked' (B7) and 'cuda-inplace-blocked' (B5); 'native', the
+`ops.d3q19.resolve_engine`: 'cuda' (kernel B6), 'cuda-inplace' (B4),
+'cuda-blocked' (B7) and 'cuda-inplace-blocked' (B5); 'native', the
 serial C++ engine on the host (`ops.d3q19_native`); and 'sharded-cuda', the
 ghost-plane path over a z-mesh of ranks (`parallel.kstep_sharded_3d`), whose
 checkpoint holds the gathered global state (valid planes only), so that it
@@ -44,25 +44,21 @@ def select_k_steps(engine: str, num_steps: int, checkpoint_every: int, shape=Non
     """K for this engine that keeps chunking bit-exact: of the K dividing both
     the total and the chunk, the one its kernel's `choose_k` prefers (the
     preferred K where it divides, else the least ms a step, for the one-step
-    kernels; the deepest up to their preferred K for the blocked pair). The
-    kernels take any grid
-    shape, so the shape sets no limit (unlike the TPU's K-plane-aligned halo
-    blocks); given `shape` (nz, ny, nx), 'cuda' and 'cuda-inplace' take the K
-    of the kind their `pick_engine` names there, else that of the one-step
-    kernels. 1 for the plain engine, which has no K. 'sharded-cuda' takes
-    `kstep_sharded_3d.choose_k` for `n_shards` z-shards of shape's nz (the
+    kernels; the deepest up to their preferred K for the blocked pair), as
+    `ops.d3q19.resolve_engine` gives it for the single-device kernel engines.
+    The kernels take any grid shape, so the shape sets no limit (unlike the
+    TPU's K-plane-aligned halo blocks). 1 for the plain engines, which have
+    no K. 'sharded-cuda' given `shape` (nz, ny, nx) takes
+    `kstep_sharded_3d.choose_k` for `n_shards` z-shards of its nz (the
     reference's rule checks `plan_planes` for the real shard count too, at
-    K = 2 or 1)."""
+    K = 2 or 1); the other engines the one-step kernels' K."""
     if engine in ("torch", "sharded"):
         return 1
-    if engine == "sharded-cuda":
-        if shape is None:
-            return d3q19_kstep.choose_k(num_steps, checkpoint_every)
+    if engine == "sharded-cuda" and shape is not None:
         return kstep_sharded_3d.choose_k(shape[0], n_shards or 1, num_steps, checkpoint_every)
-    if shape is None and not engine.endswith("-blocked"):
-        return d3q19_kstep.choose_k(num_steps, checkpoint_every)
-    return d3q19.resolve_engine(engine, *(shape or (0, 0, 0)),
-                                (num_steps, checkpoint_every))[2]
+    if engine.startswith("cuda"):
+        return d3q19.resolve_engine(engine, (num_steps, checkpoint_every))[2]
+    return d3q19_kstep.choose_k(num_steps, checkpoint_every)
 
 
 def run_simulation_with_checkpoints(
@@ -118,8 +114,7 @@ def run_simulation_with_checkpoints(
     if kernel_engine:
         _check_k(k_steps, num_steps, checkpoint_every)
         run_fn, _, k_steps, extra = d3q19.resolve_engine(
-            engine, nz, ny, nx, (num_steps, checkpoint_every), k_steps=k_steps, dtype=dtype,
-            device=device)
+            engine, (num_steps, checkpoint_every), k_steps=k_steps)
     f_host, start, av_parts = _start_or_resume(
         Path(checkpoint_path), resume, (nz, ny, nx), physics, host_dtype(dtype), num_steps,
         k_steps if kernel_engine else None)
@@ -298,8 +293,7 @@ def setup_engine(engine: str, nz: int, ny: int, nx: int, *, num_steps: int,
         nz, ny, nx, mesh, zy=engine == "sharded-cuda-zy", num_steps=num_steps,
         k_steps=k_steps, obstacle_mask=obstacle_mask, dtype=dtype, overlap=overlap,
         local_engine=local_engine, **physics)
-    stepk, _ = kstep_sharded_3d.local_kernel(local_engine, block, k_steps, dtype,
-                                             mesh_lib.local_device())
+    stepk = kstep_sharded_3d.local_kernel(local_engine)
     return advance, finish, dict(mesh_shape=tuple(mesh.shape), k_steps=k_steps, block=block,
                                  kernel=stepk.__module__.rsplit(".", 1)[1])
 

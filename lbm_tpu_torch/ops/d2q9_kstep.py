@@ -55,8 +55,7 @@ from __future__ import annotations
 import torch
 
 from ..core.params import Params
-from ..utils import profiling
-from . import d2q9
+from . import d2q9, passes
 
 # Launches of kernel B2 (one per K-step pass); callers may reset it.
 launches = 0
@@ -462,28 +461,6 @@ def stepk(
     return out, tot
 
 
-def step(f, mask, **kw):
-    """One fused timestep. Returns (f', tot_u scalar)."""
-    f_new, tots = stepk(f, mask, k_steps=1, **kw)
-    return f_new, tots[0]
-
-
-def run_plain(f, mask, *, num_steps: int, k_steps: int, mode: str = "full", kernel: str = "B2",
-              **kw):
-    """`num_steps` timesteps in passes of `stepk_plain`, the CPU route of
-    every wrapper's `run`; `kernel` names the wrapper's kernel in a trace.
-    Returns (f_final, tot_u (num_steps,))."""
-    if num_steps % k_steps:
-        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    tots = sums(f, num_steps)
-    for i in profiling.passes(num_steps // k_steps, kernel, "plain", k_steps):
-        f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps,
-                                                             mode=mode, **kw)
-        if profiling.NAN_DEBUG:
-            profiling.check_nans(f, (i + 1) * k_steps, "a K-step pass (plain version)", k_steps)
-    return f, tots
-
-
 def run(
     f: torch.Tensor,
     mask: torch.Tensor,
@@ -503,25 +480,22 @@ def run(
     shared_reciprocal as in `stepk`."""
     kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
     if f.device.type == "cpu":
-        return run_plain(f, mask, num_steps=num_steps, k_steps=k_steps, mode=mode,
-                         shared_reciprocal=shared_reciprocal, **kw)
-    if num_steps % k_steps:
-        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    tots = sums(f, num_steps)
+        return passes.run_plain(stepk_plain, f, mask, num_steps=num_steps, k_steps=k_steps,
+                                kernel="B2", mode=mode, shared_reciprocal=shared_reciprocal,
+                                **kw)
     mask_u8 = obstacle_u8(mask)
     tile, ntiles, scalars = kernel_args(f, mask_u8, k_steps=k_steps, tile=tile, mode=mode, **kw)
     bufs = (torch.empty_like(f), torch.empty_like(f))
     path = launch_path(f, tile, k_steps, False, *bufs)
     partials = sums(f, k_steps * ntiles)
     recip = shared_reciprocal and mode == "full"
-    for i in profiling.passes(num_steps // k_steps, "B2", path, k_steps):
-        out = bufs[i % 2]
-        _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars,
-                recip)
-        f = out
-        if profiling.NAN_DEBUG:
-            profiling.check_nans(f, (i + 1) * k_steps, "kernel B2 (d2q9_kstep)", k_steps)
-    return f, tots
+
+    def launch_pass(i, f, tot):
+        _launch(f, mask_u8, bufs[i % 2], partials, tot, path, scalars, recip)
+        return bufs[i % 2]
+
+    return passes.run(f, num_steps=num_steps, k_steps=k_steps, kernel="B2", path=path,
+                      launch_pass=launch_pass, what="kernel B2 (d2q9_kstep)")
 
 
 def simulate_with(run_fn, params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor):

@@ -23,8 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..core.params import Params
-from ..utils import profiling
-from . import d2q9_kstep
+from . import d2q9_kstep, passes
 
 # Launches of kernel B1 (one per K-step pass); callers may reset it.
 launches = 0
@@ -88,12 +87,6 @@ def stepk(
     return f, tot
 
 
-def step(f, mask, **kw):
-    """One fused timestep in place. Returns (f, tot_u scalar)."""
-    f, tots = stepk(f, mask, k_steps=1, **kw)
-    return f, tots[0]
-
-
 def run(
     f: torch.Tensor,
     mask: torch.Tensor,
@@ -112,25 +105,22 @@ def run(
     boundaries; each pass then hands the next one its snapshot."""
     kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
     if f.device.type == "cpu":
-        f_new, tots = d2q9_kstep.run_plain(f, mask, num_steps=num_steps, k_steps=k_steps,
-                                           mode=mode, kernel="B1", **kw)
-        f.copy_(f_new)
-        return f, tots
-    if num_steps % k_steps:
-        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    tots = d2q9_kstep.sums(f, num_steps)
+        return passes.run_plain(d2q9_kstep.stepk_plain, f, mask, num_steps=num_steps,
+                                k_steps=k_steps, kernel="B1", in_place=True, mode=mode, **kw)
     mask_u8 = d2q9_kstep.obstacle_u8(mask)
     tile, ntiles, scalars = d2q9_kstep.kernel_args(f, mask_u8, k_steps=k_steps, tile=tile,
                                                    mode=mode, **kw)
     snaps = (_snapshot(f, tile, k_steps), _snapshot(f, tile, k_steps))
     path = d2q9_kstep.launch_path(f, tile, k_steps, True, *snaps[0], *snaps[1])
     partials = d2q9_kstep.sums(f, k_steps * ntiles)
-    for i in profiling.passes(num_steps // k_steps, "B1", path, k_steps):
-        _launch(f, mask_u8, snaps[i % 2], i == 0, snaps[(i + 1) % 2], partials,
-                tots[i * k_steps:(i + 1) * k_steps], path, scalars)
-        if profiling.NAN_DEBUG:
-            profiling.check_nans(f, (i + 1) * k_steps, "kernel B1 (d2q9_kstep_inplace)", k_steps)
-    return f, tots
+
+    def launch_pass(i, f, tot):
+        _launch(f, mask_u8, snaps[i % 2], i == 0, snaps[(i + 1) % 2], partials, tot, path,
+                scalars)
+        return f
+
+    return passes.run(f, num_steps=num_steps, k_steps=k_steps, kernel="B1", path=path,
+                      launch_pass=launch_pass, what="kernel B1 (d2q9_kstep_inplace)")
 
 
 def snapshot_plain(f: torch.Tensor, tile, k_steps: int):

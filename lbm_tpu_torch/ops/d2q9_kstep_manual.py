@@ -29,8 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..core.params import Params
-from ..utils import profiling
-from . import d2q9_kstep
+from . import d2q9_kstep, passes
 
 # Launches of kernel B3 (one per K-step pass); callers may reset it.
 launches = 0
@@ -228,22 +227,19 @@ def run(
     lattices. Returns (f_final, tot_u (num_steps,)); f is unchanged."""
     kw = dict(omega=omega, accel_w1=accel_w1, accel_w2=accel_w2, accel_row=accel_row)
     if f.device.type == "cpu":
-        return d2q9_kstep.run_plain(f, mask, num_steps=num_steps, k_steps=k_steps, mode=mode,
-                                    kernel="B3", **kw)
-    if num_steps % k_steps:
-        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
-    tots = d2q9_kstep.sums(f, num_steps)
+        return passes.run_plain(stepk_plain, f, mask, num_steps=num_steps, k_steps=k_steps,
+                                kernel="B3", mode=mode, **kw)
     mask_u8, tile, ntiles, scalars = _args(f, mask, k_steps=k_steps, tile=tile, mode=mode, **kw)
     bufs = (torch.empty_like(f), torch.empty_like(f))
     path = _path(f, tile, k_steps, *bufs)
     partials = d2q9_kstep.sums(f, k_steps * ntiles)
-    for i in profiling.passes(num_steps // k_steps, "B3", path, k_steps):
-        out = bufs[i % 2]
-        _launch(f, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps], path, scalars)
-        f = out
-        if profiling.NAN_DEBUG:
-            profiling.check_nans(f, (i + 1) * k_steps, "kernel B3 (d2q9_kstep_manual)", k_steps)
-    return f, tots
+
+    def launch_pass(i, f, tot):
+        _launch(f, mask_u8, bufs[i % 2], partials, tot, path, scalars)
+        return bufs[i % 2]
+
+    return passes.run(f, num_steps=num_steps, k_steps=k_steps, kernel="B3", path=path,
+                      launch_pass=launch_pass, what="kernel B3 (d2q9_kstep_manual)")
 
 
 def simulate(params: Params, f: torch.Tensor, obstacle_mask: torch.Tensor):

@@ -237,16 +237,19 @@ def default_obstacle_mask(nz: int, ny: int, nx: int) -> np.ndarray:
     return mask
 
 
-def resolve_engine(engine: str, nz: int, ny: int, nx: int, step_counts, *,
-                   k_steps: int | None = None, dtype=torch.float32, device=None):
-    """The kernel, its K and its tile for a run of a kernel engine. Returns
-    (run function, kind, k_steps, keyword arguments of run):
-      'cuda'                  two-stream: kernel B6 (kind 'slab', one launch per
-                              step) or B7 (kind 'blocked', K steps per trip), as
-                              `d3q19_kstep_blocked.pick_engine` names it;
-      'cuda-inplace'          in place: B4 ('slab') or B5 ('blocked'), as
-                              `d3q19_kstep_inplace_blocked.pick_engine` does;
-      'cuda-blocked', 'cuda-inplace-blocked'   B7 and B5 whatever the rule says.
+def resolve_engine(engine: str, step_counts, *, k_steps: int | None = None):
+    """The kernel of a kernel engine and its K, the one route from a 3-D
+    engine name to a kernel. Returns (run function, kind, k_steps, keyword
+    arguments of run):
+      'cuda'                  two-stream: kernel B6 (`d3q19_kstep`), kind 'slab';
+      'cuda-inplace'          in place: B4 (`d3q19_kstep_inplace`), kind 'slab';
+      'cuda-blocked'          B7 (`d3q19_kstep_blocked`), kind 'blocked';
+      'cuda-inplace-blocked'  B5 (`d3q19_kstep_inplace_blocked`), kind 'blocked'.
+    The slab kind runs at `d3q19_kstep.choose_k`'s K, the blocked at
+    `d3q19_kstep_blocked.choose_k`'s and at the tile its launch chooses. A
+    blocked kernel runs only when named: it was the slower at every K in both
+    types (experiments/cuda-kstep-tiles/results3d_blocked.csv, PERF.md), and
+    the one-step kernels take any shape, where the TPU's did not.
     `step_counts` are the counts K must divide (the total, and the chunk of a
     checkpointed run). k_steps=None picks the kind's preferred K among those;
     an explicit k_steps is honoured exactly or raises."""
@@ -254,30 +257,21 @@ def resolve_engine(engine: str, nz: int, ny: int, nx: int, step_counts, *,
         from . import (d3q19_kstep, d3q19_kstep_blocked, d3q19_kstep_inplace,
                        d3q19_kstep_inplace_blocked)
 
-        families = {"cuda": (d3q19_kstep, d3q19_kstep_blocked),
-                    "cuda-inplace": (d3q19_kstep_inplace, d3q19_kstep_inplace_blocked)}
-        forced = engine.endswith("-blocked")
-        family = engine[:-len("-blocked")] if forced else engine
-        if family not in families:
+        kernels = {"cuda": d3q19_kstep, "cuda-inplace": d3q19_kstep_inplace,
+                   "cuda-blocked": d3q19_kstep_blocked,
+                   "cuda-inplace-blocked": d3q19_kstep_inplace_blocked}
+        if engine not in kernels:
             raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
-        slab, blocked = families[family]
         if k_steps is not None and (not 1 <= k_steps <= d3q19_kstep.MAX_K
                                     or any(n % k_steps for n in step_counts)):
             raise ValueError(
                 f"k_steps={k_steps} has no feasible kernel configuration for step counts "
                 f"{tuple(step_counts)} (it must lie in 1..{d3q19_kstep.MAX_K} and divide "
                 "them); pass k_steps=None to pick one")
-        if forced:
-            kind, tile = "blocked", None
-            k_steps = k_steps or d3q19_kstep_blocked.choose_k(*step_counts)
-        elif k_steps is None:
-            kind, tile, k_steps = d3q19_kstep_blocked.kind_and_k(
-                blocked.pick_engine, nz, ny, nx, step_counts, dtype, device)
-        else:
-            kind, tile = blocked.pick_engine(nz, ny, nx, k_steps, dtype, device)
-        if kind == "blocked":
-            return blocked.run, kind, k_steps, dict(tile=tile)
-        return slab.run, kind, k_steps, {}
+        if engine.endswith("-blocked"):
+            return (kernels[engine].run, "blocked",
+                    k_steps or d3q19_kstep_blocked.choose_k(*step_counts), dict(tile=None))
+        return kernels[engine].run, "slab", k_steps or d3q19_kstep.choose_k(*step_counts), {}
 
 
 def initial_state(nz: int, ny: int, nx: int, *, density: float = 0.1, obstacle_mask=None,
@@ -318,8 +312,7 @@ def advance(
         f_final, tot = run(f, mask, amask, num_steps=num_steps, omega=omega,
                            density=density, accel=accel)
     else:
-        run_fn, _, k_steps, extra = resolve_engine(
-            engine, nz, ny, nx, (num_steps,), k_steps=k_steps, dtype=f.dtype, device=f.device)
+        run_fn, _, k_steps, extra = resolve_engine(engine, (num_steps,), k_steps=k_steps)
         f_final, tot = run_fn(f, mask, num_steps=num_steps, k_steps=k_steps,
                               omega=omega, density=density, accel=accel,
                               accel_plane=nz - 2, **extra)

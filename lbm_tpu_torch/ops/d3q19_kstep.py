@@ -60,8 +60,7 @@ import dataclasses
 
 import torch
 
-from ..utils import profiling
-from . import d3q19
+from . import d3q19, passes
 from .d2q9_kstep import (DTYPES, TYPE_SUFFIX, check_rc, compute_dtype, obstacle_bool,
                          obstacle_u8, sums)
 from .d3q19_lattice import W
@@ -103,7 +102,7 @@ WAVE_CHUNK = 2
 # WAVE_CHUNK, `wave_lag` and the card's resident blocks.
 _plan_override: dict = {}
 # ms a pass of B6 and B4 on each path by K = 1..4, float32, float64 and
-# bfloat16, at 32x256x256 (the grid of d3q19_kstep_blocked.MS_PER_PASS),
+# bfloat16, at 32x256x256 (the grid of the blocked kernels' sweep),
 # measured on an NVIDIA H100 80GB HBM3 (700 W) by experiments/cuda-kstep-tiles/
 # sweep3d_blocked.py --slab (results3d_slab.csv, the median of 5 timings):
 # `choose_path` takes the faster where the shape allows both. The wave path
@@ -665,8 +664,6 @@ def run(
     check_mode(mode)
     qmajor_view(f)
     layout = pass_layout(layout)
-    if num_steps % k_steps:
-        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     zmajor = layout == "zmajor"
     f_final, tots = _run(f.transpose(0, 1).contiguous() if zmajor else f, mask,
                          num_steps=num_steps, k_steps=k_steps, block=block, mode=mode, path=path,
@@ -684,12 +681,9 @@ def pass_layout(layout: str) -> str:
 
 def _run(f, mask, *, num_steps, k_steps, block, mode, path, layout, **kw):
     """`run`'s passes on f in `layout` ("qmajor" or "zmajor")."""
-    tots = sums(f, num_steps)
     if f.device.type == "cpu":
-        for i in profiling.passes(num_steps // k_steps, "B6", "plain", k_steps):
-            f, tots[i * k_steps:(i + 1) * k_steps] = stepk_plain(f, mask, k_steps=k_steps,
-                                                                mode=mode, layout=layout, **kw)
-        return f, tots
+        return passes.run_plain(stepk_plain, f, mask, num_steps=num_steps, k_steps=k_steps,
+                                kernel="B6", mode=mode, layout=layout, **kw)
     mask_u8 = obstacle_u8(mask)
     block, nblocks, scalars = kernel_args(f, mask_u8, k_steps=k_steps, block=block,
                                           layout=layout, **kw)
@@ -702,45 +696,48 @@ def _run(f, mask, *, num_steps, k_steps, block, mode, path, layout, **kw):
         # first step reads its input and only its last writes its output, so
         # the passes after the first step in place; K = 1 alternates two
         scratch = rounding_scratch(f, k_steps)
-        cur, spare = f, None  # K = 1: the lattice the next pass may write
-        for i in profiling.passes(num_steps // k_steps, "B6", path, k_steps):
+        spare = None  # K = 1: the lattice the next pass may write
+
+        def launch_pass(i, cur, tot):
+            nonlocal spare
             if k_steps > 1:
                 out = torch.empty_like(f) if i == 0 else cur
             else:
                 out = spare if spare is not None else torch.empty_like(f)
                 spare = cur if cur is not f else None
-            _launch(cur, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps],
-                    scratch=scratch, **common)
-            cur = out
-        return cur, tots
-    if path == "wave":
+            _launch(cur, mask_u8, out, partials, tot, scratch=scratch, **common)
+            return out
+    elif path == "wave":
         plan = wave_plan(q, k_steps, inplace=False, mode=mode, block=block)
-        out = torch.empty_like(f)
-        other = torch.empty_like(f) if k_steps % 2 else None
-        cur = f
-        for i in profiling.passes(num_steps // k_steps, "B6", path, k_steps):
-            # an even K: the first pass leaves the caller's f alone, the
-            # later ones write their own input; an odd K, whose first stage
-            # reads its input after others have written out, alternates two
-            _launch(cur, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps],
-                    plan=plan, **common)
-            cur = out
-            if other is not None:
-                out, other = other, out
-        return cur, tots
-    cur, other = f, None
-    for i in profiling.passes(num_steps // k_steps, "B6", path, k_steps):
-        # Step j of a pass writes `out` when K - j is even and `scratch`
-        # otherwise, and only the first step reads the pass's input. So after
-        # the first pass, which must leave the caller's f alone, two lattices
-        # do: an even K ends where it began, an odd K in the other one.
-        if i == 0:
-            out, scratch = torch.empty_like(f), torch.empty_like(f)
-        elif k_steps % 2 == 0:
-            out, scratch = cur, other
-        else:
-            out, scratch = other, cur
-        _launch(cur, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps],
-                scratch=scratch if k_steps > 1 else None, **common)
-        cur, other = out, scratch
-    return cur, tots
+        # an even K: the first pass leaves the caller's f alone, the later
+        # ones write their own input; an odd K, whose first stage reads its
+        # input after others have written out, alternates two
+        outs = (torch.empty_like(f), torch.empty_like(f) if k_steps % 2 else None)
+
+        def launch_pass(i, cur, tot):
+            out = outs[i % 2] if k_steps % 2 else outs[0]
+            _launch(cur, mask_u8, out, partials, tot, plan=plan, **common)
+            return out
+    else:
+        other = None  # the lattice the last pass did not end in
+
+        def launch_pass(i, cur, tot):
+            # Step j of a pass writes `out` when K - j is even and `scratch`
+            # otherwise, and only the first step reads the pass's input. So
+            # after the first pass, which must leave the caller's f alone,
+            # two lattices do: an even K ends where it began, an odd K in the
+            # other one.
+            nonlocal other
+            if i == 0:
+                out, scratch = torch.empty_like(f), torch.empty_like(f)
+            elif k_steps % 2 == 0:
+                out, scratch = cur, other
+            else:
+                out, scratch = other, cur
+            _launch(cur, mask_u8, out, partials, tot, scratch=scratch if k_steps > 1 else None,
+                    **common)
+            other = scratch
+            return out
+
+    return passes.run(f, num_steps=num_steps, k_steps=k_steps, kernel="B6", path=path,
+                      launch_pass=launch_pass, what="kernel B6 (d3q19_kstep)")

@@ -36,16 +36,15 @@ shape); on a CPU tensor `stepk_plain` runs. There is no other route.
 
 A bfloat16 state takes the thread path: its tile sits in shared memory as
 float32, steps in float32 and is rounded once, at the last step's store. Its
-tiles are the float32 thread path's bests (THREAD_TILES), and MS_PER_PASS's
-float32 rows stand for it in `pick_engine`: bfloat16 was not swept.
+tiles are the float32 thread path's bests (THREAD_TILES): bfloat16 was not
+swept.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils import profiling
-from . import d3q19_kstep
+from . import d3q19_kstep, passes
 from .d2q9_kstep import check_mode, check_rc, compute_dtype, obstacle_u8
 from .d3q19_kstep import MAX_K
 
@@ -70,33 +69,10 @@ MAX_THREADS = {torch.float32: 512, torch.float64: 256, torch.bfloat16: 512}
 # Tile extents that `choose_config` tries where no measured tile applies.
 TILE_X = (8, 16, 32, 64)
 TILE_YZ_MAX = 16
-# Measured on an NVIDIA H100 80GB HBM3 (700 W) at 32x256x256 over 967 (tile,
-# threads, K, type) cases, each tile on the path `choose_path` gives it
-# (experiments/cuda-kstep-tiles/results3d_blocked.csv), ms per pass of
-# K steps at the best tile and thread count, K = 1..4:
-#   float32  B6 0.1249 0.2399 0.3596 0.4751   B7 0.1556 0.3133 0.7225 1.8110
-#            B4 0.3123 0.2401 0.5412 0.4772   B5 0.3797 0.6045 1.1627 2.8655
-#   float64  B6 0.2320 0.4522 0.6754 0.8961   B7 0.2675 0.5218 1.9574 16.7192
-#            B4 0.5012 0.4558 0.9443 0.9055   B5 0.6358 0.9487 2.5843 18.2862
-# (B5 among the tiles whose ring and snapshot take at most 14 of the 32
-# planes; B4 and B6 on their step path, a launch a step). Every best tile
-# takes the box path. One trip of K steps is slower than K one-step launches
-# at every K: a tile with its halo computes 2 to 15 cell-steps per cell-step
-# kept, in shared memory and with one or two blocks an SM, and that costs
-# more than the trips through device memory it saves. The b6 and b4 rows
-# below are d3q19_kstep.PATH_MS, each K on the path `d3q19_kstep.choose_path`
-# gives it (mostly the wave path, one launch a pass: f32 B6 0.1207 0.2015
-# 0.3086 0.4051, B4 0.2985 0.1997 0.5300 0.4031).
-MS_PER_PASS = {
-    torch.float32: {"b6": d3q19_kstep.pass_ms(torch.float32, "b6"),
-                    "b7": (0.1556, 0.3133, 0.7225, 1.8110),
-                    "b4": d3q19_kstep.pass_ms(torch.float32, "b4"),
-                    "b5": (0.3797, 0.6045, 1.1627, 2.8655)},
-    torch.float64: {"b6": d3q19_kstep.pass_ms(torch.float64, "b6"),
-                    "b7": (0.2675, 0.5218, 1.9574, 16.7192),
-                    "b4": d3q19_kstep.pass_ms(torch.float64, "b4"),
-                    "b5": (0.6358, 0.9487, 2.5843, 18.2862)},
-}
+# The sweep of experiments/cuda-kstep-tiles/results3d_blocked.csv (NVIDIA H100
+# 80GB HBM3, 700 W, 32x256x256, 967 (tile, threads, K, type) cases, each tile
+# on the path `choose_path` gives it) found B7 and B5 slower than B6 and B4 at
+# every K in both types, so they run only when named (`ops.d3q19.resolve_engine`).
 # The fastest tiles of that sweep by (type, K), B7's first, then B5's under
 # its scratch limit, and the thread count each ran at where it is not
 # MAX_THREADS: on the box path 256 threads leave room for two blocks an SM
@@ -305,39 +281,6 @@ def choose_k(*step_counts: int) -> int:
     return next(k for k in range(PREFERRED_K, 0, -1) if all(n % k == 0 for n in step_counts))
 
 
-def faster_kind(dtype, slab: str, blocked: str, k_steps: int) -> str:
-    """'slab' or 'blocked': the kernel with the lower MS_PER_PASS at this K."""
-    ms = MS_PER_PASS[compute_dtype(dtype)]
-    return "blocked" if ms[blocked][k_steps - 1] < ms[slab][k_steps - 1] else "slab"
-
-
-def pick_engine(nz: int, ny: int, nx: int, k_steps: int = PREFERRED_K,
-                dtype=torch.float32, device=None):
-    """('slab', None) or ('blocked', tile) for the two-stream engine 'cuda':
-    kernel B6 (one launch per step) or B7 (K steps per trip), whichever was
-    the faster on the card at this K and type (MS_PER_PASS). Both were
-    measured at 32x256x256 and both take time in proportion to the cells, so
-    the shape does not enter: as measured, B6 at every K."""
-    if faster_kind(dtype, "b6", "b7", k_steps) == "slab":
-        return "slab", None
-    return "blocked", choose_config(nz, ny, nx, k_steps, dtype, device)
-
-
-def kind_and_k(pick, nz: int, ny: int, nx: int, step_counts, dtype=torch.float32, device=None):
-    """('slab' | 'blocked', tile or None, k) for a run of an engine whose
-    `pick_engine` is `pick`: the one-step kernels' preferred K
-    (`d3q19_kstep.choose_k`) and the kind picked there; where that is the
-    blocked kind, the blocked kernels' preferred K and the kind picked at it.
-    Each K divides every one of `step_counts` (the total, and the chunk of a
-    checkpointed run)."""
-    k = d3q19_kstep.choose_k(*step_counts)
-    kind, tile = pick(nz, ny, nx, k, dtype, device)
-    if kind == "blocked":
-        k = choose_k(*step_counts)
-        kind, tile = pick(nz, ny, nx, k, dtype, device)
-    return kind, tile, k
-
-
 def kernel_args(f: torch.Tensor, mask_u8: torch.Tensor, *, k_steps: int,
                 tile: tuple | None = None, threads: int | None = None,
                 max_scratch_planes: int | None = None, **window):
@@ -451,26 +394,26 @@ def run(
     the caller's. Returns (f_final, tot_u (num_steps,)); f is unchanged. A
     `mode` other than "full" is refused; `path` as in `resolve_path`."""
     refuse_mode(mode)
-    if num_steps % k_steps:
-        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
-    tots = d3q19_kstep.sums(f, num_steps)
     if f.device.type == "cpu":
-        for i in profiling.passes(num_steps // k_steps, "B7", "plain", k_steps):
-            f, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
-                f, mask, k_steps=k_steps, **kw)
-        return f, tots
+        return passes.run_plain(d3q19_kstep.stepk_plain, f, mask, num_steps=num_steps,
+                                k_steps=k_steps, kernel="B7", **kw)
     mask_u8 = obstacle_u8(mask)
     tile, ntiles, scalars = kernel_args(f, mask_u8, k_steps=k_steps, tile=tile,
                                         threads=threads, **kw)
     partials = d3q19_kstep.sums(f, k_steps * ntiles)
-    cur, other = f, None
-    # a trace names the loop by its first pass's path, resolved only then
-    for i in profiling.passes(num_steps // k_steps, "B7",
-                              lambda: resolve_path(path, f, tile, k_steps), k_steps):
+    other = None
+
+    def launch_pass(i, cur, tot):
         # the first pass leaves the caller's f alone; later ones swap two lattices
+        nonlocal other
         out = torch.empty_like(f) if i < 2 else other
-        _launch(cur, mask_u8, out, partials, tots[i * k_steps:(i + 1) * k_steps],
-                resolve_path(path, cur, tile, k_steps), scalars)
-        cur, other = out, (cur if i else None)
-    return cur, tots
+        _launch(cur, mask_u8, out, partials, tot, resolve_path(path, cur, tile, k_steps),
+                scalars)
+        other = cur if i else None
+        return out
+
+    # a trace names the loop by its first pass's path, resolved only then
+    return passes.run(f, num_steps=num_steps, k_steps=k_steps, kernel="B7",
+                      path=lambda: resolve_path(path, f, tile, k_steps),
+                      launch_pass=launch_pass, what="kernel B7 (d3q19_kstep_blocked)")

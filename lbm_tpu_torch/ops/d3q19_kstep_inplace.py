@@ -4,10 +4,8 @@ B4, the production 3-D engine.
 The counterpart of `lbm_tpu.ops.d3q19_pallas_inplace` (kernel `_kernel`,
 `stepk`, `run`), with the contract of `d3q19_kstep` except that the state is
 advanced IN PLACE: `stepk` and `run` overwrite `f` and return it, and no
-second lattice is allocated. The choice between this kernel (the 'slab' kind)
-and the blocked in-place kernel B5, `pick_engine` and `choose_k` of the
-reference's `d3q19_pallas_inplace_blocked`, is in
-`d3q19_kstep_inplace_blocked`; `choose_k` here is this kernel's own K.
+second lattice is allocated. The engine 'cuda-inplace' is this kernel
+(`ops.d3q19.resolve_engine`); `choose_k` here is its K.
 
 The TPU kernel is safe in place because its slabs run in order (delayed
 write-back, wraparound snapshot). On the card blocks run in no order, so the
@@ -30,8 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import profiling
-from . import d3q19_kstep
+from . import d3q19_kstep, passes
 from .d2q9_kstep import check_rc, obstacle_u8
 from .d3q19_kstep import choose_k  # noqa: F401  (the in-place engine's own K)
 
@@ -118,17 +115,15 @@ def run(
 ):
     """`num_steps` timesteps, `k_steps` per in-place pass. Overwrites f;
     returns (f, tot_u (num_steps,)). `path` as in `d3q19_kstep.stepk`."""
-    if num_steps % k_steps:
-        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
-    tots = d3q19_kstep.sums(f, num_steps)
     if f.device.type == "cpu":
-        for i in profiling.passes(num_steps // k_steps, "B4", "plain", k_steps):
-            f_new, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
-                f, mask, k_steps=k_steps, **kw)
-            f.copy_(f_new)
-        return f, tots
+        return passes.run_plain(d3q19_kstep.stepk_plain, f, mask, num_steps=num_steps,
+                                k_steps=k_steps, kernel="B4", in_place=True, **kw)
     mask_u8, partials, launch = _setup(f, mask, k_steps, block, path, **kw)
-    for i in profiling.passes(num_steps // k_steps, "B4", launch["path"], k_steps):
-        _launch(f, mask_u8, partials, tots[i * k_steps:(i + 1) * k_steps], **launch)
-    return f, tots
+
+    def launch_pass(i, f, tot):
+        _launch(f, mask_u8, partials, tot, **launch)
+        return f
+
+    return passes.run(f, num_steps=num_steps, k_steps=k_steps, kernel="B4", path=launch["path"],
+                      launch_pass=launch_pass, what="kernel B4 (d3q19_kstep_inplace)")

@@ -1,10 +1,10 @@
 """K D3Q19 steps of every tile in one trip, written back in place: the wrapper
-of CUDA kernel B5, and the choice between the two in-place 3-D kernels.
+of CUDA kernel B5.
 
 The counterpart of `lbm_tpu.ops.d3q19_pallas_inplace_blocked` (kernel
-`_kernel`, `choose_config`, `pick_engine`, `choose_k`, `stepk`, `run`), with
-the contract of `d3q19_kstep_blocked` except that the state is advanced IN
-PLACE: `stepk` and `run` overwrite `f` and return it.
+`_kernel`, `choose_config`, `stepk`, `run`), with the contract of
+`d3q19_kstep_blocked` except that the state is advanced IN PLACE: `stepk`
+and `run` overwrite `f` and return it.
 
 Blocks run in no order on the card, so the z-rows of tiles go in order as
 stream-ordered launches of B7's kernel, each writing to a ring of
@@ -27,17 +27,17 @@ unchanged, through the same load, store and ring; Sum|u| zeros, where the
 TPU kernel adds a token). `d3q19_kstep.stepk_plain(mode=)` is their plain
 version.
 
-`pick_engine` and `choose_k` choose for the engine 'cuda-inplace' between this
-kernel and the one-step kernel B4 (`d3q19_kstep_inplace`, the 'slab' kind, after
-the TPU's z-slab kernel that it replaces), by what was measured on the card.
+The reference's `pick_engine` and `choose_k`, which choose between this kernel
+and its z-slab kernel, have no counterpart here: B5 runs only when named
+(engine 'cuda-inplace-blocked', `ops.d3q19.resolve_engine`), and
+'cuda-inplace' is the one-step kernel B4 (`d3q19_kstep_inplace`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils import profiling
-from . import d3q19_kstep, d3q19_kstep_blocked
+from . import d3q19_kstep, d3q19_kstep_blocked, passes
 from .d2q9_kstep import check_mode, check_rc, obstacle_u8
 from .d3q19_kstep_blocked import PATHS, PREFERRED_K, scratch_planes  # noqa: F401  (B5's own)
 
@@ -64,26 +64,6 @@ def choose_config(nz: int, ny: int, nx: int, k_steps: int = PREFERRED_K,
     return d3q19_kstep_blocked.choose_config(
         nz, ny, nx, k_steps, dtype, device,
         max_scratch_planes=max_scratch_planes(nz, k_steps))
-
-
-def pick_engine(nz: int, ny: int, nx: int, k_steps: int = PREFERRED_K,
-                dtype=torch.float32, device=None):
-    """('slab', None) or ('blocked', tile) for the in-place engine
-    'cuda-inplace': kernel B4 (one launch per step) or B5 (K steps per trip),
-    whichever was the faster on the card at this K and type
-    (`d3q19_kstep_blocked.MS_PER_PASS`, measured at 32x256x256; both take time
-    in proportion to the cells): as measured, B4 at every K."""
-    if d3q19_kstep_blocked.faster_kind(dtype, "b4", "b5", k_steps) == "slab":
-        return "slab", None
-    return "blocked", choose_config(nz, ny, nx, k_steps, dtype, device)
-
-
-def choose_k(nz: int, ny: int, nx: int, *step_counts: int, dtype=torch.float32, device=None):
-    """('slab' | 'blocked', tile or None, k) for a run of the in-place engine:
-    the kind's preferred K when it divides every one of `step_counts` (the
-    total, and the chunk of a checkpointed run), else the largest smaller K
-    that does, and the kind `pick_engine` names at that K."""
-    return d3q19_kstep_blocked.kind_and_k(pick_engine, nz, ny, nx, step_counts, dtype, device)
 
 
 def _scratch(f, tile, k_steps):
@@ -170,23 +150,20 @@ def run(
     Overwrites f; returns (f, tot_u (num_steps,)). `path` as in
     `d3q19_kstep_blocked.resolve_path`."""
     check_mode(mode)
-    if num_steps % k_steps:
-        raise ValueError(f"num_steps {num_steps} not a multiple of k_steps {k_steps}")
     kw = dict(omega=omega, density=density, accel=accel, accel_plane=accel_plane)
-    tots = d3q19_kstep.sums(f, num_steps)
     if f.device.type == "cpu":
-        for i in profiling.passes(num_steps // k_steps, "B5", "plain", k_steps):
-            f_new, tots[i * k_steps:(i + 1) * k_steps] = d3q19_kstep.stepk_plain(
-                f, mask, k_steps=k_steps, mode=mode, **kw)
-            f.copy_(f_new)
-        return f, tots
+        return passes.run_plain(d3q19_kstep.stepk_plain, f, mask, num_steps=num_steps,
+                                k_steps=k_steps, kernel="B5", in_place=True, mode=mode, **kw)
     mask_u8 = obstacle_u8(mask)
     tile, ntiles, scalars = _kernel_args(f, mask_u8, k_steps=k_steps, tile=tile,
                                          threads=threads, **kw)
     ring, snap = _scratch(f, tile, k_steps)
     partials = d3q19_kstep.sums(f, k_steps * ntiles)
     path = d3q19_kstep_blocked.resolve_path(path, f, tile, k_steps)
-    for i in profiling.passes(num_steps // k_steps, "B5", path, k_steps):
-        _launch(f, mask_u8, ring, snap, partials, tots[i * k_steps:(i + 1) * k_steps], mode,
-                path, scalars)
-    return f, tots
+
+    def launch_pass(i, f, tot):
+        _launch(f, mask_u8, ring, snap, partials, tot, mode, path, scalars)
+        return f
+
+    return passes.run(f, num_steps=num_steps, k_steps=k_steps, kernel="B5", path=path,
+                      launch_pass=launch_pass, what="kernel B5 (d3q19_kstep_inplace_blocked)")

@@ -42,8 +42,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Shard
 
-from ..ops import (d3q19, d3q19_kstep, d3q19_kstep_inplace, d3q19_kstep_inplace_blocked,
-                   d3q19_lattice)
+from ..ops import d3q19, d3q19_kstep, d3q19_kstep_inplace, d3q19_lattice
 from . import halo as halo_lib, mesh as mesh_lib
 
 ROW, COL = mesh_lib.ROW_AXIS, mesh_lib.COL_AXIS
@@ -51,21 +50,15 @@ GHOST_Y = 8  # the y ghost band: the reference kernels' 8-row sublane block
 LOCAL_ENGINES = ("inplace", "two-stream")
 
 
-def local_kernel(local_engine: str, shape, k_steps: int, dtype=torch.float32, device=None):
-    """(stepk, its extra keywords) of the local kernel on a ghost-extended
-    block of `shape` (19, nz, ny, nx), decided before any launch.
-    'inplace' (default): B4 (`d3q19_kstep_inplace`), or B5
-    (`d3q19_kstep_inplace_blocked`) where its `pick_engine` names the blocked
-    kind for the block, which as measured it never does; 'two-stream': B6
-    (`d3q19_kstep`), the same arithmetic out of place (the oracle)."""
-    if local_engine == "two-stream":
-        return d3q19_kstep.stepk, {}
-    if local_engine != "inplace":
+def local_kernel(local_engine: str):
+    """The stepk of the local kernel, the same for every block (the kernels
+    take any shape): 'inplace' (default) B4 (`d3q19_kstep_inplace`),
+    'two-stream' B6 (`d3q19_kstep`), the same arithmetic out of place (the
+    oracle)."""
+    kernels = {"inplace": d3q19_kstep_inplace.stepk, "two-stream": d3q19_kstep.stepk}
+    if local_engine not in kernels:
         raise ValueError(f"local_engine must be one of {LOCAL_ENGINES}, got {local_engine!r}")
-    kind, tile = d3q19_kstep_inplace_blocked.pick_engine(*shape[1:], k_steps, dtype, device)
-    if kind == "slab":
-        return d3q19_kstep_inplace.stepk, {}
-    return d3q19_kstep_inplace_blocked.stepk, {"tile": tile}
+    return kernels[local_engine]
 
 
 def make_z_mesh(n_devices: int | None = None) -> DeviceMesh:
@@ -185,10 +178,9 @@ class _Chunk:
         self.kw = dict(k_steps=k_steps, omega=omega, density=density, accel=accel,
                        accel_plane=accel_plane, global_nz=nz)
 
-    def kernel(self, buf):
-        """The local kernel of a block like buf, with its keywords."""
-        stepk, extra = local_kernel(self.local_engine, buf.shape, self.g, buf.dtype, buf.device)
-        return stepk, {**extra, **self.kw}
+    def kernel(self):
+        """The local kernel, with its keywords."""
+        return local_kernel(self.local_engine), dict(self.kw)
 
     def shift_into(self, dst, x, axis, direction):
         halo_lib.shift_into(dst, x, self.mesh, axis, direction)
@@ -218,7 +210,7 @@ class _Fused(_Chunk):
         self.buf = f_loc.new_empty((19, h + 2 * g, ny, nx))
         self.buf[:, g:g + h] = f_loc
         self.mask = mask_ext_loc
-        self.stepk, self.kwargs = self.kernel(self.buf)
+        self.stepk, self.kwargs = self.kernel()
         self.kwargs.update(plane_offset=self.z0 - g, valid_planes=(g, g + self.vh))
 
     def own(self):
@@ -256,9 +248,9 @@ class _Overlap(_Chunk):
         self.nb = f_loc.new_empty((19, 3 * g, ny, nx))
         self.masks = (m[g:g + h], m[:3 * g], m[h - g:h + 2 * g])
         self.t = d3q19_kstep.sums(f_loc, 2 * g).view(2, g)
-        self.interior_kernel, kw = self.kernel(self.buf)
+        self.interior_kernel, kw = self.kernel()
         self.interior_kw = dict(kw, plane_offset=self.z0, valid_planes=(g, h - g))
-        self.strip_kernel, kw = self.kernel(self.sb)
+        self.strip_kernel, kw = self.kernel()
         edge = dict(kw, valid_planes=(g, 2 * g))
         self.strip_kw = (dict(edge, plane_offset=self.z0 - g),
                          dict(edge, plane_offset=self.z0 + h - 2 * g))
@@ -315,7 +307,7 @@ class _ZY(_Chunk):
         self.buf = f_loc.new_empty((19, hz + 2 * g, hy + 2 * gy, nx))
         self.buf[:, g:g + hz, gy:gy + hy] = f_loc
         self.mask = mask_ext_loc
-        self.stepk, self.kwargs = self.kernel(self.buf)
+        self.stepk, self.kwargs = self.kernel()
         self.kwargs.update(plane_offset=self.z0 - g, valid_planes=(g, g + self.vh),
                            valid_rows=(gy, gy + self.vhy))
 

@@ -29,7 +29,9 @@ from lbm_tpu.ops import d3q19_pallas
 from lbm_tpu.ops import d3q19_pallas_inplace_blocked as jblk
 from lbm_tpu_torch.core import state
 from lbm_tpu_torch.ops import (d3q19, d3q19_kstep, d3q19_kstep_blocked as b7,
-                               d3q19_kstep_inplace_blocked as b5, d3q19_lattice)
+                               d3q19_kstep_inplace, d3q19_kstep_inplace_blocked as b5,
+                               d3q19_lattice)
+from lbm_tpu_torch.parallel import kstep_sharded_3d as ks3
 
 KW = dict(omega=1.85, density=0.1, accel=0.005)
 # each port function and the JAX Pallas function it is held against
@@ -192,14 +194,19 @@ def test_choose_config_follows_the_grid_and_the_device(monkeypatch):
     assert sum(b7.scratch_planes(tile, 2, 8)) <= 10
 
 
-@pytest.mark.parametrize("shape", [(32, 256, 256), (64, 128, 256)])
-@pytest.mark.parametrize("k", [1, 2, 3])
-def test_pick_engine_names_the_measured_kind(shape, k):
-    """The card's own rule (`d3q19_kstep_blocked.MS_PER_PASS`): at both shapes
-    and every K the one-step kernels were the faster, so both families take
-    the slab kind."""
-    assert b7.pick_engine(*shape, k) == ("slab", None)
-    assert b5.pick_engine(*shape, k) == ("slab", None)
+@pytest.mark.parametrize("step_counts", [(1200,), (600, 300), (100,), (7,), (9, 3), (6000,)])
+def test_the_engine_names_route_to_the_one_step_kernels(step_counts):
+    """The one route from a 3-D engine name to a kernel: 'cuda' is B6 and
+    'cuda-inplace' B4, both at the one-step kernels' K, and the sharded
+    engines' local kernel 'inplace' is B4, whatever the run (the blocked
+    sweep found B7 and B5 the slower at every K, so they run only when
+    named)."""
+    k = d3q19_kstep.choose_k(*step_counts)
+    assert d3q19.resolve_engine("cuda", step_counts) == (d3q19_kstep.run, "slab", k, {})
+    assert (d3q19.resolve_engine("cuda-inplace", step_counts)
+            == (d3q19_kstep_inplace.run, "slab", k, {}))
+    assert ks3.local_kernel("inplace") is d3q19_kstep_inplace.stepk
+    assert ks3.local_kernel("two-stream") is d3q19_kstep.stepk
 
 
 @pytest.mark.parametrize("step_counts, k, k_blocked", [((1200,), 4, 2), ((600, 300), 4, 2),
@@ -208,8 +215,10 @@ def test_pick_engine_names_the_measured_kind(shape, k):
 def test_choose_k_gates_k_by_the_step_counts(step_counts, k, k_blocked):
     """The slab kind runs at the one-step kernels' K (`d3q19_kstep.choose_k`:
     K = 4 preferred since their wave path), the blocked pair at its own."""
-    assert b5.choose_k(32, 256, 256, *step_counts) == ("slab", None, k)
-    assert b5.choose_k(64, 128, 256, *step_counts) == ("slab", None, k)
+    assert d3q19.resolve_engine("cuda-inplace", step_counts)[1:3] == ("slab", k)
+    assert d3q19.resolve_engine("cuda", step_counts)[1:3] == ("slab", k)
+    assert d3q19.resolve_engine("cuda-inplace-blocked", step_counts)[1:3] == ("blocked",
+                                                                             k_blocked)
     assert d3q19_kstep.choose_k(*step_counts) == k
     assert b7.choose_k(*step_counts) == k_blocked
     assert all(n % k == 0 and n % k_blocked == 0 for n in step_counts)
@@ -218,15 +227,15 @@ def test_choose_k_gates_k_by_the_step_counts(step_counts, k, k_blocked):
 
 @pytest.mark.parametrize("engine, mod", [("cuda-blocked", b7), ("cuda-inplace-blocked", b5)])
 def test_resolve_engine_forces_the_blocked_pair(engine, mod):
-    run_fn, kind, k, extra = d3q19.resolve_engine(engine, 32, 256, 256, (1200, 300))
+    run_fn, kind, k, extra = d3q19.resolve_engine(engine, (1200, 300))
     assert run_fn is mod.run and kind == "blocked" and k == b7.choose_k(1200, 300)
     assert extra == dict(tile=None)
-    assert d3q19.resolve_engine(engine, 32, 256, 256, (9,), k_steps=3)[2] == 3
+    assert d3q19.resolve_engine(engine, (9,), k_steps=3)[2] == 3
     with pytest.raises(ValueError, match="no feasible kernel configuration"):
-        d3q19.resolve_engine(engine, 32, 256, 256, (10,), k_steps=3)
+        d3q19.resolve_engine(engine, (10,), k_steps=3)
     with pytest.raises(ValueError, match="unknown engine"):
-        d3q19.resolve_engine("pallas-blocked", 32, 256, 256, (10,))
-    family = d3q19.resolve_engine(engine[:-len("-blocked")], 32, 256, 256, (1200,))
+        d3q19.resolve_engine("pallas-blocked", (10,))
+    family = d3q19.resolve_engine(engine[:-len("-blocked")], (1200,))
     assert family[1] == "slab" and family[2] == d3q19_kstep.choose_k(1200)
 
 

@@ -37,8 +37,7 @@ import torch
 
 from lbm_tpu.ops import d3q19 as jd3q19
 from lbm_tpu.parallel import pallas_sharded_3d as jps3
-from lbm_tpu_torch.ops import (d3q19, d3q19_kstep, d3q19_kstep_blocked, d3q19_kstep_inplace,
-                               d3q19_kstep_inplace_blocked)
+from lbm_tpu_torch.ops import d3q19, d3q19_kstep, d3q19_kstep_inplace
 from lbm_tpu_torch.parallel import kstep_sharded_3d as ks3
 from lbm_tpu_torch.parallel import launch
 
@@ -240,40 +239,45 @@ def test_choose_k_takes_the_preferred_k_the_plan_admits():
     assert ks3.choose_k(3, 4, 8) == 1
 
 
+class Mesh:  # what the chunks read of a mesh before any exchange
+    def __init__(self, *shape):
+        self.shape = shape
+        self.mesh_dim_names = ("ry", "rx")[:len(shape)]
+
+    def size(self, dim):
+        return self.shape[dim]
+
+    def get_coordinate(self):
+        return [0] * len(self.shape)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_the_local_kernel_is_decided_before_any_launch(dtype, monkeypatch):
-    """'inplace' names B4 wherever `pick_engine` names the slab kind (every
-    K, as measured) and B5 where it names the blocked kind; the two-stream
-    kernel B6 is reached only by asking for it. Nothing is caught: the route
-    does not depend on a launch."""
-    cases = [((19, h + 2 * k, ny, nx), k) for h in (2, 3, 8, 11, 64) for k in (1, 2, 3, 4)
-             for ny, nx in ((16, 128), (144, 256), (5, 7))]
-    for shape, k in cases:
-        assert ks3.local_kernel("inplace", shape, k, dtype) == (d3q19_kstep_inplace.stepk, {})
-        assert ks3.local_kernel("two-stream", shape, k, dtype) == (d3q19_kstep.stepk, {})
-    monkeypatch.setattr(d3q19_kstep_blocked, "faster_kind", lambda *a: "blocked")
-    for shape, k in cases[:8]:
-        fn, extra = ks3.local_kernel("inplace", shape, k, dtype)
-        assert fn is d3q19_kstep_inplace_blocked.stepk and len(extra["tile"]) == 3
-        assert ks3.local_kernel("two-stream", shape, k, dtype) == (d3q19_kstep.stepk, {})
+def test_the_local_kernel_is_decided_before_any_launch(dtype):
+    """'inplace' is B4 and 'two-stream' B6, the same arithmetic out of
+    place, on every block of every chunk: a chunk takes its kernel when it
+    lays out its slab, before any launch, and the kernels take any shape, so
+    nothing is caught and no block falls back to another kernel."""
+    kw = dict(k_steps=2, omega=1.85, density=0.1, accel=0.005, accel_plane=14, nz=16)
+    for local_engine, stepk in (("inplace", d3q19_kstep_inplace.stepk),
+                                ("two-stream", d3q19_kstep.stepk)):
+        assert ks3.local_kernel(local_engine) is stepk
+        for chunk, (hz, hy, nx) in (
+                (ks3.make_chunk_fn(Mesh(1), local_engine=local_engine, **kw), (16, 5, 7)),
+                (ks3.make_overlap_chunk_fn(Mesh(1), local_engine=local_engine, **kw),
+                 (16, 16, 32)),
+                (ks3.make_zy_chunk_fn(Mesh(1, 1), ny=16, local_engine=local_engine, **kw),
+                 (16, 16, 32))):
+            chunk.start(torch.zeros((19, hz, hy, nx), dtype=dtype),
+                        torch.zeros((hz + 4, hy + 2 * ks3.GHOST_Y, nx), dtype=torch.bool))
+            kernels = [getattr(chunk, name) for name in ("stepk", "interior_kernel",
+                                                         "strip_kernel") if hasattr(chunk, name)]
+            assert kernels and all(k is stepk for k in kernels)
     with pytest.raises(ValueError, match="local_engine"):
-        ks3.local_kernel("fallback", cases[0][0], 2, dtype)
+        ks3.local_kernel("fallback")
 
 
 def test_chunks_refuse_what_the_reference_refuses():
     kw = dict(k_steps=2, omega=1.85, density=0.1, accel=0.005, accel_plane=14)
-
-    class Mesh:  # what the checks before any exchange read of a mesh
-        def __init__(self, *shape):
-            self.shape = shape
-            self.mesh_dim_names = ("ry", "rx")[:len(shape)]
-
-        def size(self, dim):
-            return self.shape[dim]
-
-        def get_coordinate(self):
-            return [0] * len(self.shape)
-
     with pytest.raises(ValueError, match="evenly-sharded nz only"):
         ks3.make_overlap_chunk_fn(Mesh(4), nz=22, **kw)
     with pytest.raises(ValueError, match=r"needs >= 3\*K planes per shard"):

@@ -162,10 +162,6 @@ def test_select_k_steps_divides_steps_and_chunk(num_steps, every):
         k = lbm3d.select_k_steps(engine, num_steps, every)
         assert k == d3q19_kstep_blocked.choose_k(num_steps, every)
         assert num_steps % k == 0 and every % k == 0
-    # with the shape, the K of the kind that pick_engine names there
-    for engine in ("cuda", "cuda-inplace"):
-        assert (lbm3d.select_k_steps(engine, num_steps, every, shape=(32, 256, 256))
-                == lbm3d.select_k_steps(engine, num_steps, every))
 
 
 def test_cli_checkpoint_flags(tmp_path, capsys):
